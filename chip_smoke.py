@@ -1,0 +1,373 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``lidbox_tpu_torch``) on one GPU.
+
+Run from the repository root on a machine with an NVIDIA H100 (sm_90a):
+
+    python3 chip_smoke.py
+
+Phases, each of which fails the run:
+
+1. device and build: the card's name and power limit, then the fused
+   log-Mel CUDA kernel built with nvcc from ``lidbox_tpu_torch/csrc``;
+2. kernel vs plain on the geometry cases of the tests (odd lengths, mel
+   ranges, 8 kHz, fft < frame length, 25/2 ms);
+3. serving, the main path: a full-width x-vector (random weights from a
+   seed) behind ``serve.Classifier`` with ``stft_method: "pallas"``
+   classifies 32 whole 3 s wavs and the same wavs in 2 s / 1 s chunks, and
+   ``StreamingClassifier`` scores one of them online. The launch count is
+   zeroed just before and read just after, and every signal batch the
+   feature extractor hands on is kept. Scores must match the matmul
+   feature path on the card and the plain CPU path, and streaming must
+   match the offline chunked scores;
+4. kernel vs plain at the main path's shapes: ``fused_logmel`` against
+   ``logmel_plain`` on the very batches kept in phase 3 (bucketed: a 3 s
+   batch is padded to the 4 s bucket); kernel, plain and bound times per
+   shape, the largest one in the kernel table;
+5. the kernel table as one JSON line, the card line, and the result line.
+
+Every comparison of the kernel with its plain version holds float32 within
+atol 1e-4 + rtol 1e-4 (the allclose of the tests; the distance of each from
+a float64 evaluation is printed beside it), bfloat16 against the float32
+plain output within the JAX package's
+mean/median budget, and bfloat16 against the bfloat16 plain output (the
+same rounding points) within a budget set from chip readings.
+
+TF32 is turned off for matmuls and cuDNN convolutions, so float32 means
+float32 throughout. Served utterances/s is a smoke figure, not a benchmark.
+Exits non-zero without a CUDA device or without the package beside it.
+"""
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+SEED = 1234
+RATE = 16000
+LABELS = ["l0", "l1", "l2", "l3", "l4"]
+FEATURES_PALLAS = {"type": "logmelspectrogram",
+                   "melspectrogram": {"num_mel_bins": 64},
+                   "stft_method": "pallas"}
+# what extract_features hands fused_logmel for FEATURES_PALLAS
+KERNEL_KW = {"num_mel_bins": 64}
+# Published H100 SXM peaks (NVIDIA data sheet, 700 W).
+PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+# float32: |kernel - plain| <= atol + rtol * |plain|, the allclose of
+# tests/test_ops.py. Two float32 summation orders differ most at low-energy
+# mel bins (large negative log values), hence the relative term.
+F32_ATOL = F32_RTOL = 1e-4
+BF16_MEAN, BF16_MEDIAN = 5e-2, 3e-2             # vs float32 plain
+BF16_PLAIN_MEAN, BF16_PLAIN_MEDIAN = 1e-4, 1e-5  # vs bfloat16 plain
+SERVE_ATOL = 1e-4
+STREAM_ATOL = 1e-5
+
+
+def check(ok, message):
+    if not ok:
+        raise RuntimeError(message)
+
+
+def card_line():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def noisy_sines(rng, batch, seconds, rate):
+    t = np.arange(int(rate * seconds)) / rate
+    freqs = rng.uniform(100.0, 1000.0, (batch, 1))
+    sig = np.sin(2 * np.pi * freqs * t) + 0.1 * rng.uniform(-1, 1, (batch, t.size))
+    return (0.7 * sig / np.abs(sig).max(axis=1, keepdims=True)).astype(np.float32)
+
+
+def cuda_ms(fn, reps=7, iters=20):
+    """Median over ``reps`` of the mean time of ``iters`` launches."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return float(np.median(times))
+
+
+def geometry(logmel, rate, kw, bf16=False):
+    """(frame length, frame step, W, M) of one fused_logmel call."""
+    from lidbox_tpu_torch.features import audio
+    fl = audio.ms_to_frames(rate, kw.get("frame_length_ms", 25))
+    fs = audio.ms_to_frames(rate, kw.get("frame_step_ms", 10))
+    W, M = logmel.kernel_bases(fl, kw.get("fft_length", 512),
+                               kw.get("num_mel_bins", 64), rate,
+                               kw.get("fmin", 0.0), kw.get("fmax", 8000.0), bf16)
+    return fl, fs, W, M
+
+
+def logmel_bound(logmel, batch, samples, rate, precision, kw):
+    """Least time the card could take: the larger of operations over the
+    peak rate of their type and bytes (signal in once, log-Mel out once)
+    over the memory rate. Counts the bins the kernel computes (nonzero mel
+    weight)."""
+    fl, fs, W, M = geometry(logmel, rate, kw, precision == "bf16")
+    frames = 1 + (samples - fl) // fs
+    L, NB, n_mel = W.shape[0], M.shape[0], M.shape[1]
+    flops = 2 * batch * frames * (L * 2 * NB + NB * n_mel)
+    nbytes = 4 * batch * samples + 4 * batch * frames * n_mel
+    peak = PEAK_BF16_FLOPS if precision == "bf16" else PEAK_F32_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def logmel_f64(logmel, x, rate, kw):
+    """The kernel's function evaluated in float64 on the card: how far each
+    float32 evaluation is from the exact value."""
+    fl, fs, W, M = geometry(logmel, rate, kw)
+    W = torch.as_tensor(W, dtype=torch.float64, device=x.device)
+    M = torch.as_tensor(M, dtype=torch.float64, device=x.device)
+    y = x.double().unfold(1, fl, fs)[..., :W.shape[0]] @ W
+    NB = M.shape[0]
+    return torch.log((y[..., :NB] ** 2 + y[..., NB:] ** 2) @ M + 1e-6)
+
+
+def compare(logmel, name, x, rate, kw):
+    """fused_logmel against logmel_plain on one CUDA tensor, both modes.
+    Returns the float32 max abs error."""
+    ref = logmel.logmel_plain(x, rate, **kw)
+    out = logmel.fused_logmel(x, rate, **kw)
+    exact = logmel_f64(logmel, x, rate, kw)
+    torch.cuda.synchronize()
+    check(out.shape == ref.shape, f"{name}: shape {out.shape} != {ref.shape}")
+    diff = (out - ref).abs()
+    err = diff.max().item()
+    excess = (diff / (F32_ATOL + F32_RTOL * ref.abs())).max().item()
+    check(excess <= 1.0, f"{name}: float32 max abs error {err} beyond atol "
+                         f"{F32_ATOL} + rtol {F32_RTOL}")
+    out16 = logmel.fused_logmel(x, rate, precision="bf16", **kw)
+    ref16 = logmel.logmel_plain(x, rate, precision="bf16", **kw)
+    torch.cuda.synchronize()
+    e16, p16 = (out16 - ref).abs(), (out16 - ref16).abs()
+    mean16, median16 = e16.mean().item(), e16.median().item()
+    pmean, pmedian = p16.mean().item(), p16.median().item()
+    check(mean16 < BF16_MEAN and median16 < BF16_MEDIAN,
+          f"{name}: bf16 vs float32 plain mean {mean16} median {median16}")
+    check(pmean < BF16_PLAIN_MEAN and pmedian < BF16_PLAIN_MEDIAN,
+          f"{name}: bf16 vs bf16 plain mean {pmean} median {pmedian}")
+    print(f"kernel case {name}: shape {tuple(out.shape)} float32 max abs "
+          f"err {err:.3e} ({excess:.2f} of tolerance), vs float64: kernel "
+          f"{(out - exact).abs().max().item():.3e} plain "
+          f"{(ref - exact).abs().max().item():.3e}; bf16 vs float32 plain "
+          f"mean {mean16:.3e} median {median16:.3e}; bf16 vs bf16 plain mean "
+          f"{pmean:.3e} median {pmedian:.3e} max {p16.max().item():.3e}")
+    return err
+
+
+def phase_geometry(logmel, rng):
+    cases = [  # name, batch, seconds, rate, kwargs
+        ("1.5s", 2, 1.5, 16000, {}),
+        ("2.3456s", 2, 2.3456, 16000, {}),
+        ("40mel_20-7000Hz", 2, 1.0, 16000,
+         {"num_mel_bins": 40, "fmin": 20.0, "fmax": 7000.0}),
+        ("80mel_0-8000Hz", 2, 1.0, 16000, {"num_mel_bins": 80}),
+        ("8kHz_fmax8000", 2, 1.0, 8000, {}),
+        ("fft256_frame400", 2, 1.0, 16000, {"fft_length": 256}),
+        ("25/2ms", 2, 0.5, 16000, {"frame_step_ms": 2}),
+    ]
+    worst = 0.0
+    for name, batch, seconds, rate, kw in cases:
+        x = torch.as_tensor(noisy_sines(rng, batch, seconds, rate),
+                            device="cuda")
+        worst = max(worst, compare(logmel, name, x, rate, kw))
+    return worst
+
+
+def phase_path_kernel(logmel, batches):
+    """The kernel on the signal batches the main path handed it: each one
+    compared with the plain version, each shape timed."""
+    worst = 0.0
+    timing = {}
+    with torch.inference_mode():
+        for i, (x, rate) in enumerate(batches):
+            name = f"path{i}_{x.shape[0]}x{x.shape[1]}"
+            worst = max(worst, compare(logmel, name, x, rate, KERNEL_KW))
+        for x, rate in {tuple(x.shape): (x, rate) for x, rate in batches}.values():
+            B, T = x.shape
+            for precision in ("highest", "bf16"):
+                kw = dict(KERNEL_KW, precision=precision)
+                ms = cuda_ms(lambda: logmel.fused_logmel(x, rate, **kw))
+                plain_ms = cuda_ms(lambda: logmel.logmel_plain(x, rate, **kw))
+                bound_ms, bound_by = logmel_bound(logmel, B, T, rate,
+                                                  precision, KERNEL_KW)
+                timing[(B * T, precision)] = (ms, plain_ms, bound_ms, bound_by)
+                print(f"fused_logmel [{B}, {T}] 64 mel precision={precision}: "
+                      f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                      f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} "
+                      f"of bound")
+    largest = max(size for size, _ in timing)
+    return worst, timing[(largest, "highest")]
+
+
+def write_wavs(io, root, rng, n, seconds):
+    paths = []
+    for i, sig in enumerate(noisy_sines(rng, n, seconds, RATE)):
+        p = os.path.join(root, f"utt{i:03d}.wav")
+        io.write_mono_wav(p, sig, RATE)
+        paths.append(p)
+    return paths
+
+
+def phase_serve(root, rng):
+    """Drives the main path; returns the kernel's launch count over it and
+    the signal batches the feature extractor handed on."""
+    from lidbox_tpu_torch import models, serve
+    from lidbox_tpu_torch.data.device_pipeline import DeviceFeatureExtractor
+    from lidbox_tpu_torch.features import io
+    from lidbox_tpu_torch.ops import logmel
+
+    n = 32
+    paths = write_wavs(io, root, rng, n, 3.0)
+    ids = [f"utt{i:03d}" for i in range(n)]
+    frames = 1 + (3 * RATE - 400) // 160
+
+    def model(device):
+        return models.create("xvector", (frames, 64), len(LABELS),
+                             device=device).init(
+            torch.Generator().manual_seed(SEED))
+
+    gpu_model = model("cuda")
+    print(f"x-vector: {gpu_model.num_params()} parameters, 64 mel, "
+          f"{len(LABELS)} labels")
+    whole = serve.Classifier(gpu_model, LABELS, feature_config=FEATURES_PALLAS,
+                             batch_size=32, device="cuda")
+    chunked = serve.Classifier(gpu_model, LABELS, feature_config=FEATURES_PALLAS,
+                               chunk_length_ms=2000, chunk_step_ms=1000,
+                               batch_size=32, device="cuda")
+    stream = serve.StreamingClassifier(gpu_model, LABELS,
+                                       feature_config=FEATURES_PALLAS,
+                                       sample_rate=RATE, chunk_seconds=2.0,
+                                       hop_seconds=1.0, device="cuda")
+    signal, _ = io.read_wav(paths[0])
+    whole.classify(paths[:4], ids=ids[:4])  # warm-up: cuDNN, allocator
+
+    batches = []
+    extract = DeviceFeatureExtractor.extract
+
+    def keeping(self, signals, sample_rate, **kw):
+        batches.append((signals.clone(), int(sample_rate)))
+        return extract(self, signals, sample_rate, **kw)
+
+    DeviceFeatureExtractor.extract = keeping
+    try:
+        logmel.fused_logmel.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = whole.classify(paths, ids=ids)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out_chunked = chunked.classify(paths, ids=ids)
+        for block in np.array_split(signal, [1234, 20000, 20333]):
+            stream.feed(block)
+        torch.cuda.synchronize()
+        launches = logmel.fused_logmel.launches
+    finally:
+        DeviceFeatureExtractor.extract = extract
+
+    check(launches > 0, "serving never launched the log-Mel kernel")
+    check(launches == len(batches),
+          f"{launches} kernel launches for {len(batches)} feature batches")
+    check(out["id"] == ids and out_chunked["id"] == ids, "ids lost or reordered")
+    scores = np.stack([out[f"score_{l}"] for l in LABELS], axis=1)
+    scores_chunked = np.stack([out_chunked[f"score_{l}"] for l in LABELS], axis=1)
+    for name, s in (("whole", scores), ("chunked", scores_chunked)):
+        check(s.shape == (n, len(LABELS)) and np.isfinite(s).all(),
+              f"{name}: scores not finite of shape ({n}, {len(LABELS)})")
+        check(np.allclose(np.exp(s).sum(axis=1), 1.0, atol=1e-4),
+              f"{name}: log-probabilities do not sum to 1")
+    shapes = [tuple(x.shape) for x, _ in batches]
+    print(f"serving: {n} whole 3 s utterances in {t1 - t0:.4f} s "
+          f"({n / (t1 - t0):.1f} utt/s, smoke figure, not a benchmark); "
+          f"kernel launches over whole + chunked + streaming: {launches}, "
+          f"signal batches {shapes}")
+
+    matmul_cfg = dict(FEATURES_PALLAS, stft_method="matmul")
+    ref = serve.Classifier(gpu_model, LABELS, feature_config=matmul_cfg,
+                           batch_size=32, device="cuda").scores(paths, ids=ids)
+    ref_chunked = serve.Classifier(
+        gpu_model, LABELS, feature_config=matmul_cfg, chunk_length_ms=2000,
+        chunk_step_ms=1000, batch_size=32, device="cuda").scores(paths, ids=ids)
+    err_mm = max(np.abs(scores - ref["prediction"]).max(),
+                 np.abs(scores_chunked - ref_chunked["prediction"]).max())
+    check(err_mm <= SERVE_ATOL, f"pallas vs matmul scores differ by {err_mm}")
+
+    cpu = serve.Classifier(model("cpu"), LABELS, feature_config=FEATURES_PALLAS,
+                           batch_size=32, device="cpu").scores(paths[:4],
+                                                               ids=ids[:4])
+    err_cpu = np.abs(scores[:4] - cpu["prediction"]).max()
+    check(err_cpu <= SERVE_ATOL, f"card vs CPU plain scores differ by {err_cpu}")
+    print(f"serving scores: kernel vs matmul path max abs diff {err_mm:.3e}, "
+          f"card vs CPU plain path {err_cpu:.3e} (tolerance {SERVE_ATOL})")
+
+    err_stream = np.abs(stream.scores() - scores_chunked[0]).max()
+    check(err_stream <= STREAM_ATOL,
+          f"streaming vs offline chunked scores differ by {err_stream}")
+    print(f"streaming vs offline chunked: max abs diff {err_stream:.3e} "
+          f"(tolerance {STREAM_ATOL}), {stream._num_chunks} chunks")
+    return launches, batches
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("TF32 off for matmuls and cuDNN convolutions")
+    from lidbox_tpu_torch.ops import logmel
+
+    card = card_line()
+    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    t0 = time.perf_counter()
+    logmel.build()
+    print(f"build: {logmel.LIBRARY} in {time.perf_counter() - t0:.2f} s")
+
+    rng = np.random.default_rng(SEED)
+    geometry_err = phase_geometry(logmel, rng)
+    with tempfile.TemporaryDirectory() as root:
+        launches, batches = phase_serve(root, rng)
+    path_err, (ms, plain_ms, bound_ms, bound_by) = phase_path_kernel(
+        logmel, batches)
+
+    print(json.dumps({"kernels": [{
+        "name": "fused_logmel",
+        "route": "cuda",
+        "source": "lidbox_tpu_torch/csrc/logmel.cu",
+        "replaces": "lidbox_tpu/ops/logmel.py:154",
+        "launches": launches,
+        "max_abs_err": max(geometry_err, path_err),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

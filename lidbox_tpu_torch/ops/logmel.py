@@ -1,0 +1,201 @@
+"""
+Fused waveform -> log-Mel: the port of the JAX package's Pallas kernel.
+
+Replaces ``lidbox_tpu/ops/logmel.py::_logmel_kernel_packed`` (launched by
+``fused_logmel_packed``) with a CUDA C++ kernel for Hopper,
+``lidbox_tpu_torch/csrc/logmel.cu``: one launch computes frames ->
+Hann-windowed DFT -> power -> HTK mel -> ``log(x + 1e-6)``, and neither the
+frame tensor nor the power spectrogram goes to device memory.
+
+What bounds it on the card: the DFT contraction. At b32 x 3 s (25/10 ms,
+fft 512, 64 mel) it is ~4.2 GFLOP against ~8.5 MB of signal in and log-Mel
+out, far above the card's operations-per-byte balance, so the kernel is
+bound by operations. The design keeps every intermediate on chip and feeds
+the float32 FMAs from shared-memory broadcasts (see the source's header);
+tensor cores (wgmma) are later work.
+
+``fused_logmel`` is the wrapper: on a CPU tensor it computes the plain
+version, ``logmel_plain``; on a CUDA tensor it launches the kernel or
+raises. There is no fallback from one to the other. The kernel is built with
+``nvcc`` for ``sm_90a`` into ``lidbox_tpu_torch/_build/`` at first use and
+loaded with ctypes; a missing ``nvcc`` or a failed build raises.
+"""
+import ctypes
+import functools
+import os
+import shutil
+import subprocess
+import tempfile
+
+import numpy as np
+import torch
+
+from lidbox_tpu_torch.features import audio, mel_ops
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG_DIR, "csrc", "logmel.cu")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+LIBRARY = os.path.join(BUILD_DIR, "liblogmel.so")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+MAX_GRID_Y = 65535
+
+_lib = None
+
+
+def _find_nvcc():
+    nvcc = shutil.which("nvcc")
+    if nvcc is None:
+        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        candidate = os.path.join(home, "bin", "nvcc")
+        if os.path.exists(candidate):
+            nvcc = candidate
+    if nvcc is None:
+        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin or "
+                           "/usr/local/cuda/bin): the log-Mel kernel cannot "
+                           "be built")
+    return nvcc
+
+
+def build():
+    """Compile ``csrc/logmel.cu`` into ``_build/liblogmel.so`` unless the
+    library is newer than the source. Returns the library path."""
+    if (os.path.exists(LIBRARY)
+            and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE)):
+        return LIBRARY
+    nvcc = _find_nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, SOURCE],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, LIBRARY)  # atomic: a concurrent loader never sees half a file
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return LIBRARY
+
+
+def _load_library():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.lidbox_logmel.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 8 + [ptr]
+        lib.lidbox_logmel.restype = i32
+        lib.lidbox_logmel_error_string.argtypes = [i32]
+        lib.lidbox_logmel_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+@functools.lru_cache(maxsize=16)
+def kernel_bases(frame_length, fft_length, num_mel_bins, sample_rate, fmin,
+                 fmax, bf16):
+    """numpy (W [L, 2 * NB], M [NB, num_mel_bins]) for the kernel.
+
+    L = min(frame_length, fft_length) basis rows (tf.signal's truncation).
+    Only the bins with a nonzero mel weight are kept: the DC bin and, when
+    fmax <= rate / 2, the Nyquist bin contribute exactly zero, so dropping
+    them changes no value; with fmax above the Nyquist rate the Nyquist bin
+    is kept. In bf16 mode both operands are rounded to bfloat16 here."""
+    cos_b, sin_b = audio._windowed_dft_basis(frame_length, fft_length)
+    mel = mel_ops.linear_to_mel_weight_matrix(
+        num_mel_bins=num_mel_bins, num_spectrogram_bins=fft_length // 2 + 1,
+        sample_rate=sample_rate, lower_edge_hertz=fmin, upper_edge_hertz=fmax)
+    used = np.flatnonzero(np.any(mel != 0.0, axis=1))
+    k0, k1 = (int(used[0]), int(used[-1]) + 1) if used.size else (0, 1)
+    rows = min(frame_length, fft_length)
+    W = np.ascontiguousarray(np.concatenate(
+        [cos_b[:rows, k0:k1], sin_b[:rows, k0:k1]], axis=1))
+    M = np.ascontiguousarray(mel[k0:k1])
+    if bf16:
+        W, M = (torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+                for a in (W, M))
+    return W, M
+
+
+@functools.lru_cache(maxsize=16)
+def _device_bases(key, device):
+    return tuple(torch.as_tensor(a, device=device) for a in kernel_bases(*key))
+
+
+def fused_logmel(signals, sample_rate, frame_length_ms=25, frame_step_ms=10,
+                 fft_length=512, num_mel_bins=64, fmin=0.0, fmax=8000.0,
+                 precision="highest"):
+    """[B, T] float32 waveforms -> [B, frames, num_mel_bins] float32 log-Mel.
+
+    CPU tensor: ``logmel_plain``. CUDA tensor: the CUDA kernel (counted in
+    ``fused_logmel.launches``), or an exception. ``precision`` is
+    ``"highest"`` (float32) or ``"bf16"`` (bfloat16 operands, float32
+    accumulation, power rounded to bfloat16 before the mel product)."""
+    if precision not in ("highest", "bf16"):
+        raise ValueError(f"fused_logmel computes precision 'highest' or "
+                         f"'bf16', not {precision!r}")
+    if not isinstance(signals, torch.Tensor) or signals.dim() != 2:
+        raise ValueError("signals must be a [batch, samples] tensor")
+    if signals.dtype != torch.float32:
+        raise ValueError(f"signals must be float32, got {signals.dtype}")
+    frame_length = audio.ms_to_frames(sample_rate, frame_length_ms)
+    frame_step = audio.ms_to_frames(sample_rate, frame_step_ms)
+    if frame_length <= 0 or frame_step <= 0:
+        raise ValueError(f"frames of {frame_length} samples every "
+                         f"{frame_step} samples are empty")
+    B, T = signals.shape
+    num_frames = audio.num_frames(T, frame_length, frame_step)
+    if num_frames == 0:
+        raise ValueError(f"signal of {T} samples is shorter than one "
+                         f"{frame_length}-sample frame")
+    if signals.device.type == "cpu":
+        return logmel_plain(signals, sample_rate, frame_length_ms,
+                            frame_step_ms, fft_length, num_mel_bins, fmin,
+                            fmax, precision)
+    if signals.device.type != "cuda":
+        raise ValueError(f"fused_logmel runs on cpu or cuda tensors, not "
+                         f"{signals.device.type}")
+    lib = _load_library()
+    if not signals.is_contiguous():
+        raise ValueError("signals must be contiguous")
+    if B > MAX_GRID_Y:
+        raise ValueError(f"batch {B} exceeds the kernel grid's {MAX_GRID_Y}")
+    key = (frame_length, fft_length, int(num_mel_bins), int(sample_rate),
+           float(fmin), float(fmax), precision == "bf16")
+    W, M = _device_bases(key, signals.device)
+    L, NB = W.shape[0], M.shape[0]
+    out = torch.empty((B, num_frames, num_mel_bins), dtype=torch.float32,
+                      device=signals.device)
+    with torch.cuda.device(signals.device):
+        stream = torch.cuda.current_stream(signals.device).cuda_stream
+        err = lib.lidbox_logmel(
+            signals.data_ptr(), W.data_ptr(), M.data_ptr(), out.data_ptr(),
+            B, T, num_frames, frame_step, L, NB, num_mel_bins,
+            int(precision == "bf16"), stream)
+    if err != 0:
+        raise RuntimeError(f"log-Mel kernel launch failed (basis rows {L}, "
+                           f"bins {NB}): "
+                           + lib.lidbox_logmel_error_string(err).decode())
+    fused_logmel.launches += 1
+    return out
+
+
+fused_logmel.launches = 0
+
+
+def logmel_plain(signals, sample_rate, frame_length_ms=25, frame_step_ms=10,
+                 fft_length=512, num_mel_bins=64, fmin=0.0, fmax=8000.0,
+                 precision="highest"):
+    """The kernel's function in plain PyTorch: unfold + DFT-basis matmul +
+    mel matmul + log, with the same bfloat16 rounding points in ``"bf16"``
+    (the analogue of ``lidbox_tpu.ops.logmel_reference``)."""
+    S = audio.spectrograms(signals, sample_rate,
+                           frame_length_ms=frame_length_ms,
+                           frame_step_ms=frame_step_ms,
+                           fft_length=fft_length, method="matmul",
+                           precision=precision)
+    mel = audio.linear_to_mel(S, sample_rate, num_mel_bins=num_mel_bins,
+                              fmin=fmin, fmax=fmax, precision=precision)
+    return torch.log(mel + 1e-6)
