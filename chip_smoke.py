@@ -8,9 +8,11 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a):
 Phases, each of which fails the run:
 
 1. device and build: the card's name and power limit, then the fused
-   log-Mel CUDA kernel built with nvcc from ``lidbox_tpu_torch/csrc``;
+   log-Mel CUDA kernel built with nvcc from ``lidbox_tpu_torch/csrc``, and
+   the instruction each precision mode runs, as the library reports it;
 2. kernel vs plain on the geometry cases of the tests (odd lengths, mel
-   ranges, 8 kHz, fft < frame length, 25/2 ms);
+   ranges, 8 kHz, fft < frame length, 25/2 ms) and on fft 2048 and 4096,
+   whose power tiles take the kernel's smaller frame tiles;
 3. serving, the main path: a full-width x-vector (random weights from a
    seed) behind ``serve.Classifier`` with ``stft_method: "pallas"``
    classifies 32 whole 3 s wavs and the same wavs in 2 s / 1 s chunks, and
@@ -22,7 +24,11 @@ Phases, each of which fails the run:
 4. kernel vs plain at the main path's shapes: ``fused_logmel`` against
    ``logmel_plain`` on the very batches kept in phase 3 (bucketed: a 3 s
    batch is padded to the 4 s bucket); kernel, plain and bound times per
-   shape, the largest one in the kernel table;
+   shape, the largest one in the kernel table. The bound of "highest" is
+   its 3xTF32 tensor-core work (3 products at 495 TFLOP/s), with the
+   float32 CUDA-core bound printed beside it; ``dft_gemm_ms`` is one cuBLAS
+   float32 product of the unfolded frames by the DFT basis, a yardstick
+   for the bulk of the work;
 5. the kernel table as one JSON line, the card line, and the result line.
 
 Every comparison of the kernel with its plain version holds float32 within
@@ -56,8 +62,12 @@ FEATURES_PALLAS = {"type": "logmelspectrogram",
 KERNEL_KW = {"num_mel_bins": 64}
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W).
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# Tensor-core products per float32 product, and their peak: "highest" runs
+# as 3xTF32, "bf16" as one bf16 product.
+PRODUCTS = {"highest": (3, PEAK_TF32_FLOPS), "bf16": (1, PEAK_BF16_FLOPS)}
 # float32: |kernel - plain| <= atol + rtol * |plain|, the allclose of
 # tests/test_ops.py. Two float32 summation orders differ most at low-energy
 # mel bins (large negative log values), hence the relative term.
@@ -105,41 +115,62 @@ def cuda_ms(fn, reps=7, iters=20):
     return float(np.median(times))
 
 
-def geometry(logmel, rate, kw, bf16=False):
-    """(frame length, frame step, W, M) of one fused_logmel call."""
+def geometry(logmel, rate, kw):
+    """(frame length, frame step, L, NB, W, M) of one fused_logmel call: L
+    basis rows and NB weighted bins (unpadded), W [L, 2 * NB] (bin i's cos
+    and sin at columns 2i, 2i + 1) and M [NB, n_mel], float32."""
     from lidbox_tpu_torch.features import audio
     fl = audio.ms_to_frames(rate, kw.get("frame_length_ms", 25))
     fs = audio.ms_to_frames(rate, kw.get("frame_step_ms", 10))
-    W, M = logmel.kernel_bases(fl, kw.get("fft_length", 512),
-                               kw.get("num_mel_bins", 64), rate,
-                               kw.get("fmin", 0.0), kw.get("fmax", 8000.0), bf16)
-    return fl, fs, W, M
+    fft, n_mel = kw.get("fft_length", 512), kw.get("num_mel_bins", 64)
+    W, M = logmel.kernel_bases(fl, fft, n_mel, rate, kw.get("fmin", 0.0),
+                               kw.get("fmax", 8000.0), False)
+    L, NB = min(fl, fft), int(np.flatnonzero(M.any(axis=1))[-1]) + 1
+    return fl, fs, L, NB, W[:L, :2 * NB], M[:NB, :n_mel]
+
+
+def logmel_work(logmel, batch, samples, rate, kw):
+    """(operations, bytes) of one call: the two products over the bins the
+    kernel computes (nonzero mel weight); signal in once, log-Mel out once."""
+    fl, fs, L, NB, _, M = geometry(logmel, rate, kw)
+    frames = 1 + (samples - fl) // fs
+    flops = 2 * batch * frames * (L * 2 * NB + NB * M.shape[1])
+    return flops, 4 * batch * samples + 4 * batch * frames * M.shape[1]
+
+
+def bound(flops, nbytes, peak):
+    """Least time the card could take: the larger of operations over their
+    peak rate and bytes over the memory rate."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def logmel_bound(logmel, batch, samples, rate, precision, kw):
-    """Least time the card could take: the larger of operations over the
-    peak rate of their type and bytes (signal in once, log-Mel out once)
-    over the memory rate. Counts the bins the kernel computes (nonzero mel
-    weight)."""
-    fl, fs, W, M = geometry(logmel, rate, kw, precision == "bf16")
-    frames = 1 + (samples - fl) // fs
-    L, NB, n_mel = W.shape[0], M.shape[0], M.shape[1]
-    flops = 2 * batch * frames * (L * 2 * NB + NB * n_mel)
-    nbytes = 4 * batch * samples + 4 * batch * frames * n_mel
-    peak = PEAK_BF16_FLOPS if precision == "bf16" else PEAK_F32_FLOPS
-    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    """The bound of the kernel's own arithmetic: 3xTF32 tensor-core products
+    in "highest", one bf16 product in "bf16"."""
+    flops, nbytes = logmel_work(logmel, batch, samples, rate, kw)
+    products, peak = PRODUCTS[precision]
+    return bound(products * flops, nbytes, peak)
 
 
 def logmel_f64(logmel, x, rate, kw):
     """The kernel's function evaluated in float64 on the card: how far each
     float32 evaluation is from the exact value."""
-    fl, fs, W, M = geometry(logmel, rate, kw)
+    fl, fs, L, _, W, M = geometry(logmel, rate, kw)
     W = torch.as_tensor(W, dtype=torch.float64, device=x.device)
     M = torch.as_tensor(M, dtype=torch.float64, device=x.device)
-    y = x.double().unfold(1, fl, fs)[..., :W.shape[0]] @ W
-    NB = M.shape[0]
-    return torch.log((y[..., :NB] ** 2 + y[..., NB:] ** 2) @ M + 1e-6)
+    y = x.double().unfold(1, fl, fs)[..., :L] @ W
+    return torch.log((y[..., 0::2] ** 2 + y[..., 1::2] ** 2) @ M + 1e-6)
+
+
+def dft_gemm_ms(logmel, x, rate, kw):
+    """Yardstick for the bulk of the work: one cuBLAS float32 product of the
+    unfolded frames [B * frames, L] by W [L, 2 * NB] (TF32 off). Not a call
+    the port makes, and not the whole function."""
+    fl, fs, L, _, W, _ = geometry(logmel, rate, kw)
+    frames = x.unfold(1, fl, fs)[..., :L].reshape(-1, L).contiguous()
+    W = torch.as_tensor(W, device=x.device).contiguous()
+    return cuda_ms(lambda: torch.matmul(frames, W))
 
 
 def compare(logmel, name, x, rate, kw):
@@ -184,6 +215,9 @@ def phase_geometry(logmel, rng):
         ("8kHz_fmax8000", 2, 1.0, 8000, {}),
         ("fft256_frame400", 2, 1.0, 16000, {"fft_length": 256}),
         ("25/2ms", 2, 0.5, 16000, {"frame_step_ms": 2}),
+        # power tiles of 1024 and 2048 bins: the 32- and 16-frame tiles
+        ("fft2048", 2, 1.0, 16000, {"fft_length": 2048}),
+        ("fft4096", 2, 1.0, 16000, {"fft_length": 4096}),
     ]
     worst = 0.0
     for name, batch, seconds, rate, kw in cases:
@@ -204,6 +238,14 @@ def phase_path_kernel(logmel, batches):
             worst = max(worst, compare(logmel, name, x, rate, KERNEL_KW))
         for x, rate in {tuple(x.shape): (x, rate) for x, rate in batches}.values():
             B, T = x.shape
+            flops, nbytes = logmel_work(logmel, B, T, rate, KERNEL_KW)
+            cores_ms, _ = bound(flops, nbytes, PEAK_F32_FLOPS)
+            gemm = (f", dft_gemm_ms "
+                    f"{dft_gemm_ms(logmel, x, rate, KERNEL_KW):.4f}"
+                    if B > 1 else "")
+            print(f"fused_logmel [{B}, {T}]: {flops / 1e9:.3f} GFLOP, "
+                  f"{nbytes / 1e6:.2f} MB; float32 CUDA-core bound "
+                  f"{cores_ms:.4f} ms{gemm}")
             for precision in ("highest", "bf16"):
                 kw = dict(KERNEL_KW, precision=precision)
                 ms = cuda_ms(lambda: logmel.fused_logmel(x, rate, **kw))
@@ -211,10 +253,12 @@ def phase_path_kernel(logmel, batches):
                 bound_ms, bound_by = logmel_bound(logmel, B, T, rate,
                                                   precision, KERNEL_KW)
                 timing[(B * T, precision)] = (ms, plain_ms, bound_ms, bound_by)
+                cores = (f"; {cores_ms / ms:.1%} of the float32 CUDA-core "
+                         f"bound" if precision == "highest" else "")
                 print(f"fused_logmel [{B}, {T}] 64 mel precision={precision}: "
                       f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
                       f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} "
-                      f"of bound")
+                      f"of bound{cores}")
     largest = max(size for size, _ in timing)
     return worst, timing[(largest, "highest")]
 
@@ -341,6 +385,8 @@ def main():
     t0 = time.perf_counter()
     logmel.build()
     print(f"build: {logmel.LIBRARY} in {time.perf_counter() - t0:.2f} s")
+    for precision in ("highest", "bf16"):
+        print(f"kernel variant {precision}: {logmel.kernel_variant(precision)}")
 
     rng = np.random.default_rng(SEED)
     geometry_err = phase_geometry(logmel, rng)

@@ -110,6 +110,141 @@ def test_kernel_bases_keep_every_weighted_bin(rate, fl, fft, mel, fmax,
     assert (np.abs(full[-1]).sum() > 0) == nyquist_kept
 
 
+GEOMETRIES = [(16000, 400, 512, 64, 8000.0), (8000, 200, 512, 64, 8000.0),
+              (16000, 400, 256, 40, 7000.0)]
+
+
+def _weighted_bins(rate, fl, fft, mel, fmax):
+    """PR 1's kernel operands: W [L, 2 * NB] as cos | sin, M [NB, mel]."""
+    from lidbox_tpu_torch.features import audio, mel_ops
+    cos_b, sin_b = audio._windowed_dft_basis(fl, fft)
+    full = mel_ops.linear_to_mel_weight_matrix(mel, fft // 2 + 1, rate, 0.0,
+                                               fmax)
+    used = np.flatnonzero(np.any(full != 0.0, axis=1))
+    k0, k1, rows = used[0], used[-1] + 1, min(fl, fft)
+    return cos_b[:rows, k0:k1], sin_b[:rows, k0:k1], full[k0:k1]
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("rate,fl,fft,mel,fmax", GEOMETRIES)
+def test_kernel_operands_are_the_padded_interleaved_basis(rate, fl, fft, mel,
+                                                           fmax, bf16):
+    """The padded, interleaved operands map back exactly to the unpadded
+    cos | sin basis and mel matrix; every padding row and column is zero;
+    in "highest" the TF32 split recovers W within 2^-21 relative."""
+    cos_b, sin_b, mel_w = _weighted_bins(rate, fl, fft, mel, fmax)
+    rows, nb = cos_b.shape
+    W, M = logmel.kernel_bases(fl, fft, mel, rate, 0.0, fmax, bf16)
+    depth = 16 if bf16 else 8
+    assert W.shape[0] % depth == 0 and W.shape[0] - rows < depth
+    assert M.shape[0] % depth == 0 and M.shape[0] - nb < depth
+    assert W.shape[1] == 2 * M.shape[0] and M.shape[1] % 8 == 0
+    rnd = ((lambda a: torch.from_numpy(a).to(torch.bfloat16).float().numpy())
+           if bf16 else (lambda a: a))
+    np.testing.assert_array_equal(W[:rows, 0:2 * nb:2], rnd(cos_b))
+    np.testing.assert_array_equal(W[:rows, 1:2 * nb:2], rnd(sin_b))
+    np.testing.assert_array_equal(M[:nb, :mel], rnd(mel_w))
+    for pad in (W[rows:], W[:, 2 * nb:], M[nb:], M[:, mel:]):
+        assert not pad.any()
+    if not bf16:
+        hi, lo = logmel.split_tf32(W)
+        assert not (hi.view(np.uint32) & 0x1FFF).any()  # 10 mantissa bits
+        assert not (lo.view(np.uint32) & 0x1FFF).any()
+        assert (np.abs(hi.astype(np.float64) + lo - W)
+                <= 2.0 ** -21 * np.abs(W)).all()
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_mma_fragments_follow_the_ptx_lane_maps(bf16):
+    """Lane 4g + t of (k-step s, tile j) holds the B-fragment elements of
+    PTX's mma.sync tables: column 8j + g; rows t, t + 4 (m16n8k8 TF32, as
+    hi then lo) or 2t, 2t + 1, 2t + 8, 2t + 9 (m16n8k16 bf16)."""
+    depth = 16 if bf16 else 8
+    X = np.random.default_rng(0).standard_normal((3 * depth, 24)).astype(
+        np.float32)
+    F = logmel.mma_fragments(X, bf16).float().numpy()
+    assert F.shape == (3, 3, 32, 4)
+    s, j, lane = np.meshgrid(np.arange(3), np.arange(3), np.arange(32),
+                             indexing="ij")
+    t, col = lane % 4, 8 * j + lane // 4
+    if bf16:
+        Xb = torch.from_numpy(X).to(torch.bfloat16).float().numpy()
+        for e, row in enumerate((2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9)):
+            np.testing.assert_array_equal(F[..., e], Xb[depth * s + row, col])
+    else:
+        hi, lo = logmel.split_tf32(X)
+        for e, (part, row) in enumerate(((hi, t), (hi, t + 4), (lo, t),
+                                         (lo, t + 4))):
+            np.testing.assert_array_equal(F[..., e], part[depth * s + row, col])
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("rate,fl,fft,mel,fmax", GEOMETRIES)
+def test_device_operands_come_in_whole_kernel_loops(rate, fl, fft, mel, fmax,
+                                                    bf16):
+    """The fragments the kernel reads are kernel_bases zero-padded to whole
+    chunks, passes and mel rounds, so its loops need no guard."""
+    key = (fl, fft, mel, rate, 0.0, fmax, bf16)
+    W, M = logmel.kernel_bases(*key)
+    Wf, Mf, K, NB = logmel._device_bases(key, torch.device("cpu"))
+    rows, bins, mels = logmel.KERNEL_PADDING
+    assert K % rows == 0 and NB % bins == 0 and K - W.shape[0] < rows
+    assert tuple(Wf.shape) == (K // (16 if bf16 else 8), NB // 4, 32, 4)
+    assert Mf.shape[1] * 8 % mels == 0 and Mf.shape[1] * 8 - mel < mels
+    Wp = np.zeros((K, 2 * NB), np.float32)
+    Wp[:W.shape[0], :W.shape[1]] = W
+    Mp = np.zeros((NB, Mf.shape[1] * 8), np.float32)
+    Mp[:M.shape[0], :M.shape[1]] = M
+    assert torch.equal(logmel.mma_fragments(Wp, bf16), Wf)
+    assert torch.equal(logmel.mma_fragments(Mp, bf16), Mf)
+
+
+def _tf32_product(a, b, products):
+    """float32 a @ b as the kernel's mma.sync computes it: operands split by
+    TF32 round-to-nearest-away, each product of TF32 values exact, float32
+    accumulation; 3 products (hi*hi, and lo*hi + hi*lo summed apart and
+    added last) or 1 (hi*hi)."""
+    ah, al = (torch.from_numpy(v) for v in logmel.split_tf32(a))
+    bh, bl = (torch.from_numpy(v) for v in logmel.split_tf32(b))
+    if products == 1:
+        return (ah @ bh).numpy()
+    return (ah @ bh + (al @ bh + ah @ bl)).numpy()
+
+
+def _kernel_emulation(x, rate, fl, fs, fft, mel, fmax, products):
+    W, M = logmel.kernel_bases(fl, fft, mel, rate, 0.0, fmax, False)
+    frames = torch.as_tensor(x).unfold(1, fl, fs)[..., :min(fl, fft)].numpy()
+    A = np.zeros(frames.shape[:2] + (W.shape[0],), np.float32)
+    A[..., :frames.shape[-1]] = frames
+    Y = _tf32_product(A, W, products)
+    power = Y[..., 0::2] * Y[..., 0::2] + Y[..., 1::2] * Y[..., 1::2]
+    return np.log(_tf32_product(power, M, products)[..., :mel] + 1e-6)
+
+
+@pytest.mark.parametrize("rate,fl,fft,mel,fmax", GEOMETRIES)
+def test_3xtf32_product_holds_the_float32_budget(rate, fl, fft, mel, fmax):
+    """The kernel's "highest" numerics, emulated on the CPU: 3xTF32 agrees
+    with logmel_plain within the float32 budget of chip_smoke.py (atol 1e-4
+    + rtol 1e-4), and is closer to a float64 evaluation than one TF32
+    product."""
+    x = _signals(2, 1.0, rate)
+    fs = rate // 100
+    kw = dict(fft_length=fft, num_mel_bins=mel, fmax=fmax)
+    plain = logmel.logmel_plain(torch.as_tensor(x), rate, **kw).numpy()
+    three = _kernel_emulation(x, rate, fl, fs, fft, mel, fmax, 3)
+    one = _kernel_emulation(x, rate, fl, fs, fft, mel, fmax, 1)
+    W, M = logmel.kernel_bases(fl, fft, mel, rate, 0.0, fmax, False)
+    frames = np.lib.stride_tricks.sliding_window_view(
+        x.astype(np.float64), fl, axis=1)[:, ::fs, :W.shape[0]]
+    Y = frames @ W[:frames.shape[-1]].astype(np.float64)
+    exact = np.log((Y[..., 0::2] ** 2 + Y[..., 1::2] ** 2)
+                   @ M.astype(np.float64)[:, :mel] + 1e-6)
+    assert three.shape == plain.shape == exact.shape
+    np.testing.assert_allclose(three, plain, rtol=1e-4, atol=1e-4)
+    err3, err1 = (np.abs(v - exact).max() for v in (three, one))
+    assert err3 < err1, (err3, err1)
+
+
 def test_pallas_request_reaches_fused_wrapper(monkeypatch):
     """Canary: stft_method="pallas" must reach ops.logmel.fused_logmel
     (the CUDA kernel on a CUDA tensor); the test fails if the dispatcher
