@@ -21,15 +21,33 @@ Phases, each of which fails the run:
    feature extractor hands on is kept. Scores must match the matmul
    feature path on the card and the plain CPU path, and streaming must
    match the offline chunked scores;
-4. kernel vs plain at the main path's shapes: ``fused_logmel`` against
+4. training, the second main path: ``ModelWrapper.from_config`` builds the
+   full-width x-vector (weights from the seed), Adam 1e-3, the NLL loss, a
+   C_avg metric, ``ModelCheckpoint`` and ``EarlyStopping``, and
+   ``fit_fused`` trains it with ``stft_method: "pallas"`` for 3 epochs of 8
+   batches of 32 class-separable 3 s noisy sines, validating on 2 batches.
+   The launch count is zeroed just before and read just after: one launch
+   per train step and per validation batch (3 x 8 + 2). The epoch loss
+   must fall, val_loss and C_avg be finite, the checkpoints carry the JAX
+   package's names, and the last one, restored into a fresh Trainer,
+   must evaluate exactly as the trained state does. The first 3 step
+   losses must match a run with ``stft_method: "matmul"`` on the card and
+   the first 2 those of a run on the CPU (the plain version), within rtol
+   1e-3. cuDNN runs its deterministic algorithms in this phase;
+5. kernel vs plain at the main paths' shapes: ``fused_logmel`` against
    ``logmel_plain`` on the very batches kept in phase 3 (bucketed: a 3 s
-   batch is padded to the 4 s bucket); kernel, plain and bound times per
+   batch is padded to the 4 s bucket) and on a training batch, [32, 48000]
+   (fixed-length crops, no bucket); kernel, plain and bound times per
    shape, the largest one in the kernel table. The bound of "highest" is
    its 3xTF32 tensor-core work (3 products at 495 TFLOP/s), with the
    float32 CUDA-core bound printed beside it; ``dft_gemm_ms`` is one cuBLAS
    float32 product of the unfolded frames by the DFT basis, a yardstick
    for the bulk of the work;
-5. the kernel table as one JSON line, the card line, and the result line.
+6. the steady train step at [32, 48000]: the median of 30 steps on CUDA
+   events, split into features, forward + backward and optimizer, beside
+   the kernel's time at that shape and its share of the step, and the
+   device's busy time over 5 steps under ``torch.profiler``;
+7. the kernel table as one JSON line, the card line, and the result line.
 
 Every comparison of the kernel with its plain version holds float32 within
 atol 1e-4 + rtol 1e-4 (the allclose of the tests; the distance of each from
@@ -44,6 +62,7 @@ Exits non-zero without a CUDA device or without the package beside it.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -76,6 +95,16 @@ BF16_MEAN, BF16_MEDIAN = 5e-2, 3e-2             # vs float32 plain
 BF16_PLAIN_MEAN, BF16_PLAIN_MEDIAN = 1e-4, 1e-5  # vs bfloat16 plain
 SERVE_ATOL = 1e-4
 STREAM_ATOL = 1e-5
+# Training: 3 epochs of 8 batches of 32 x 3 s, 2 validation batches. The
+# first step losses of the kernel, matmul and CPU runs agree within
+# TRAIN_RTOL, not exactly: their features differ in float32 rounding, and
+# Adam's first updates (about lr * sign(g)) amplify that wherever a gradient
+# sits near zero. cuDNN runs its deterministic algorithms in that phase, so
+# the comparison reads the same on every run of one tree.
+TRAIN_BATCHES, VAL_BATCHES, TRAIN_EPOCHS = 8, 2, 3
+TRAIN_BATCH, TRAIN_SECONDS = 32, 3.0
+TRAIN_RTOL = 1e-3
+CKPT_NAME = re.compile(r"^epoch\d{6}__val_loss-?\d+\.\d{12}\.ckpt$")
 
 
 def check(ok, message):
@@ -228,8 +257,10 @@ def phase_geometry(logmel, rng):
 
 
 def phase_path_kernel(logmel, batches):
-    """The kernel on the signal batches the main path handed it: each one
-    compared with the plain version, each shape timed."""
+    """The kernel on the signal batches the main paths handed it: each one
+    compared with the plain version, each shape timed. Returns the worst
+    float32 error and {(B, T, precision): (ms, plain_ms, bound_ms,
+    bound_by)}."""
     worst = 0.0
     timing = {}
     with torch.inference_mode():
@@ -252,15 +283,14 @@ def phase_path_kernel(logmel, batches):
                 plain_ms = cuda_ms(lambda: logmel.logmel_plain(x, rate, **kw))
                 bound_ms, bound_by = logmel_bound(logmel, B, T, rate,
                                                   precision, KERNEL_KW)
-                timing[(B * T, precision)] = (ms, plain_ms, bound_ms, bound_by)
+                timing[(B, T, precision)] = (ms, plain_ms, bound_ms, bound_by)
                 cores = (f"; {cores_ms / ms:.1%} of the float32 CUDA-core "
                          f"bound" if precision == "highest" else "")
                 print(f"fused_logmel [{B}, {T}] 64 mel precision={precision}: "
                       f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
                       f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} "
                       f"of bound{cores}")
-    largest = max(size for size, _ in timing)
-    return worst, timing[(largest, "highest")]
+    return worst, timing
 
 
 def write_wavs(io, root, rng, n, seconds):
@@ -371,6 +401,266 @@ def phase_serve(root, rng):
     return launches, batches
 
 
+def train_config(root, stft_method="pallas"):
+    return {
+        "features": dict(FEATURES_PALLAS, sample_rate=RATE,
+                         stft_method=stft_method, on_device_augment={}),
+        "experiment": {
+            "cache_directory": root, "name": f"smoke_{stft_method}",
+            "input_shape": [None, 64], "output_shape": [len(LABELS)],
+            "model": {"key": "xvector"},
+            "optimizer": {"cls": "Adam", "kwargs": {"learning_rate": 1e-3}},
+            "loss": {"cls": "SparseCategoricalCrossentropy"},
+            "metrics": [{"cls": "SparseAverageDetectionCost", "name": "C_avg",
+                         "N": len(LABELS),
+                         "threshold_linspace": {"start": -10.0, "stop": 0.0,
+                                                "num": 50}}],
+            "callbacks": [
+                {"cls": "ModelCheckpoint",
+                 "kwargs": {"monitor": "val_loss", "mode": "min"}},
+                {"cls": "EarlyStopping",
+                 "kwargs": {"monitor": "val_loss", "patience": 5}}]}}
+
+
+def class_sines(rng, n_batches, batch=TRAIN_BATCH, seconds=TRAIN_SECONDS):
+    """(signals [batch, samples] float32, labels [batch] int32) pairs that a
+    classifier can separate: class k is a tone at 200 + 300 k Hz (+-20 Hz,
+    random phase) in white noise of twice the tone's amplitude: hard
+    enough that 3 epochs of Adam 1e-3 do not drive the loss to ~0, where
+    Adam's steps on vanishing gradients can spike the loss."""
+    t = np.arange(int(RATE * seconds)) / RATE
+    out = []
+    for _ in range(n_batches):
+        y = rng.integers(0, len(LABELS), batch)
+        f = 200.0 + 300.0 * y + rng.uniform(-20.0, 20.0, batch)
+        sig = (np.sin(2 * np.pi * f[:, None] * t
+                      + rng.uniform(0, 2 * np.pi, (batch, 1)))
+               + 2.0 * rng.normal(0, 1, (batch, t.size)))
+        sig = 0.5 * sig / np.abs(sig).max(axis=1, keepdims=True)
+        out.append((sig.astype(np.float32), y.astype(np.int32)))
+    return out
+
+
+def new_wrapper(root, device, stft_method="pallas"):
+    """ModelWrapper.from_config with the x-vector's weights drawn from SEED
+    (on the CPU, so every device starts from the same weights)."""
+    from lidbox_tpu_torch.models.model_utils import ModelWrapper
+    wrapper = ModelWrapper.from_config(train_config(root, stft_method),
+                                       device=device)
+    wrapper.model.init(torch.Generator().manual_seed(SEED))
+    return wrapper
+
+
+def first_step_losses(root, device, stft_method, batches):
+    """The losses of a fresh wrapper's first fused train steps, one per
+    batch (make_fused_train_step, the step fit_fused runs)."""
+    from lidbox_tpu_torch.data import on_device
+    from lidbox_tpu_torch.train.loop import to_device
+    wrapper = new_wrapper(root, device, stft_method)
+    trainer = wrapper.trainer
+    trainer.create_state()
+    step = on_device.make_fused_train_step(
+        trainer, on_device.feature_fn_from_config(
+            RATE, wrapper.config["features"]))
+    losses = []
+    for signals, targets in batches:
+        trainer.state, loss = step(
+            trainer.state, to_device(signals, trainer.device),
+            to_device(targets.astype(np.int64), trainer.device),
+            trainer.generator)
+        losses.append(loss)
+    return [float(loss) for loss in losses]
+
+
+def xvector_train_flops(batch, frames, n_mel=64, n_out=len(LABELS)):
+    """Operations of one x-vector forward + backward (3x the forward's
+    multiply-adds): causal frame convs 512/512/512/512/1500 at strides
+    1/2/3/1/1, stats pooling, dense 3000->512->512->n_out."""
+    t1 = frames
+    t2 = -(-t1 // 2)
+    t3 = -(-t2 // 3)
+    macs = (5 * n_mel * 512 * t1 + 3 * 512 * 512 * t2 + 3 * 512 * 512 * t3
+            + 512 * 512 * t3 + 512 * 1500 * t3
+            + 3000 * 512 + 512 * 512 + 512 * n_out)
+    return 3 * 2 * macs * batch
+
+
+def phase_train(root, rng):
+    """The training path: fit_fused of the full-width x-vector from
+    waveform batches with stft_method "pallas". Returns the kernel's
+    launch count over the fit, one training signal batch, and the
+    wrapper."""
+    from lidbox_tpu_torch.data import on_device
+    from lidbox_tpu_torch.models.model_utils import experiment_cache_from_config
+    from lidbox_tpu_torch.ops import logmel
+    from lidbox_tpu_torch.train.loop import to_device
+
+    train = class_sines(rng, TRAIN_BATCHES)
+    val = class_sines(rng, VAL_BATCHES)
+    print(f"training data: seed {SEED + 1}")
+    wrapper = new_wrapper(root, "cuda")
+    trainer = wrapper.trainer
+    print(f"training: x-vector {wrapper.count_params()} parameters, "
+          f"{TRAIN_EPOCHS} epochs of {TRAIN_BATCHES} batches of "
+          f"[{TRAIN_BATCH}, {int(RATE * TRAIN_SECONDS)}], {VAL_BATCHES} "
+          "validation batches, Adam 1e-3")
+    step_losses = []
+    train_step = trainer._train_step
+
+    def recording(*args, **kw):
+        state, loss = train_step(*args, **kw)
+        step_losses.append(loss)
+        return state, loss
+
+    trainer._train_step = recording
+    try:
+        logmel.fused_logmel.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        history = wrapper.fit_fused(lambda: train, epochs=TRAIN_EPOCHS,
+                                    val_signal_batches=lambda: val)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        launches = logmel.fused_logmel.launches
+    finally:
+        del trainer._train_step
+    expected = TRAIN_EPOCHS * TRAIN_BATCHES + VAL_BATCHES
+    check(launches == expected, f"training launched the log-Mel kernel "
+                                f"{launches} times, not {expected}")
+    losses = [h["loss"] for h in history]
+    check(len(history) == TRAIN_EPOCHS, f"{len(history)} epochs trained")
+    check(losses[-1] < losses[0], f"epoch loss did not fall: {losses}")
+    for h in history:
+        check(np.isfinite(h["val_loss"]) and np.isfinite(h["val_C_avg"]),
+              f"validation not finite: {h}")
+    print(f"training: fit_fused {TRAIN_EPOCHS} epochs in {t1 - t0:.2f} s "
+          "(smoke figure), epoch loss "
+          + ", ".join(f"{v:.4f}" for v in losses) + "; val_loss "
+          + ", ".join(f"{h['val_loss']:.4f}" for h in history) + "; C_avg "
+          + ", ".join(f"{h['val_C_avg']:.4f}" for h in history)
+          + f"; kernel launches {launches} = {TRAIN_EPOCHS} x "
+          f"{TRAIN_BATCHES} steps + {VAL_BATCHES} validation batches")
+
+    ckpt_dir = os.path.join(experiment_cache_from_config(wrapper.config),
+                            "checkpoints")
+    names = sorted(os.listdir(ckpt_dir))
+    check(len(names) == TRAIN_EPOCHS and all(CKPT_NAME.match(n)
+                                             for n in names),
+          f"checkpoints {names} are not the JAX package's name scheme")
+    features = {k: v for k, v in wrapper.config["features"].items()
+                if k != "on_device_augment"}
+    feature_fn = on_device.feature_fn_from_config(RATE, features)
+    val_features = [{"input": feature_fn(None, to_device(s, trainer.device)),
+                     "target": to_device(y.astype(np.int64), trainer.device)}
+                    for s, y in val]
+    fresh = new_wrapper(root, "cuda")
+    fresh.trainer.restore(os.path.join(ckpt_dir, names[-1]))
+    ours = trainer.evaluate(val_features)
+    restored = fresh.trainer.evaluate(val_features)
+    check(restored == ours, f"restored checkpoint evaluates to {restored}, "
+                            f"the trained state to {ours}")
+    print(f"checkpoints {names}; {names[-1]} restored into a fresh Trainer: "
+          f"val_loss {restored['val_loss']!r} == {ours['val_loss']!r}")
+
+    main = [float(loss) for loss in step_losses[:3]]
+    matmul = first_step_losses(root, "cuda", "matmul", train[:3])
+    cpu = first_step_losses(root, "cpu", "pallas", train[:2])
+    err_mm = max(abs(a - b) / abs(b) for a, b in zip(main, matmul))
+    err_cpu = max(abs(a - b) / abs(b) for a, b in zip(main, cpu))
+    check(err_mm <= TRAIN_RTOL and err_cpu <= TRAIN_RTOL,
+          f"first step losses {main} vs matmul {matmul} (rel {err_mm}) vs "
+          f"CPU {cpu} (rel {err_cpu}) beyond rtol {TRAIN_RTOL}")
+    print(f"first step losses: kernel {main}, matmul path {matmul} (max rel "
+          f"diff {err_mm:.3e}), CPU plain path {cpu} (max rel diff "
+          f"{err_cpu:.3e}), rtol {TRAIN_RTOL}")
+    return launches, train[0], wrapper
+
+
+def phase_train_step_timing(wrapper, batch, kernel_ms, steps=30, warmup=5):
+    """The steady fused train step at [32, 48000]: CUDA events around the
+    features (the kernel), forward + backward, and the optimizer update of
+    each step, the body of make_fused_train_step split at its parts."""
+    from lidbox_tpu_torch.data import on_device
+    from lidbox_tpu_torch.train.loop import to_device
+    trainer = wrapper.trainer
+    feature_fn = on_device.feature_fn_from_config(RATE,
+                                                  wrapper.config["features"])
+    x = to_device(batch[0], trainer.device)
+    y = to_device(batch[1].astype(np.int64), trainer.device)
+    state, gen = trainer.state, trainer.generator
+
+    def step(state, events=None):
+        if events:
+            events[0].record()
+        feats = feature_fn(gen, x)
+        if events:
+            events[1].record()
+        loss, grads, bs = trainer._loss_and_grads(
+            state, {"input": feats, "target": y}, gen)
+        if events:
+            events[2].record()
+        state = trainer._apply_gradients(state, grads, bs)
+        if events:
+            events[3].record()
+        return state
+
+    for _ in range(warmup):
+        state = step(state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state = step(state)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / steps * 1e3
+    timed = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
+             for _ in range(steps)]
+    for events in timed:
+        state = step(state, events)
+    torch.cuda.synchronize()
+
+    def median(i, j):
+        return float(np.median([e[i].elapsed_time(e[j]) for e in timed]))
+
+    # device busy time: the kernels' own time in a short profiled window
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            state = step(state)
+        torch.cuda.synchronize()
+    # the device's own events only: a CPU op's device time repeats its
+    # kernels'
+    kernels = [(getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0.0)) / 5e3, e.key)
+               for e in prof.key_averages()
+               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    kernels = sorted((k for k in kernels if k[0] > 0), reverse=True)
+    busy_ms = sum(ms for ms, _ in kernels)
+
+    B, T = x.shape
+    frames = 1 + (T - 400) // 160
+    fb_flops = xvector_train_flops(B, frames)
+    parts = {"step": median(0, 3), "features": median(0, 1),
+             "forward_backward": median(1, 2), "optimizer": median(2, 3)}
+    print(f"train step [{B}, {T}] ({frames} frames): median {parts['step']:.4f} "
+          f"ms on the device (features {parts['features']:.4f}, forward + "
+          f"backward {parts['forward_backward']:.4f}, optimizer "
+          f"{parts['optimizer']:.4f}); host wall {wall_ms:.4f} ms/step over "
+          f"{steps} steps; fused_logmel alone {kernel_ms:.4f} ms = "
+          f"{kernel_ms / parts['step']:.1%} of the step; forward + backward "
+          f"{fb_flops / 1e9:.1f} GFLOP, float32 CUDA-core bound "
+          f"{fb_flops / PEAK_F32_FLOPS * 1e3:.4f} ms")
+    if busy_ms:
+        print(f"train step profile (torch.profiler, 5 steps): device busy "
+              f"{busy_ms:.4f} ms/step, {1 - busy_ms / parts['step']:.1%} of "
+              f"the step median idle; {len(kernels)} device ops, the top: "
+              + "; ".join(f"{ms:.4f} ms {name[:60]}"
+                          for ms, name in kernels[:6]))
+    else:
+        print("train step profile: torch.profiler saw no device time")
+    return parts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -391,16 +681,32 @@ def main():
     rng = np.random.default_rng(SEED)
     geometry_err = phase_geometry(logmel, rng)
     with tempfile.TemporaryDirectory() as root:
-        launches, batches = phase_serve(root, rng)
-    path_err, (ms, plain_ms, bound_ms, bound_by) = phase_path_kernel(
-        logmel, batches)
+        serve_launches, batches = phase_serve(root, rng)
+        # the training data has its own stream: phases before it do not
+        # shift its draw
+        torch.backends.cudnn.deterministic = True
+        try:
+            train_launches, train_batch, wrapper = phase_train(
+                root, np.random.default_rng(SEED + 1))
+        finally:
+            torch.backends.cudnn.deterministic = False
+        train_x = torch.as_tensor(train_batch[0], device="cuda")
+        path_err, timing = phase_path_kernel(logmel,
+                                             batches + [(train_x, RATE)])
+        phase_train_step_timing(
+            wrapper, train_batch, timing[(*train_x.shape, "highest")][0])
+    largest = max((k for k in timing if k[2] == "highest"),
+                  key=lambda k: k[0] * k[1])
+    ms, plain_ms, bound_ms, bound_by = timing[largest]
+    print(f"kernel line: [{largest[0]}, {largest[1]}] highest; launches "
+          f"{serve_launches} serving + {train_launches} training")
 
     print(json.dumps({"kernels": [{
         "name": "fused_logmel",
         "route": "cuda",
         "source": "lidbox_tpu_torch/csrc/logmel.cu",
         "replaces": "lidbox_tpu/ops/logmel.py:154",
-        "launches": launches,
+        "launches": serve_launches + train_launches,
         "max_abs_err": max(geometry_err, path_err),
         "ms": ms,
         "plain_ms": plain_ms,

@@ -72,15 +72,19 @@ class FrameLayer(nn.Module):
 class SpatialDropout1D(nn.Module):
     """Channel dropout: drops whole feature channels across all time steps
     (Keras SpatialDropout1D; reference: lidbox/models/xvector.py:50-51).
-    Active only in training mode."""
+    Active only in training mode. The [B, 1, C] keep mask is drawn from
+    ``generator`` (a ``torch.Generator`` on x's device; None draws from
+    torch's global one), and kept channels are scaled by 1 / (1 - rate)."""
 
     def __init__(self, rate):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         if not self.training or self.rate == 0:
             return x
-        # [B, T, C] -> dropout2d over channels of a [B, C, T, 1] view
-        y = F.dropout2d(x.transpose(1, 2)[..., None], self.rate, True)
-        return y[..., 0].transpose(1, 2)
+        keep = 1.0 - self.rate
+        probs = torch.full((x.shape[0], 1, x.shape[2]), keep,
+                           dtype=torch.float32, device=x.device)
+        mask = torch.bernoulli(probs, generator=generator).to(x.dtype)
+        return x * mask / keep

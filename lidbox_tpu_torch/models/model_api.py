@@ -70,6 +70,28 @@ def flax_default_init_(module, generator):
                     sub.bias.zero_()
 
 
+def functional_forward(module, params, buffers, x, compute_dtype=None,
+                       **kwargs):
+    """``module``'s forward on the given parameter and buffer tensors
+    (dicts name -> tensor) instead of its own.
+
+    With ``compute_dtype`` every floating tensor and the input are cast to
+    it inside the autograd graph, so gradients reach the float32 tensors
+    passed in, and the output is cast back to float32 (the JAX package's
+    explicit casts, ``Trainer._apply``; not autocast)."""
+    if compute_dtype is not None:
+        def cast(t):
+            return t.to(compute_dtype) if t.is_floating_point() else t
+        params = {k: cast(v) for k, v in params.items()}
+        buffers = {k: cast(v) for k, v in buffers.items()}
+        x = x.to(compute_dtype)
+    elif x.is_floating_point() and x.dtype != torch.float32:
+        x = x.float()
+    out = torch.func.functional_call(module, {**params, **buffers}, (x,),
+                                     kwargs)
+    return out.float() if compute_dtype is not None else out
+
+
 class Model:
     """An ``nn.Module`` on ``device`` bound to an input signature
     ``input_shape`` (per-example, e.g. (T, F)) and an output head. A new
@@ -102,11 +124,15 @@ class Model:
 
     def apply(self, x, mask=None, output=None, compute_dtype=None):
         """Forward of [B, T, F] features (frame ``mask`` [B, T] for padded
-        batches) on the model's device, in float32."""
-        if compute_dtype is not None:
-            raise NotImplementedError("compute_dtype is not ported yet "
-                                      "(ROADMAP queue 1, item 6)")
-        return self.module(x, mask=mask, output=output or self.output)
+        batches) on the model's device. ``compute_dtype`` (e.g.
+        torch.bfloat16) runs it on parameters and input cast to that type,
+        as the trainer does; the output comes back float32."""
+        if compute_dtype is None:
+            return self.module(x, mask=mask, output=output or self.output)
+        return functional_forward(
+            self.module, dict(self.module.named_parameters()),
+            dict(self.module.named_buffers()), x, compute_dtype=compute_dtype,
+            mask=mask, output=output or self.output)
 
     __call__ = apply
 

@@ -30,9 +30,10 @@ class XVector(nn.Module):
         self.segment2 = nn.Linear(512, 512)
         self.outputs = nn.Linear(512, num_outputs)
 
-    def forward(self, x, mask=None, output="logits"):
+    def forward(self, x, mask=None, output="logits", generator=None):
+        """``generator`` feeds the channel dropout in training mode."""
         if self.channel_dropout is not None:
-            x = self.channel_dropout(x)
+            x = self.channel_dropout(x, generator=generator)
         x = self.frame1(x)
         x = self.frame2(x)
         x = self.frame3(x)

@@ -209,7 +209,8 @@ def fused_logmel(signals, sample_rate, frame_length_ms=25, frame_step_ms=10,
     """[B, T] float32 waveforms -> [B, frames, num_mel_bins] float32 log-Mel.
 
     CPU tensor: ``logmel_plain``. CUDA tensor: the CUDA kernel (counted in
-    ``fused_logmel.launches``), or an exception. ``precision`` is
+    ``fused_logmel.launches``), or an exception. Either way a signal that
+    requires grad raises: the kernel has no backward. ``precision`` is
     ``"highest"`` (float32) or ``"bf16"`` (bfloat16 operands, float32
     accumulation, power rounded to bfloat16 before the mel product)."""
     if precision not in ("highest", "bf16"):
@@ -219,6 +220,11 @@ def fused_logmel(signals, sample_rate, frame_length_ms=25, frame_step_ms=10,
         raise ValueError("signals must be a [batch, samples] tensor")
     if signals.dtype != torch.float32:
         raise ValueError(f"signals must be float32, got {signals.dtype}")
+    if signals.requires_grad:
+        # the kernel has no backward (nor has the TPU kernel): a gradient
+        # that reached the plain version on the CPU would be lost on the card
+        raise ValueError("fused_logmel has no gradient: signals must not "
+                         "require grad (featurize under torch.no_grad)")
     frame_length = audio.ms_to_frames(sample_rate, frame_length_ms)
     frame_step = audio.ms_to_frames(sample_rate, frame_step_ms)
     if frame_length <= 0 or frame_step <= 0:

@@ -136,8 +136,17 @@ def test_registry_and_unported_options():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmodels.create("lstm", (T, FEAT), NUM_OUTPUTS, device="cpu")
     model = tmodels.create("xvector", (T, FEAT), NUM_OUTPUTS, device="cpu")
+    # compute_dtype is ported (the trainer's casts); the serving flag is not
+    x = torch.as_tensor(np.random.default_rng(2).normal(0, 1, (2, T, FEAT)),
+                        dtype=torch.float32)
+    with torch.inference_mode():
+        y16 = model.apply(x, compute_dtype=torch.bfloat16)
+        y32 = model.apply(x)
+    assert y16.dtype == torch.float32
+    np.testing.assert_allclose(y16.numpy(), y32.numpy(), rtol=2e-2, atol=2e-2)
+    from lidbox_tpu_torch.util import make_batch_predict_fn
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.apply(torch.zeros(1, T, FEAT), compute_dtype=torch.bfloat16)
+        make_batch_predict_fn(model, compute_dtype=torch.bfloat16)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tmodels.create("xvector", (T, FEAT), NUM_OUTPUTS)
