@@ -34,7 +34,20 @@ Phases, each of which fails the run:
    losses must match a run with ``stft_method: "matmul"`` on the card and
    the first 2 those of a run on the CPU (the plain version), within rtol
    1e-3. cuDNN runs its deterministic algorithms in this phase;
-5. kernel vs plain at the main paths' shapes: ``fused_logmel`` against
+5. augmented training, the third main path: ``fit_fused`` of the same
+   x-vector through the whole on-device chain (energy VAD, speed change
+   [0.9, 1.1], noise from a bank of 4 x 10 s wavs at SNR [5, 20] dB, FIR
+   of 10 taps, the kernel, SpecAugment 2 + 2 masks; augment_prob 0.5) with
+   ``feed {stage_dtype: int16, steps_per_dispatch: 2, cache_staged: true,
+   cache_shuffle: rows}``, 3 epochs of 8 batches of 3 s sines with a
+   0.35-0.8 s pause per row (a stream of its own, seed 1236) and 2 clean
+   validation batches. The launch count is zeroed just before and read
+   just after (3 x 8 + 2: replayed epochs featurize every step); the
+   epoch loss must fall, validation be finite, epochs 2-3 transfer no
+   signals (they replay the cache), and the first 4 step losses equal,
+   bit for bit, those of a run with one step per dispatch. The kernel is
+   held to its plain version on the first augmented batch of each epoch;
+6. kernel vs plain at the main paths' shapes: ``fused_logmel`` against
    ``logmel_plain`` on the very batches kept in phase 3 (bucketed: a 3 s
    batch is padded to the 4 s bucket) and on a training batch, [32, 48000]
    (fixed-length crops, no bucket); kernel, plain and bound times per
@@ -43,11 +56,12 @@ Phases, each of which fails the run:
    float32 CUDA-core bound printed beside it; ``dft_gemm_ms`` is one cuBLAS
    float32 product of the unfolded frames by the DFT basis, a yardstick
    for the bulk of the work;
-6. the steady train step at [32, 48000]: the median of 30 steps on CUDA
+7. the steady train step at [32, 48000]: the median of 30 steps on CUDA
    events, split into features, forward + backward and optimizer, beside
    the kernel's time at that shape and its share of the step, and the
-   device's busy time over 5 steps under ``torch.profiler``;
-7. the kernel table as one JSON line, the card line, and the result line.
+   device's busy time over 5 steps under ``torch.profiler``; then the
+   augmented step the same way, split at each stage of the chain;
+8. the kernel table as one JSON line, the card line, and the result line.
 
 Every comparison of the kernel with its plain version holds float32 within
 atol 1e-4 + rtol 1e-4 (the allclose of the tests; the distance of each from
@@ -576,6 +590,24 @@ def phase_train(root, rng):
     return launches, train[0], wrapper
 
 
+def device_ops(run, calls=5):
+    """(ms per call, name) of each device op of ``calls`` calls of ``run``
+    under torch.profiler, largest first: the device's own events only (a
+    CPU op's device time repeats its kernels')."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    ops = [(getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0)) / (calls * 1e3),
+            e.key)
+           for e in prof.key_averages()
+           if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    return sorted((op for op in ops if op[0] > 0), reverse=True)
+
+
 def phase_train_step_timing(wrapper, batch, kernel_ms, steps=30, warmup=5):
     """The steady fused train step at [32, 48000]: CUDA events around the
     features (the kernel), forward + backward, and the optimizer update of
@@ -622,19 +654,8 @@ def phase_train_step_timing(wrapper, batch, kernel_ms, steps=30, warmup=5):
         return float(np.median([e[i].elapsed_time(e[j]) for e in timed]))
 
     # device busy time: the kernels' own time in a short profiled window
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            state = step(state)
-        torch.cuda.synchronize()
-    # the device's own events only: a CPU op's device time repeats its
-    # kernels'
-    kernels = [(getattr(e, "self_device_time_total",
-                        getattr(e, "self_cuda_time_total", 0.0)) / 5e3, e.key)
-               for e in prof.key_averages()
-               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
-    kernels = sorted((k for k in kernels if k[0] > 0), reverse=True)
+    holder = [state]
+    kernels = device_ops(lambda: holder.__setitem__(0, step(holder[0])))
     busy_ms = sum(ms for ms, _ in kernels)
 
     B, T = x.shape
@@ -658,6 +679,273 @@ def phase_train_step_timing(wrapper, batch, kernel_ms, steps=30, warmup=5):
                           for ms, name in kernels[:6]))
     else:
         print("train step profile: torch.profiler saw no device time")
+    return parts
+
+
+def class_sines_with_pauses(rng, n_batches):
+    """class_sines with one silent stretch of 0.35-0.8 s per row, longer
+    than the energy VAD's 300 ms smoothing, so the VAD compacts every row
+    and leaves it a zero tail."""
+    out = []
+    for sig, y in class_sines(rng, n_batches):
+        sig = sig.copy()
+        for row in sig:
+            width = int(RATE * rng.uniform(0.35, 0.8))
+            start = int(rng.integers(0, row.size - width))
+            row[start:start + width] = 0.0
+        out.append((sig, y))
+    return out
+
+
+def augmented_config(root, feed):
+    """train_config with the whole on-device chain and the feed options."""
+    cfg = train_config(root)
+    cfg["features"]["on_device_augment"] = {
+        "noise_datadir": os.path.join(root, "noise"),
+        "snr_range": [5, 20], "augment_prob": 0.5, "fir_coefs": 10,
+        "speed_range": [0.9, 1.1], "vad": True,
+        "specaug": {"time_masks": 2, "freq_masks": 2}}
+    cfg["experiment"]["name"] = "smoke_augmented_" + "_".join(
+        f"{k}{v}" for k, v in sorted(feed.items()))
+    cfg["experiment"]["feed"] = dict(feed)
+    cfg["experiment"]["callbacks"] = []
+    return cfg
+
+
+def augmented_wrapper(root, feed):
+    from lidbox_tpu_torch.models.model_utils import ModelWrapper
+    wrapper = ModelWrapper.from_config(augmented_config(root, feed),
+                                       device="cuda")
+    wrapper.model.init(torch.Generator().manual_seed(SEED))
+    return wrapper
+
+
+def phase_augmented_train(root, rng, logmel):
+    """The augmented training path: fit_fused of the full-width x-vector
+    through the whole on-device chain (VAD -> speed -> noise -> FIR ->
+    fused_logmel -> SpecAugment) with int16 staging, 2 steps per dispatch
+    and the cache replayed with the rows reshuffle. Returns the kernel's
+    launch count over the fit, the float32 errors of the kernel on the
+    augmented batches it was handed, one raw training batch and the
+    wrapper."""
+    import lidbox_tpu_torch.features as features
+    from lidbox_tpu_torch.data import on_device
+    from lidbox_tpu_torch.features import io
+    from lidbox_tpu_torch.train.loop import Callback
+
+    os.makedirs(os.path.join(root, "noise"))
+    for i in range(4):  # the noise bank: 4 x 10 s of coloured noise
+        noise = np.cumsum(rng.normal(0, 1, RATE * 10)) * 0.02
+        noise = noise - np.convolve(noise, np.ones(64) / 64, mode="same")
+        io.write_mono_wav(os.path.join(root, "noise", f"n{i}.wav"),
+                          (0.5 * noise / np.abs(noise).max()).astype(
+                              np.float32), RATE)
+    train = class_sines_with_pauses(rng, TRAIN_BATCHES)
+    val = class_sines_with_pauses(rng, VAL_BATCHES)
+    feed = {"stage_dtype": "int16", "steps_per_dispatch": 2,
+            "cache_staged": True, "cache_shuffle": "rows"}
+    wrapper = augmented_wrapper(root, feed)
+    trainer = wrapper.trainer
+    print(f"augmented training: data seed {SEED + 2}; chain VAD (300 ms) -> "
+          "speed [0.9, 1.1] -> noise bank 4 x 10 s at SNR [5, 20] dB -> FIR "
+          "10 taps -> fused_logmel -> SpecAugment 2 + 2 masks, augment_prob "
+          f"0.5; feed {feed}")
+
+    step_losses, kept, transfers = [], [], {}
+    epoch = [0]
+    train_step, extract, to_device = (trainer._train_step,
+                                      features.extract_features,
+                                      on_device.to_device)
+
+    def recording(*args, **kw):
+        state, loss = train_step(*args, **kw)
+        step_losses.append(loss)
+        return state, loss
+
+    def keeping(signals, *args, **kw):
+        # each epoch's first train batch (validation is featurized clean,
+        # without lengths)
+        if kw.get("lengths") is not None and \
+                len(step_losses) % TRAIN_BATCHES == 0:
+            kept.append(signals.clone())
+        return extract(signals, *args, **kw)
+
+    def counting(value, device):
+        if np.shape(value)[-1] == int(RATE * TRAIN_SECONDS):
+            transfers[epoch[0]] = transfers.get(epoch[0], 0) + 1
+        return to_device(value, device)
+
+    class Epochs(Callback):
+        def on_epoch_begin(self, trainer, e):
+            epoch[0] = e
+
+    trainer._train_step = recording
+    trainer.callbacks.append(Epochs())
+    features.extract_features = keeping
+    on_device.to_device = counting
+    try:
+        logmel.fused_logmel.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        history = wrapper.fit_fused(lambda: train, epochs=TRAIN_EPOCHS,
+                                    val_signal_batches=lambda: val)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        launches = logmel.fused_logmel.launches
+    finally:
+        del trainer._train_step
+        features.extract_features = extract
+        on_device.to_device = to_device
+    expected = TRAIN_EPOCHS * TRAIN_BATCHES + VAL_BATCHES
+    check(launches == expected, f"augmented training launched the log-Mel "
+                                f"kernel {launches} times, not {expected}")
+    losses = [h["loss"] for h in history]
+    check(len(history) == TRAIN_EPOCHS, f"{len(history)} epochs trained")
+    check(losses[-1] < losses[0], f"augmented epoch loss did not fall: "
+                                  f"{losses}")
+    for h in history:
+        check(np.isfinite(h["val_loss"]) and np.isfinite(h["val_C_avg"]),
+              f"validation not finite: {h}")
+    # epoch 1: one transfer per group of 2 steps, and the validation
+    # signals (featurized once); later epochs replay the cache
+    check(transfers == {1: TRAIN_BATCHES // 2 + VAL_BATCHES},
+          f"signal transfers per epoch {transfers}: epochs 2-"
+          f"{TRAIN_EPOCHS} must run from the cache")
+    print(f"augmented training: fit_fused {TRAIN_EPOCHS} epochs in "
+          f"{t1 - t0:.2f} s (smoke figure), epoch loss "
+          + ", ".join(f"{v:.4f}" for v in losses) + "; val_loss "
+          + ", ".join(f"{h['val_loss']:.4f}" for h in history) + "; C_avg "
+          + ", ".join(f"{h['val_C_avg']:.4f}" for h in history)
+          + f"; kernel launches {launches} = {TRAIN_EPOCHS} x {TRAIN_BATCHES}"
+          f" steps + {VAL_BATCHES} validation batches; signal transfers per "
+          f"epoch {transfers} (epochs 2-{TRAIN_EPOCHS} from the cache)")
+
+    # grouped dispatch against one step per dispatch: bit for bit
+    single = augmented_wrapper(root, {"stage_dtype": "int16"})
+    single_losses = []
+    single_step = single.trainer._train_step
+
+    def recording_single(*args, **kw):
+        state, loss = single_step(*args, **kw)
+        single_losses.append(loss)
+        return state, loss
+
+    single.trainer._train_step = recording_single
+    single.fit_fused(lambda: train[:4], epochs=1, verbose=False)
+    grouped = [float(l) for l in step_losses[:4]]
+    per_step = [float(l) for l in single_losses]
+    check(grouped == per_step, f"first step losses with steps_per_dispatch "
+                               f"2 {grouped} != with 1 {per_step}")
+    print(f"first 4 step losses, 2 steps per dispatch == 1 per dispatch, bit "
+          f"for bit: {grouped}")
+
+    errors = [compare(logmel, f"augmented_epoch{i + 1}_{tuple(x.shape)}", x,
+                      RATE, KERNEL_KW) for i, x in enumerate(kept)]
+    check(len(kept) == TRAIN_EPOCHS, f"kept {len(kept)} augmented batches")
+    return launches, max(errors), train[0], wrapper
+
+
+STAGES = ("draw", "vad", "speed", "noise", "fir", "features", "specaug")
+
+
+def phase_augmented_step_timing(wrapper, batch, steps=30, warmup=5):
+    """The steady augmented train step at [32, 48000]: CUDA events after
+    each stage of the chain (the feature fn's on_stage marks), after
+    forward + backward and after the optimizer; each step draws from its
+    own keyed generator as make_fused_train_step does. Returns the
+    per-part medians."""
+    from lidbox_tpu_torch.data import on_device
+    from lidbox_tpu_torch.train.loop import keyed_generator, to_device
+    trainer = wrapper.trainer
+    feature_fn = on_device.feature_fn_from_config(
+        RATE, wrapper.config["features"], device=trainer.device)
+    x = on_device.signals_to_float(to_device(
+        on_device.stage_signals(batch[0], "int16"), trainer.device))
+    y = to_device(batch[1].astype(np.int64), trainer.device)
+    state = trainer.state
+
+    def step(state, events=None):
+        mark = None
+        if events is not None:
+            events["start"].record()
+
+            def mark(name):
+                events[name].record()
+        gen = keyed_generator(x.device, trainer.seed, state.step, 7)
+        feats, mask = feature_fn(gen, x, on_stage=mark)
+        loss, grads, bs = trainer._loss_and_grads(
+            state, {"input": feats, "input_mask": mask, "target": y},
+            trainer.generator)
+        if events is not None:
+            events["forward_backward"].record()
+        state = trainer._apply_gradients(state, grads, bs)
+        if events is not None:
+            events["optimizer"].record()
+        return state
+
+    for _ in range(warmup):
+        state = step(state)
+    torch.cuda.synchronize()
+    # the chain must not wait for the device: every draw and length stays
+    # there (CUDA's sync debug mode warns on each synchronizing call)
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            feature_fn(keyed_generator(x.device, trainer.seed, 0, 7), x)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # (the mode's own notice that it is a prototype is not a sync)
+    syncs = [str(w.message) for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    check(not syncs, f"the augmentation chain synchronized with the host: "
+                     f"{syncs[:3]}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state = step(state)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / steps * 1e3
+    names = ("start",) + STAGES + ("forward_backward", "optimizer")
+    timed = [{n: torch.cuda.Event(enable_timing=True) for n in names}
+             for _ in range(steps)]
+    for events in timed:
+        state = step(state, events)
+    torch.cuda.synchronize()
+    parts = {}
+    for a, b in zip(names, names[1:]):
+        parts[b] = float(np.median([e[a].elapsed_time(e[b]) for e in timed]))
+    parts["step"] = float(np.median([e["start"].elapsed_time(e["optimizer"])
+                                     for e in timed]))
+
+    holder = [state]
+    kernels = device_ops(lambda: holder.__setitem__(0, step(holder[0])))
+    busy_ms = sum(ms for ms, _ in kernels)
+    chain = device_ops(lambda: feature_fn(
+        keyed_generator(x.device, trainer.seed, 0, 7), x))
+    B, T = x.shape
+    print(f"augmented chain alone (torch.profiler, 5 calls): device busy "
+          f"{sum(ms for ms, _ in chain):.4f} ms/call over {len(chain)} device "
+          "ops, the top: " + "; ".join(f"{ms:.4f} ms {name[:50]}"
+                                       for ms, name in chain[:8])
+          + "; no host synchronization in the chain (sync debug mode)")
+    print(f"augmented train step [{B}, {T}]: median {parts['step']:.4f} ms on "
+          "the device; " + ", ".join(f"{n} {parts[n]:.4f}" for n in STAGES)
+          + f" (features = fused_logmel + masking), forward + backward "
+          f"{parts['forward_backward']:.4f}, optimizer "
+          f"{parts['optimizer']:.4f}; host wall {wall_ms:.4f} ms/step over "
+          f"{steps} steps")
+    if busy_ms:
+        print(f"augmented train step profile (torch.profiler, 5 steps): "
+              f"device busy {busy_ms:.4f} ms/step, "
+              f"{1 - busy_ms / parts['step']:.1%} of the step median idle; "
+              f"{len(kernels)} device ops, the top: "
+              + "; ".join(f"{ms:.4f} ms {name[:60]}"
+                          for ms, name in kernels[:8]))
+    else:
+        print("augmented train step profile: torch.profiler saw no device "
+              "time")
     return parts
 
 
@@ -688,6 +976,9 @@ def main():
         try:
             train_launches, train_batch, wrapper = phase_train(
                 root, np.random.default_rng(SEED + 1))
+            aug_launches, aug_err, aug_batch, aug_wrapper = \
+                phase_augmented_train(root, np.random.default_rng(SEED + 2),
+                                      logmel)
         finally:
             torch.backends.cudnn.deterministic = False
         train_x = torch.as_tensor(train_batch[0], device="cuda")
@@ -695,19 +986,21 @@ def main():
                                              batches + [(train_x, RATE)])
         phase_train_step_timing(
             wrapper, train_batch, timing[(*train_x.shape, "highest")][0])
+        phase_augmented_step_timing(aug_wrapper, aug_batch)
     largest = max((k for k in timing if k[2] == "highest"),
                   key=lambda k: k[0] * k[1])
     ms, plain_ms, bound_ms, bound_by = timing[largest]
     print(f"kernel line: [{largest[0]}, {largest[1]}] highest; launches "
-          f"{serve_launches} serving + {train_launches} training")
+          f"{serve_launches} serving + {train_launches} training + "
+          f"{aug_launches} augmented training")
 
     print(json.dumps({"kernels": [{
         "name": "fused_logmel",
         "route": "cuda",
         "source": "lidbox_tpu_torch/csrc/logmel.cu",
         "replaces": "lidbox_tpu/ops/logmel.py:154",
-        "launches": serve_launches + train_launches,
-        "max_abs_err": max(geometry_err, path_err),
+        "launches": serve_launches + train_launches + aug_launches,
+        "max_abs_err": max(geometry_err, path_err, aug_err),
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,

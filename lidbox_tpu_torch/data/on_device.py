@@ -1,49 +1,85 @@
 """
-The fused training path from raw waveforms (counterpart of
-``lidbox_tpu.data.on_device``).
+The fused training path from raw waveforms, with the on-device
+augmentation chain (counterpart of ``lidbox_tpu.data.on_device``).
 
-Each train step takes a staged waveform batch [B, T] on the device, runs
-the feature chain declared in the config's ``features`` section there
-(with ``stft_method: "pallas"``, the fused log-Mel CUDA kernel of
-``ops/logmel.py``, launched once per step), then the model's forward and
-backward and the optimizer update. The host only feeds waveform batches.
-The features carry no gradient: the chain runs under ``torch.no_grad``.
+Each train step takes a staged waveform batch [B, T] on the device and runs
+the chain declared in the config's ``features`` section there: energy VAD
+-> random speed change -> noise mixing from a device-resident bank -> random
+FIR filtering -> features (with ``stft_method: "pallas"`` the fused log-Mel
+CUDA kernel of ``ops/logmel.py``, launched once per step) -> SpecAugment,
+then the model's forward and backward and the optimizer update. The host
+only feeds waveform batches; the chain runs under ``torch.no_grad``.
 
-Ported: the clean chain (every augmentation stage off), its config
-parsing, ``make_fused_train_step`` and ``fit_signals`` with one dispatch
-per step and validation featurized once per fit.
+Every stochastic stage is split in two: a draw (``draw_augmentation``,
+``draw_spec_augment``) of its random values from an explicit
+``torch.Generator`` on the batch's device, and a deterministic apply that
+takes those values as tensors. torch cannot reproduce ``jax.random``
+streams, so the applies are what the parity tests hold to the JAX package,
+fed its draws. A train step seeds its generator from (the trainer's seed,
+``state.step``) alone (``keyed_generator``), as the JAX package folds the
+step into its key: grouped dispatch, cached replay and a restored run take
+the same draws as per-step training.
 
-Not ported yet, and raising (ROADMAP queue 1, item 7): the augmentation
-stages (noise bank, random speed change, energy VAD, FIR filtering,
-SpecAugment), int16/bfloat16 staging with packed targets, grouped dispatch
-(``steps_per_dispatch > 1``) and the cached replay (``cache_staged``).
+Feed options: int16/bfloat16 staging with the targets packed into the int16
+waveform stack, grouped dispatch (``steps_per_dispatch``), and cached replay
+of the staged corpus from the device (``cache_staged`` with
+``cache_shuffle`` False, True or "rows"), guarded by the device's memory.
+Meshes raise (ROADMAP queue 1, item 12).
 """
 import dataclasses
+import glob
+import os
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 import lidbox_tpu_torch.features as F
-from lidbox_tpu_torch import get_logger
-from lidbox_tpu_torch.train.loop import to_device
+from lidbox_tpu_torch import RANDOM_SEED, get_device, get_logger
+from lidbox_tpu_torch.features import audio
+from lidbox_tpu_torch.features import io as audio_io
+from lidbox_tpu_torch.train.loop import (_signature_runs_contiguous,
+                                         _tree_device_nbytes, keyed_generator,
+                                         to_device, torch_dtype)
 from lidbox_tpu_torch.train.observability import ThroughputMeter
 
 logger = get_logger("data.on_device")
 
 
-def _not_ported(name):
-    raise NotImplementedError(f"{name} is not ported yet (ROADMAP queue 1, "
-                              "item 7)")
+def build_noise_bank(noise_paths, sample_rate, max_seconds=10.0,
+                     device="cuda"):
+    """Decode noise files into a bank on ``device``: (signals [N, T],
+    lengths [N] original sample counts). Each clip is tiled cyclically to
+    fill its row (the reference's tile-and-trim, lidbox/data/steps.py:296-302,
+    done once), so the mixer takes any contiguous slice of a row."""
+    T = int(sample_rate * max_seconds)
+    signals = np.zeros((len(noise_paths), T), np.float32)
+    lengths = np.zeros(len(noise_paths), np.int32)
+    for i, path in enumerate(noise_paths):
+        sig, rate = audio_io.read_audio(path)
+        if rate != sample_rate:
+            raise ValueError(f"noise sample rate {rate} != speech rate "
+                             f"{sample_rate} ({path})")
+        signals[i] = np.resize(sig, T)  # cyclic tile + trim
+        lengths[i] = min(len(sig), T)
+    logger.info("Staged noise bank: %d files, %.1f s rows", len(noise_paths),
+                max_seconds)
+    device = get_device(device)
+    return (torch.as_tensor(signals, device=device),
+            torch.as_tensor(lengths, device=device))
 
 
 @dataclasses.dataclass(frozen=True)
 class AugmentConfig:
     """Which on-device augmentations a fused step applies (the JAX
-    package's fields and defaults). ``augment_prob < 1`` gates the
-    stochastic stages per example; noise mixing runs only with a noise
-    bank. Every stage is left for ROADMAP queue 1, item 7: a feature fn
-    with one of them on raises."""
+    package's fields and defaults).
+
+    ``augment_prob < 1`` gates the stochastic stages (speed change, noise,
+    FIR, SpecAugment) per example with a Bernoulli draw, so each batch
+    interleaves clean and augmented examples (the reference's
+    sample_from_datasets([original] + augmented), lidbox/data/steps.py:215-229).
+    Energy VAD is preprocessing and is never gated. Noise mixing runs only
+    with a noise bank."""
     snr_range: Optional[Tuple[float, float]] = (5.0, 20.0)   # None = no noise
     augment_prob: float = 1.0            # per-example P(apply augmentation)
     fir_coefs: int = 0                   # >0: random-normal FIR filtering
@@ -57,12 +93,176 @@ class AugmentConfig:
     specaug_freq_masks: int = 0          # SpecAugment frequency masks
     specaug_freq_width: int = 8
 
+    @property
+    def tracks_lengths(self):
+        """VAD and speed change alter each example's valid sample count, so
+        the feature fn carries lengths and returns a frame mask."""
+        return self.vad or self.speed_range is not None
+
+
+# -- draws -------------------------------------------------------------------
+
+def draw_augmentation(generator, augment, batch, samples, noise_bank=None,
+                      device="cpu"):
+    """The random values of one batch's waveform stages, drawn from
+    ``generator`` in a fixed order: ``gate`` [B] bool (only when
+    augment_prob < 1), ``speed`` ratios [B], ``noise`` (bank rows [B],
+    SNRs [B] dB, offsets [B]) and ``fir`` taps [B, K], each only when its
+    stage is on. Every bound is a Python number: nothing reads the device."""
+    def uniform(lo, hi):
+        u = torch.rand(batch, generator=generator, device=device)
+        return lo + (hi - lo) * u
+
+    draws = {}
+    if augment.augment_prob < 1.0:
+        draws["gate"] = (torch.rand(batch, generator=generator, device=device)
+                         < augment.augment_prob)
+    if augment.speed_range is not None:
+        draws["speed"] = uniform(*augment.speed_range)
+    if augment.snr_range is not None and noise_bank is not None:
+        num_noise, bank_samples = noise_bank.shape
+        if bank_samples < samples:
+            raise ValueError(
+                f"noise bank rows ({bank_samples} samples) shorter than "
+                f"signals ({samples}); raise build_noise_bank(max_seconds=...)")
+        idx = torch.randint(0, num_noise, (batch,), generator=generator,
+                            device=device)
+        snr = uniform(*augment.snr_range)
+        offsets = torch.randint(0, bank_samples - samples + 1, (batch,),
+                                generator=generator, device=device)
+        draws["noise"] = (idx, snr, offsets)
+    if augment.fir_coefs > 0:
+        draws["fir"] = torch.randn(batch, augment.fir_coefs,
+                                   generator=generator, device=device)
+    return draws
+
+
+def draw_spec_augment(generator, augment, feats_shape, device="cpu"):
+    """SpecAugment's (time starts, time widths, freq starts, freq widths),
+    each [B, n_masks] int64 or None when that axis has no masks: starts
+    uniform in [0, max(L - 1, 1)), widths in [0, width]."""
+    B, T, C = feats_shape
+
+    def masks(n, axis_len, width):
+        if n <= 0:
+            return None, None
+        starts = torch.randint(0, max(axis_len - 1, 1), (B, n),
+                               generator=generator, device=device)
+        widths = torch.randint(0, width + 1, (B, n), generator=generator,
+                               device=device)
+        return starts, widths
+
+    return (*masks(augment.specaug_time_masks, T, augment.specaug_time_width),
+            *masks(augment.specaug_freq_masks, C, augment.specaug_freq_width))
+
+
+# -- deterministic applies -----------------------------------------------------
+
+def mix_noise_from_bank(signals, noise_bank, idx, snr, offsets, lengths=None):
+    """Mix bank row ``idx`` from sample ``offsets`` into each [B, T] row at
+    ``snr`` dB (the reference's MS-SNSD formula, audio.snr_mixer). With
+    ``lengths`` the RMS statistics cover the valid samples only and padding
+    stays zero."""
+    B, T = signals.shape
+    # every T-sample window of every bank row, as a view: one gather
+    noise = noise_bank.unfold(1, T, 1)[idx, offsets]
+    mask = None
+    if lengths is not None:
+        mask = (torch.arange(T, device=signals.device)[None, :]
+                < lengths[:, None])
+    return audio.snr_mixer_batch(signals, noise, snr, mask=mask)
+
+
+def random_speed_change_batch(signals, lengths, ratio):
+    """Speed perturbation of [B, T] rows by ``ratio`` [B]: output[i] =
+    input(i * ratio), linearly interpolated (the reference resampled from
+    ratio * rate to rate, lidbox/data/steps.py:331-352). Returns (signals,
+    new lengths floor((n - 1) / ratio) + 1, at most T); samples past the
+    new length are zero.
+
+    The positions round as the JAX package's jitted program rounds them.
+    It splits i into 64-sample rows j and takes a row start
+    floor(float32(j * ratio)); XLA contracts ``i * ratio - 64 * start``
+    into a fused multiply-add, which rounds to float32 once. Here the
+    product is exact in float64 and the difference is rounded once, which
+    is the same value (a position of a sample that is then clipped at 0,
+    as the JAX window clips it)."""
+    B, T = signals.shape
+    i = torch.arange(T, device=signals.device)
+    start = torch.floor((i // 64).to(torch.float32)[None, :] * ratio[:, None])
+    in_row = (i.to(torch.float64)[None, :] * ratio.to(torch.float64)[:, None]
+              - 64.0 * start.to(torch.float64)).to(torch.float32)
+    in_row = torch.clamp(in_row, min=0.0)
+    floor_in_row = torch.floor(in_row)
+    frac = in_row - floor_in_row
+    lo = torch.clamp(start.to(torch.int64) * 64 + floor_in_row.to(torch.int64),
+                     max=T)
+    hi = torch.clamp(lo + 1, max=T)
+    padded = torch.nn.functional.pad(signals, (0, 1))
+    out = (torch.gather(padded, 1, lo) * (1.0 - frac)
+           + torch.gather(padded, 1, hi) * frac)
+    new_lengths = torch.floor((lengths.to(torch.float32) - 1.0) / ratio) + 1.0
+    new_lengths = torch.clamp(new_lengths, 0, T).to(torch.int32)
+    valid = (torch.arange(T, device=signals.device)[None, :]
+             < new_lengths[:, None])
+    return torch.where(valid, out, torch.zeros_like(out)), new_lengths
+
+
+def energy_vad_compact_batch(signals, lengths, sample_rate, frame_ms=10,
+                             min_non_speech_ms=300, strength=0.1):
+    """Batched silence removal: the energy VAD over ``frame_ms`` windows,
+    voiced windows compacted to the front of each row (audio.remove_silence
+    on every row, reference: lidbox/features/audio.py:332-353). Returns
+    (signals [B, T] with zero tails, new lengths)."""
+    B, T = signals.shape
+    decisions = audio.framewise_rms_energy_vad_decisions_batch(
+        signals, lengths, sample_rate, frame_ms,
+        min_non_speech_ms=min_non_speech_ms, strength=strength)
+    window = audio.ms_to_frames(sample_rate, frame_ms)
+    out, keep = audio.compact_voiced(
+        audio.frame(signals, window, window, axis=-1), decisions)
+    # the windows do not cover a partial tail: keep the shape
+    out = torch.nn.functional.pad(out, (0, T - out.shape[1]))
+    return out, (keep * window).to(torch.int32)
+
+
+def random_fir(signals, firs):
+    """Channel simulation (reference: lidbox/features/audio.py:63-74): each
+    [B, T] row filtered causally by its own taps ``firs`` [B, K]."""
+    return audio.fir_filter(signals, firs)
+
+
+def spec_augment(feats, time_starts=None, time_widths=None, freq_starts=None,
+                 freq_widths=None, mask_value=0.0):
+    """SpecAugment-style masking (Park et al. 2019) of [B, T, C] features:
+    the frames in [start, start + width) of each time mask, and the
+    channels of each frequency mask, take ``mask_value``."""
+    B, T, C = feats.shape
+
+    def hit(starts, widths, axis_len):
+        coords = torch.arange(axis_len, device=feats.device)
+        inside = ((coords >= starts[..., None])
+                  & (coords < (starts + widths)[..., None]))
+        return torch.any(inside, dim=1)             # [B, axis_len]
+
+    fill = torch.full((), mask_value, dtype=feats.dtype, device=feats.device)
+    if time_starts is not None:
+        feats = torch.where(hit(time_starts, time_widths, T)[:, :, None],
+                            fill, feats)
+    if freq_starts is not None:
+        feats = torch.where(hit(freq_starts, freq_widths, C)[:, None, :],
+                            fill, feats)
+    return feats
+
+
+# -- config --------------------------------------------------------------------
 
 def augment_config_from_dict(d):
     """Declarative form of AugmentConfig (the ``on_device_augment``
     features-config subsection)::
 
         on_device_augment:
+          noise_datadir: /data/musan     # or noise_paths: [...]
           snr_range: [5, 20]
           augment_prob: 0.5              # P(example is augmented)
           fir_coefs: 10
@@ -93,43 +293,57 @@ def augment_config_from_dict(d):
         specaug_freq_width=int(spec.get("freq_width", 8)))
 
 
-def feature_fn_from_config(sample_rate, features_conf):
+def feature_fn_from_config(sample_rate, features_conf, device="cuda"):
     """The fused feature fn straight from a config dict's ``features``
-    section (with its ``on_device_augment`` subsection)."""
+    section (with its ``on_device_augment`` subsection); a noise bank is
+    staged on ``device``."""
     features_conf = dict(features_conf)
     aug = dict(features_conf.pop("on_device_augment", None) or {})
+    noise_bank = noise_lengths = None
     paths = aug.pop("noise_paths", None)
     datadir = aug.pop("noise_datadir", None)
-    aug.pop("noise_max_seconds", None)
-    if paths or datadir:
-        _not_ported("on_device_augment noise mixing (noise_paths, "
-                    "noise_datadir)")
-    if aug.get("snr_range") is not None:
+    max_seconds = float(aug.pop("noise_max_seconds", 10.0))
+    if paths is None and datadir:
+        paths = sorted(
+            p for ext in ("wav", "mp3")
+            for p in glob.glob(os.path.join(datadir, "**", f"*.{ext}"),
+                               recursive=True))
+        if not paths:
+            # a configured-but-empty noise dir must not silently train an
+            # entire run without the noise augmentation the user asked for
+            raise ValueError(
+                f"on_device_augment.noise_datadir {datadir!r} contains no "
+                "wav/mp3 files (typo in the path?)")
+    if paths:
+        noise_bank, noise_lengths = build_noise_bank(
+            paths, sample_rate, max_seconds=max_seconds, device=device)
+    elif aug.get("snr_range") is not None:
         raise ValueError(
             "on_device_augment.snr_range is set but no noise source was "
             "given — configure noise_paths or noise_datadir, or remove "
             "snr_range")
-    return make_augmented_feature_fn(sample_rate, features_conf,
-                                     augment_config_from_dict(aug))
+    return make_augmented_feature_fn(
+        sample_rate, features_conf, augment_config_from_dict(aug),
+        noise_bank=noise_bank, noise_lengths=noise_lengths)
 
 
 def make_augmented_feature_fn(sample_rate, feature_config, augment: AugmentConfig,
                               noise_bank=None, noise_lengths=None):
-    """(generator, signals [B, T], lengths=None) -> features
-    [B, frames, C], or (features, frame_mask [B, frames]) when lengths
-    are passed: ``features.extract_features`` with the config's
-    ``stft_method`` (default "matmul") and ``precision``, under
-    ``torch.no_grad``. ``generator`` would feed the augmentation stages,
-    none of which is ported: one that is on raises here."""
-    enabled = [name for name, on in (
-        ("noise mixing", noise_bank is not None),
-        ("random speed change", augment.speed_range is not None),
-        ("energy VAD", augment.vad),
-        ("FIR filtering", augment.fir_coefs > 0),
-        ("SpecAugment", augment.specaug_time_masks > 0
-         or augment.specaug_freq_masks > 0)) if on]
-    if enabled:
-        _not_ported("on-device augmentation (" + ", ".join(enabled) + ")")
+    """(generator, signals [B, T], lengths=None, draws=None, on_stage=None)
+    -> features [B, frames, C], or (features, frame_mask [B, frames]) when
+    the config tracks lengths or lengths are passed: energy VAD -> speed
+    change -> noise mix -> FIR -> ``features.extract_features`` (the
+    config's ``stft_method``, default "matmul", and ``precision``) ->
+    SpecAugment, under ``torch.no_grad``.
+
+    The random values come from ``generator`` (draw_augmentation, then
+    draw_spec_augment once the features' shape is known) unless ``draws``
+    gives them: the dict draw_augmentation returns, with the SpecAugment
+    tuple under "spec". ``on_stage(name)`` is called after each stage that
+    ran ("draw", "vad", "speed", "noise", "fir", "features", "specaug"), for
+    timing.
+    ``noise_lengths`` is unused: the bank's rows are tiled full width."""
+    del noise_lengths
     feature_config = dict(feature_config)
     feature_type = feature_config.pop("type", "logmelspectrogram")
     feature_config.pop("validate_finite", None)
@@ -139,18 +353,122 @@ def make_augmented_feature_fn(sample_rate, feature_config, augment: AugmentConfi
               if k in ("spectrogram", "melspectrogram", "mfcc",
                        "db_spectrogram", "sample_minmax_scaling",
                        "window_normalization")}
+    specaug = augment.specaug_time_masks > 0 or augment.specaug_freq_masks > 0
 
     @torch.no_grad()
-    def fn(generator, signals, lengths=None):
-        with_mask = lengths is not None
-        return F.extract_features(signals, sample_rate,
-                                  feature_type=feature_type,
-                                  stft_method=stft_method,
-                                  precision=precision,
-                                  lengths=lengths, return_mask=with_mask,
-                                  **kwargs)
+    def fn(generator, signals, lengths=None, draws=None, on_stage=None):
+        def done(name):
+            if on_stage is not None:
+                on_stage(name)
+
+        with_mask = augment.tracks_lengths or lengths is not None
+        B, T = signals.shape
+        if lengths is None:
+            lengths = torch.full((B,), T, dtype=torch.int32,
+                                 device=signals.device)
+        if draws is None:
+            draws = draw_augmentation(generator, augment, B, T, noise_bank,
+                                      signals.device)
+        done("draw")
+        gate = draws.get("gate")
+
+        def gated(new, old):
+            if gate is None:
+                return new
+            return torch.where(gate.view((B,) + (1,) * (new.dim() - 1)),
+                               new, old)
+
+        if augment.vad:  # preprocessing, never gated
+            signals, lengths = energy_vad_compact_batch(
+                signals, lengths, sample_rate, frame_ms=augment.vad_frame_ms,
+                min_non_speech_ms=augment.vad_min_non_speech_ms,
+                strength=augment.vad_strength)
+            done("vad")
+        if "speed" in draws:
+            sp, sp_len = random_speed_change_batch(signals, lengths,
+                                                   draws["speed"])
+            signals, lengths = gated(sp, signals), gated(sp_len, lengths)
+            done("speed")
+        if "noise" in draws:
+            mixed = mix_noise_from_bank(
+                signals, noise_bank, *draws["noise"],
+                lengths=lengths if with_mask else None)
+            signals = gated(mixed, signals)
+            done("noise")
+        if "fir" in draws:
+            signals = gated(random_fir(signals, draws["fir"]), signals)
+            done("fir")
+        feats = F.extract_features(signals, sample_rate,
+                                   feature_type=feature_type,
+                                   stft_method=stft_method,
+                                   precision=precision,
+                                   lengths=lengths if with_mask else None,
+                                   return_mask=with_mask, **kwargs)
+        frame_mask = None
+        if with_mask:
+            feats, frame_mask = feats  # the mask the features were masked with
+        done("features")
+        if specaug:
+            spec = draws.get("spec")
+            if spec is None:
+                spec = draw_spec_augment(generator, augment, feats.shape,
+                                         feats.device)
+            feats = gated(spec_augment(feats, *spec), feats)
+            done("specaug")
+        if with_mask:
+            return feats, frame_mask
+        return feats
     fn.sample_rate = int(sample_rate)  # observability: fit_signals RTF
     return fn
+
+
+# -- staging -------------------------------------------------------------------
+
+def stage_signals(signals, stage_dtype=None):
+    """Host-side waveform staging compression for the fused path.
+
+    ``stage_dtype="int16"`` quantizes [-1, 1] float waveforms to 16-bit PCM
+    (half the bytes over the feed link, the quantization most corpora carry
+    already); ``"bfloat16"`` halves float traffic for synthetic or >16-bit
+    sources. numpy has no bfloat16: that staging returns a CPU torch
+    tensor (``to_device`` pins it). The train step rescales int16 and
+    upcasts on the device (signals_to_float)."""
+    signals = np.asarray(signals)
+    if stage_dtype is None:
+        return (signals if signals.dtype in (np.float32, np.int16)
+                else signals.astype(np.float32))
+    dt = torch_dtype(stage_dtype)
+    if dt == torch.int16:
+        if signals.dtype == np.int16:
+            return signals
+        return np.clip(np.rint(np.asarray(signals, np.float32) * 32768.0),
+                       -32768, 32767).astype(np.int16)
+    if signals.dtype == np.int16:
+        # raw PCM -> float staging: rescale to [-1, 1] before the cast (the
+        # device edge only upcasts floats)
+        signals = signals.astype(np.float32) * (1.0 / 32768.0)
+    if dt == torch.float32:
+        return np.asarray(signals, np.float32)
+    return torch.from_numpy(np.ascontiguousarray(signals)).to(dt)
+
+
+def pack_targets_int16(signals, targets):
+    """Append one int16 row carrying the targets to a staged [.., B, T]
+    int16 waveform stack (the ``targets=None`` layout of
+    make_fused_train_step: row B's first B slots), so signals and targets
+    cross to the device as one array. None when the layout does not apply:
+    non-int16 staging, B > T, or targets outside [0, 32767] (negative
+    ignore-markers take the two-transfer path)."""
+    if not isinstance(signals, np.ndarray) or signals.dtype != np.int16:
+        return None
+    b, t = signals.shape[-2], signals.shape[-1]
+    if b > t or targets.max(initial=0) >= 32768 or targets.min(initial=0) < 0:
+        return None
+    packed = np.empty(signals.shape[:-2] + (b + 1, t), np.int16)
+    packed[..., :b, :] = signals
+    packed[..., b, :] = 0
+    packed[..., b, :b] = targets
+    return packed
 
 
 def signals_to_float(signals):
@@ -163,18 +481,26 @@ def signals_to_float(signals):
     return signals
 
 
+# -- steps ---------------------------------------------------------------------
+
 def make_fused_train_step(trainer, feature_fn):
-    """One train step from raw waveforms: features (on the device) ->
-    model forward/backward -> optimizer update.
+    """One train step from raw waveforms: augmentation and features (on the
+    device) -> model forward/backward -> optimizer update.
 
     Returns step(state, signals [B, T], targets [B], generator=None,
-    example_mask=None) -> (new_state, loss). ``targets=None`` (the JAX
-    package's packed int16 layout) is not ported (ROADMAP queue 1,
-    item 7)."""
+    example_mask=None) -> (new_state, loss); ``generator`` feeds dropout.
+    The augmentation draws from a generator seeded from
+    (trainer.seed, state.step) alone. ``targets=None`` selects the packed
+    staging layout: ``signals`` is int16 [B + 1, T] with the targets in row
+    B's first B slots."""
     def step(state, signals, targets, generator=None, example_mask=None):
-        if targets is None:
-            _not_ported("the packed int16 staging layout (targets=None)")
-        feats = feature_fn(generator, signals_to_float(signals))
+        if targets is None:  # packed layout: the last row carries targets
+            b = signals.shape[0] - 1
+            targets = signals[-1, :b].to(torch.int64)
+            signals = signals[:-1]
+        augment_gen = keyed_generator(signals.device, trainer.seed,
+                                      state.step, 7)
+        feats = feature_fn(augment_gen, signals_to_float(signals))
         batch = {"target": targets}
         if isinstance(feats, tuple):  # length-tracking fn: (feats, mask)
             batch["input"], batch["input_mask"] = feats
@@ -186,13 +512,122 @@ def make_fused_train_step(trainer, feature_fn):
     return step
 
 
+def make_fused_replay_step(trainer, feature_fn):
+    """Whole-epoch cached replay: fused train steps over the device-resident
+    stacked batches in ``order`` (a host permutation of range(K)).
+    Augmentation stays fresh per epoch: each step's draws follow
+    state.step.
+
+    step(state, signals_all [K, B(+1), T], targets_all ([K, B] or None for
+    the packed layout), generator, order [K]) -> (state, losses [K])."""
+    single = make_fused_train_step(trainer, feature_fn)
+
+    def replay(state, signals_all, targets_all, generator, order):
+        losses = []
+        for i in np.asarray(order).tolist():
+            state, loss = single(state, signals_all[i],
+                                 None if targets_all is None
+                                 else targets_all[i], generator)
+            losses.append(loss)
+        return state, torch.stack(losses)
+    return replay
+
+
+def make_fused_multi_step(trainer, feature_fn):
+    """Grouped dispatch: K fused train steps over a [K, ...] stack of
+    staged batches that crossed to the device as one transfer; per-step
+    numerics identical to K single steps.
+
+    step(state, signals_k, targets_k, generator=None) -> (state, losses [K]);
+    ``targets_k=None`` selects the packed layout ([K, B + 1, T])."""
+    replay = make_fused_replay_step(trainer, feature_fn)
+
+    def multi(state, signals_k, targets_k, generator=None):
+        return replay(state, signals_k, targets_k, generator,
+                      np.arange(signals_k.shape[0]))
+    return multi
+
+
+def make_fused_replay_rows_step(trainer, feature_fn):
+    """Whole-epoch cached replay with a row-level reshuffle
+    (cache_shuffle="rows"): ``idx`` is a host [K, B] permutation of the K*B
+    cached waveform rows, so every epoch re-draws batch composition (the
+    reference re-shuffled elements every epoch,
+    lidbox/data/steps.py:997-999). Each step gathers its B rows on the
+    device from the stack seen as [K * rows, T] (no permuted copy); the
+    only transfer is the [K, B] index.
+
+    step(state, signals_all [K, B(+1), T], targets_all ([K, B] or None for
+    the packed layout), generator, idx [K, B]) -> (state, losses [K])."""
+    single = make_fused_train_step(trainer, feature_fn)
+
+    def replay_rows(state, signals_all, targets_all, generator, idx):
+        idx = np.asarray(idx, np.int64)
+        K, B = idx.shape
+        rows_per_batch = signals_all.shape[1]
+        sig_flat = signals_all.reshape((-1,) + tuple(signals_all.shape[2:]))
+        if targets_all is None:  # packed: row B of each batch = targets
+            tgt_flat = signals_all[:, B, :B].reshape(K * B).to(torch.int64)
+        else:
+            tgt_flat = targets_all.reshape(K * B)
+        # row r of the corpus is row r % B of batch r // B of the stack
+        sig_rows = to_device((idx // B) * rows_per_batch + idx % B,
+                             signals_all.device)
+        tgt_rows = to_device(idx, signals_all.device)
+        losses = []
+        for k in range(K):
+            state, loss = single(state, sig_flat.index_select(0, sig_rows[k]),
+                                 tgt_flat.index_select(0, tgt_rows[k]),
+                                 generator)
+            losses.append(loss)
+        return state, torch.stack(losses)
+    return replay_rows
+
+
+def _consolidate_signal_cache(entries, spd, preserve_order=False):
+    """Merge fit_signals' epoch-1 cache entries ((n, samples), (signals,
+    targets)), single batches at spd == 1 or stacked groups at spd > 1
+    (targets None = the packed int16 layout), into per-shape device stacks
+    for whole-epoch replay: a list of {signals, targets, n, samples, steps}.
+    None under ``preserve_order=True`` (the cache_shuffle=False contract)
+    when the shape signatures interleave: stack-major replay would reorder
+    the epoch-1 trajectory, so the caller keeps per-entry replay."""
+    keys = []
+    for _, (sig, tgt) in entries:
+        inner = sig.shape[1:] if spd > 1 else sig.shape
+        keys.append((tuple(inner), str(sig.dtype), tgt is None))
+    if preserve_order and not _signature_runs_contiguous(keys):
+        return None
+    order, groups = [], {}
+    for ((n, samples), (sig, tgt)), key in zip(entries, keys):
+        if key not in groups:
+            groups[key] = {"sigs": [], "tgts": [], "n": 0, "samples": 0,
+                           "steps": 0}
+            order.append(key)
+        g = groups[key]
+        g["sigs"].append(sig)
+        if tgt is not None:
+            g["tgts"].append(tgt)
+        g["n"] += int(n)
+        g["samples"] += int(samples)
+        g["steps"] += sig.shape[0] if spd > 1 else 1
+    cat = torch.cat if spd > 1 else torch.stack
+    return [{"signals": cat(g["sigs"]),
+             "targets": cat(g["tgts"]) if g["tgts"] else None,
+             "n": g["n"], "samples": g["samples"], "steps": g["steps"]}
+            for g in (groups[k] for k in order)]
+
+
 def _featurize_val(val_feats, val_batches, device):
     """The validation signal batches as feature batch dicts, kept on the
-    device for every later evaluate()."""
+    device. Batch i draws from its own generator, keyed (0, i) as the JAX
+    package keys it fold_in(PRNGKey(0), i): an augmenting fn gives each
+    batch its own draws, the same on every call."""
     eval_batches = []
     vit = val_batches() if callable(val_batches) else val_batches
-    for signals, targets in vit:
-        out = val_feats(None, to_device(signals, device))
+    for i, (signals, targets) in enumerate(vit):
+        out = val_feats(keyed_generator(device, 0, i),
+                        to_device(signals, device))
         batch = {"target": to_device(np.asarray(targets, np.int64), device)}
         if isinstance(out, tuple):
             batch["input"], batch["input_mask"] = out
@@ -207,28 +642,67 @@ def fit_signals(trainer, feature_fn, signal_batches, epochs=1, verbose=True,
                 val_feature_batches=None, steps_per_dispatch=1,
                 cache_staged=None, cache_shuffle=True):
     """Train directly from raw waveform batches through the fused path:
-    every step featurizes its batch on the device and trains on it
-    (make_fused_train_step), with no per-step host readback.
+    every step augments and featurizes its batch on the device and trains
+    on it (make_fused_train_step), with no per-step host readback.
 
     ``signal_batches``: callable or re-iterable collection of
     (signals [B, T], targets [B]) numpy pairs; with ``epochs > 1`` a
     one-shot generator raises after epoch 1 instead of silently training
     on nothing. Validation after every epoch comes from either
-    ``val_batches`` (same signal-pair shape, featurized once per fit
-    through ``val_feature_fn``, default ``feature_fn``) or
-    ``val_feature_batches`` (already-featurized dict batches). Epoch
-    numbering resumes from ``trainer.initial_epoch`` and ``epochs`` is the
-    absolute target, mirroring Trainer.fit. Returns per-epoch dicts with
-    ``loss`` (+ ``val_loss``/metrics) when validating, plain float losses
-    otherwise.
+    ``val_batches`` (signal pairs, featurized once per fit through
+    ``val_feature_fn``, default ``feature_fn``; pass a clean fn for
+    standard validation) or ``val_feature_batches`` (already-featurized
+    dict batches). Epoch numbering resumes from ``trainer.initial_epoch``
+    and ``epochs`` is the absolute target, mirroring Trainer.fit. Returns
+    per-epoch dicts with ``loss`` (+ ``val_loss``/metrics) when
+    validating, plain float losses otherwise.
 
-    Not ported yet (ROADMAP queue 1, item 7): ``steps_per_dispatch > 1``
-    and ``cache_staged`` (so ``cache_shuffle`` has nothing to shuffle)."""
-    if int(steps_per_dispatch) > 1:
-        _not_ported("steps_per_dispatch > 1")
-    if cache_staged:
-        _not_ported("cache_staged")
+    Staging follows ``trainer.stage_dtype`` (stage_signals); int16 stacks
+    carry their targets in an extra row (pack_targets_int16), one transfer
+    per step. ``steps_per_dispatch=K`` stages K consecutive same-shape
+    batches as one [K, B(+1), T] transfer for K steps
+    (make_fused_multi_step), with per-step numerics identical to K single
+    steps.
+
+    ``cache_staged`` (default: the trainer's setting) keeps the staged raw
+    waveform batches on the device after epoch 1: later epochs transfer no
+    signals while augmentation stays fresh per epoch (it follows the step
+    counter). ``cache_shuffle`` re-permutes the cached batch order each
+    epoch, drawn from ``np.random.default_rng(RANDOM_SEED + epoch)`` as in
+    the JAX package; ``"rows"`` also re-draws batch composition
+    (make_fused_replay_rows_step; batch order when interleaved shapes force
+    per-entry replay); False replays epoch 1's order. The staged corpus is
+    held to the device's memory budget (Trainer.cache_bytes_limit): when
+    twice its bytes (consolidation holds originals and stacks at once)
+    would exceed it, the cache is released with a warning and every epoch
+    streams."""
     step = make_fused_train_step(trainer, feature_fn)
+    spd = max(1, int(steps_per_dispatch))
+    multi = make_fused_multi_step(trainer, feature_fn) if spd > 1 else None
+    if cache_staged is None:
+        cache_staged = trainer.cache_staged
+    staged_cache = None   # per-entry replay (interleaved shapes, no shuffle)
+    replay_groups = None  # consolidated per-shape stacks after epoch 1
+    replay = None
+    val_staged = None  # staged validation stacks (False: did not fit)
+    cache_state = {"bytes": 0, "budget": None}
+
+    def _cache_admit(entry):
+        """Account one cached entry against the memory budget; False (after
+        a warning) once 2x the staged bytes would exceed it."""
+        cache_state["bytes"] += _tree_device_nbytes(entry)
+        if cache_state["budget"] is None:
+            cache_state["budget"] = trainer._cache_budget()
+        if 2.0 * cache_state["bytes"] > cache_state["budget"]:
+            logger.warning(
+                "cache_staged: staged signal corpus (%.0f MB so far, ~2x "
+                "transient during consolidation) exceeds the device memory "
+                "budget (%.0f MB) — releasing the cache and streaming every "
+                "epoch", cache_state["bytes"] / 1e6,
+                cache_state["budget"] / 1e6)
+            return False
+        return True
+
     if trainer.state is None:
         trainer.create_state()
     # a fresh fit starts training anew even if a previous fit on this
@@ -242,18 +716,35 @@ def fit_signals(trainer, feature_fn, signal_batches, epochs=1, verbose=True,
         def val_feats(generator, signals):
             return vfn(generator, signals_to_float(signals))
 
-    def stage(batch):
-        signals, targets = batch
-        if not isinstance(signals, torch.Tensor):
-            signals = np.asarray(signals)
-            if signals.dtype not in (np.float32, np.int16):
-                signals = signals.astype(np.float32)
+    def _stage(signals, targets):
+        """(signals, targets) on the device; targets None when packed."""
+        signals = stage_signals(signals, trainer.stage_dtype)
+        targets = np.asarray(targets, np.int64)
+        packed = pack_targets_int16(signals, targets)
+        if packed is not None:
+            return to_device(packed, trainer.device), None
         return (to_device(signals, trainer.device),
-                to_device(np.asarray(targets, np.int64), trainer.device))
+                to_device(targets, trainer.device))
 
-    def count(batch):
-        signals, targets = batch
-        return int(np.shape(targets)[0]), int(np.prod(np.shape(signals)))
+    def _grouped(batches):
+        """Consecutive same-shape batches in groups of up to spd."""
+        it = batches() if callable(batches) else batches
+        buf = []
+        for sig, tgt in it:
+            sig = np.asarray(sig)
+            if buf and sig.shape != buf[0][0].shape:
+                yield buf
+                buf = []
+            buf.append((sig, np.asarray(tgt)))
+            if len(buf) == spd:
+                yield buf
+                buf = []
+        if buf:
+            yield buf
+
+    def _stage_group(group):
+        return _stage(np.stack([s for s, _ in group]),
+                      np.stack([t for _, t in group]))
 
     # audio-seconds throughput (RTF): samples / sample_rate, with the rate
     # taken from the feature fn (make_augmented_feature_fn tags it)
@@ -266,15 +757,85 @@ def fit_signals(trainer, feature_fn, signal_batches, epochs=1, verbose=True,
             cb.on_epoch_begin(trainer, epoch)
         losses = []
         meter = ThroughputMeter()
-        staged = trainer._staged(signal_batches, count_fn=count, put=stage)
-        try:
-            for (n, samples), (signals, targets) in staged:
-                trainer.state, loss = step(trainer.state, signals, targets,
-                                           trainer.generator)
+        collecting = None
+        if replay_groups is not None:
+            # whole-epoch replay of the per-shape stacks; with cache_shuffle
+            # the permutation is within-stack plus stack order
+            if replay is None:
+                replay = (make_fused_replay_rows_step
+                          if cache_shuffle == "rows"
+                          else make_fused_replay_step)(trainer, feature_fn)
+            rng_epoch = np.random.default_rng(RANDOM_SEED + epoch)
+            gorder = (rng_epoch.permutation(len(replay_groups))
+                      if cache_shuffle else np.arange(len(replay_groups)))
+            for gi in gorder:
+                g = replay_groups[gi]
+                if cache_shuffle == "rows":
+                    K = g["steps"]
+                    B = (g["targets"].shape[1] if g["targets"] is not None
+                         else g["signals"].shape[1] - 1)
+                    order = rng_epoch.permutation(K * B).reshape(K, B)
+                else:
+                    order = (rng_epoch.permutation(g["steps"])
+                             if cache_shuffle else np.arange(g["steps"]))
+                trainer.state, loss_k = replay(
+                    trainer.state, g["signals"], g["targets"],
+                    trainer.generator, order)
+                losses.append(loss_k)
+                meter.update(g["n"], g["samples"] / sr if sr else 0.0)
+        elif staged_cache is not None:
+            # order-exact per-entry replay: the cache_shuffle=False
+            # fallback when shape signatures interleave; optionally with a
+            # fresh (seeded) entry order each epoch
+            entries = staged_cache
+            if cache_shuffle:
+                order = np.random.default_rng(
+                    RANDOM_SEED + epoch).permutation(len(staged_cache))
+                entries = [staged_cache[i] for i in order]
+            for (n, samples), (signals, targets) in entries:
+                run = multi if spd > 1 else step
+                trainer.state, loss = run(trainer.state, signals, targets,
+                                          trainer.generator)
                 losses.append(loss)
                 meter.update(n, samples / sr if sr else 0.0)
-        finally:
-            staged.close()
+        else:
+            if spd > 1:
+                staged = trainer._staged(
+                    lambda: _grouped(signal_batches),
+                    count_fn=lambda g: (
+                        sum(int(np.shape(t)[0]) for _, t in g),
+                        sum(int(np.prod(np.shape(s))) for s, _ in g)),
+                    put=_stage_group)
+            else:
+                staged = trainer._staged(
+                    signal_batches,
+                    count_fn=lambda b: (int(np.shape(b[1])[0]),
+                                        int(np.prod(np.shape(b[0])))),
+                    put=lambda b: _stage(*b))
+            collecting = [] if cache_staged else None
+            try:
+                for (n, samples), (signals, targets) in staged:
+                    if collecting is not None:
+                        collecting.append(((n, samples), (signals, targets)))
+                        if not _cache_admit((signals, targets)):
+                            collecting = None
+                            cache_staged = False
+                            val_staged = False
+                    run = multi if spd > 1 else step
+                    trainer.state, loss = run(trainer.state, signals,
+                                              targets, trainer.generator)
+                    losses.append(loss)
+                    meter.update(n, samples / sr if sr else 0.0)
+            finally:
+                staged.close()
+        if collecting:
+            # per-shape stacks for whole-epoch replay (None only when
+            # cache_shuffle=False met interleaved shape signatures)
+            replay_groups = _consolidate_signal_cache(
+                collecting, spd, preserve_order=not cache_shuffle)
+            # the stacks are the cache once consolidation succeeds: keeping
+            # the per-entry tensors too would hold ~2x the corpus
+            staged_cache = collecting if replay_groups is None else None
         if not losses and not validating:
             # a one-shot iterator (generator) exhausts after epoch 1 and
             # would silently "train" on zero batches with loss=nan
@@ -283,8 +844,8 @@ def fit_signals(trainer, feature_fn, signal_batches, epochs=1, verbose=True,
                 "signal_batches must be a CALLABLE (or re-iterable "
                 "collection) when epochs > 1; a generator is consumed by "
                 "the first epoch")
-        mean_loss = (float(torch.stack(losses).mean()) if losses
-                     else float("nan"))
+        mean_loss = (float(torch.cat([l.reshape(-1) for l in losses]).mean())
+                     if losses else float("nan"))
         if not validating:
             epoch_logs = {"loss": mean_loss, **meter.rates()}
             history.append(mean_loss)
@@ -298,19 +859,45 @@ def fit_signals(trainer, feature_fn, signal_batches, epochs=1, verbose=True,
             if trainer.stop_training:
                 break
             continue
-        if val_feature_batches is not None:
-            eval_batches = list(val_feature_batches()
-                                if callable(val_feature_batches)
-                                else val_feature_batches)
+        if cache_staged and val_staged not in (None, False):
+            val_logs = trainer.evaluate(val_staged, staged=True)
         else:
-            # featurize the validation set once: the clean chain gives the
-            # same features every epoch
-            if eval_cache is None:
-                eval_cache = _featurize_val(val_feats, val_batches,
-                                            trainer.device)
-            eval_batches = eval_cache
-        logs = {"loss": mean_loss, **meter.rates(),
-                **trainer.evaluate(eval_batches)}
+            if val_feature_batches is not None:
+                eval_batches = list(val_feature_batches()
+                                    if callable(val_feature_batches)
+                                    else val_feature_batches)
+            else:
+                # featurize the validation set once: each batch's draws are
+                # keyed by its index, so every epoch would get the same
+                if eval_cache is None:
+                    eval_cache = _featurize_val(val_feats, val_batches,
+                                                trainer.device)
+                eval_batches = eval_cache
+            if cache_staged and val_staged is not False:
+                # stage the validation set once into per-shape stacks;
+                # later epochs evaluate the device-resident copy
+                entries = list(trainer._staged(eval_batches))
+                vbytes = sum(_tree_device_nbytes(b) for _, b in entries)
+                if cache_state["budget"] is None:
+                    cache_state["budget"] = trainer._cache_budget()
+                if (cache_state["bytes"] + 2.0 * vbytes
+                        > cache_state["budget"]):
+                    logger.warning(
+                        "cache_staged: staged validation set (%.0f MB, ~2x "
+                        "transient) on top of the signal cache (%.0f MB) "
+                        "exceeds the device memory budget (%.0f MB) — "
+                        "streaming validation instead", vbytes / 1e6,
+                        cache_state["bytes"] / 1e6,
+                        cache_state["budget"] / 1e6)
+                    val_staged = False
+                    val_logs = trainer.evaluate(eval_batches)
+                else:
+                    val_staged = trainer._consolidate_cache(entries,
+                                                            grouped=False)
+                    val_logs = trainer.evaluate(val_staged, staged=True)
+            else:
+                val_logs = trainer.evaluate(eval_batches)
+        logs = {"loss": mean_loss, **meter.rates(), **val_logs}
         history.append(logs)
         if trainer.metrics_logger:
             trainer.metrics_logger.log(epoch, logs)

@@ -1,7 +1,9 @@
 """
 Audio DSP in PyTorch: the subset of ``lidbox_tpu.features.audio`` that
-feature extraction needs (framing, periodic Hann window, STFT, power
-spectrograms, mel projection, dB scaling, MFCC).
+feature extraction and the on-device augmentation chain need (framing,
+periodic Hann window, STFT, power spectrograms, mel projection, dB scaling,
+MFCC; RMS levels, the SNR mixer, FIR filtering, run-length smoothing and
+the energy VAD).
 
 Numerics follow tf.signal as the JAX package does (within 1e-4).
 
@@ -20,6 +22,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from . import mel_ops
 
@@ -41,6 +44,11 @@ def dsp_operand(x, precision):
                      f"valid: {DSP_PRECISIONS}")
 
 
+def dBFS_to_linear(level):
+    """10^(dB/20) as a float32 tensor (reference: lidbox/features/audio.py:50-52)."""
+    return torch.pow(10.0, torch.as_tensor(level, dtype=torch.float32) / 20.0)
+
+
 def ms_to_frames(sample_rate, ms):
     """Milliseconds to sample count (reference: lidbox/features/audio.py:185-189)."""
     return int(sample_rate * 1e-3 * ms)
@@ -48,6 +56,20 @@ def ms_to_frames(sample_rate, ms):
 
 def log10(x):
     return torch.log(x) / np.float32(np.log(10.0))
+
+
+def root_mean_square(x, axis=-1, keepdims=False):
+    """sqrt(mean(|x|^2)) (reference: lidbox/features/audio.py:264-271)."""
+    return torch.sqrt(torch.mean(torch.square(torch.abs(x)), dim=axis,
+                                 keepdim=keepdims))
+
+
+def _masked_rms(x, mask, axis=-1, keepdims=False):
+    """RMS over the elements where ``mask`` is True."""
+    mask = mask.to(x.dtype)
+    total = torch.sum(torch.square(x) * mask, dim=axis, keepdim=keepdims)
+    count = torch.clamp(torch.sum(mask, dim=axis, keepdim=keepdims), min=1.0)
+    return torch.sqrt(total / count)
 
 
 def power_to_db(S, amin=1e-10, top_db=80.0):
@@ -196,3 +218,178 @@ def mfcc(log_mel, coef_begin=1, coef_end=13):
     coeffs = torch.matmul(log_mel, _dct_tensor(log_mel.shape[-1],
                                                log_mel.device))
     return coeffs[..., coef_begin:coef_end]
+
+
+# ---------------------------------------------------------------------------
+# Augmentation
+# ---------------------------------------------------------------------------
+
+def snr_mixer(clean, noise, snr):
+    """Mix ``noise`` into ``clean`` at ``snr`` dB, MS-SNSD style: both
+    normalized to -25 dBFS first (reference: lidbox/features/audio.py:124-148).
+
+    Returns (clean_norm, noise_at_new_level, noisy_speech)."""
+    scalarclean = dBFS_to_linear(-25.0) / root_mean_square(clean)
+    clean_norm = scalarclean * clean
+    rmsclean = root_mean_square(clean_norm)
+
+    scalarnoise = dBFS_to_linear(-25.0) / root_mean_square(noise)
+    noise_norm = scalarnoise * noise
+    rmsnoise = root_mean_square(noise_norm)
+
+    level = dBFS_to_linear(snr)
+    noisescalar = torch.sqrt(rmsclean / level / rmsnoise)
+    noisenewlevel = noisescalar * noise_norm
+    return clean_norm, noisenewlevel, clean_norm + noisenewlevel
+
+
+def snr_mixer_batch(clean, noise, snr, mask=None):
+    """Batched, mask-aware SNR mixer over [B, T] signals: ``mask`` marks the
+    valid samples of ``clean`` and the RMS statistics ignore the rest, so a
+    padded row mixes as its unpadded slice would. ``snr`` is [B] dB values;
+    padding comes back zero."""
+    if mask is None:
+        mask = torch.ones_like(clean, dtype=torch.bool)
+    rms_c = _masked_rms(clean, mask, axis=-1, keepdims=True)
+    clean_norm = clean * (dBFS_to_linear(-25.0) / rms_c)
+    rmsclean = _masked_rms(clean_norm, mask, axis=-1, keepdims=True)
+
+    rms_n = _masked_rms(noise, mask, axis=-1, keepdims=True)
+    noise_norm = noise * (dBFS_to_linear(-25.0) / rms_n)
+    rmsnoise = _masked_rms(noise_norm, mask, axis=-1, keepdims=True)
+
+    level = dBFS_to_linear(snr).to(clean.device)[:, None]
+    noisescalar = torch.sqrt(rmsclean / level / rmsnoise)
+    noisy = clean_norm + noisescalar * noise_norm
+    return torch.where(mask, noisy, torch.zeros_like(noisy))
+
+
+def fir_filter(signal, fir):
+    """Causal FIR filtering, equal to scipy.signal.lfilter(fir, 1.0, signal)
+    (reference: lidbox/features/audio.py:63-74): a signal [T] with taps [K],
+    or rows [B, T] each with its own taps [B, K] (one grouped conv1d).
+    conv1d is a cross-correlation, so the taps are flipped."""
+    num_coefs = fir.shape[-1]
+    x = F.pad(signal, (num_coefs - 1, 0)).reshape(1, -1, signal.shape[-1]
+                                                   + num_coefs - 1)
+    w = fir.flip(-1).reshape(-1, 1, num_coefs)
+    return F.conv1d(x, w, groups=w.shape[0]).reshape(signal.shape)
+
+
+def random_gaussian_fir_filter(generator, signal, num_coefs):
+    """Random-normal FIR channel simulation (reference:
+    lidbox/features/audio.py:63-74), taps drawn from ``generator``."""
+    fir = torch.randn(num_coefs, generator=generator, device=signal.device,
+                      dtype=signal.dtype)
+    return fir_filter(signal, fir)
+
+
+# ---------------------------------------------------------------------------
+# Run-length tools and VAD
+# ---------------------------------------------------------------------------
+
+def _run_ids(v):
+    """Change points and run labels along the last axis: a run starts
+    wherever a value differs from its predecessor."""
+    first = torch.ones(v.shape[:-1] + (1,), dtype=torch.bool, device=v.device)
+    change = torch.cat([first, v[..., 1:] != v[..., :-1]], dim=-1)
+    return change, torch.cumsum(change, dim=-1) - 1
+
+
+def run_length_encoding(v):
+    """Positions and lengths of the equal-value runs of a [T] vector
+    (reference: lidbox/features/audio.py:274-283), as fixed-shape [T]
+    tensors (pos, lengths, num_runs): entries at index >= num_runs are
+    padding."""
+    v = torch.as_tensor(v)
+    t = v.shape[0]
+    change, run_id = _run_ids(v)
+    num_runs = run_id[-1] + 1
+    lengths = torch.zeros(t, dtype=torch.int64, device=v.device).index_add_(
+        0, run_id, torch.ones(t, dtype=torch.int64, device=v.device))
+    ar = torch.arange(t, device=v.device)
+    pos = torch.sort(torch.where(change, ar, t)).values
+    pos = torch.where(ar < num_runs, pos, torch.zeros_like(pos))
+    return pos, lengths, num_runs
+
+
+def invert_too_short_consecutive_false(mask, min_length):
+    """Flip the False runs shorter than ``min_length`` along the last axis
+    to True (VAD smoothing, reference: lidbox/features/audio.py:286-296):
+    each run's length is scattered to its label and gathered back."""
+    if min_length <= 0:
+        return mask
+    _, run_id = _run_ids(mask)
+    run_len = torch.zeros_like(run_id).scatter_add_(-1, run_id,
+                                                    torch.ones_like(run_id))
+    return mask | (torch.gather(run_len, -1, run_id) < min_length)
+
+
+def framewise_rms_energy_vad_decisions(signal, sample_rate, frame_step_ms,
+                                       min_non_speech_ms=0, strength=0.05,
+                                       min_rms_threshold=1e-3):
+    """Energy VAD of one [T] waveform: True for the frames whose RMS exceeds
+    strength * mean RMS (reference: lidbox/features/audio.py:299-329)."""
+    frame_step = ms_to_frames(sample_rate, frame_step_ms)
+    rms = root_mean_square(frame(signal, frame_step, frame_step, axis=0),
+                           axis=1)
+    threshold = strength * torch.clamp(torch.mean(rms), min=min_rms_threshold)
+    min_frames = ms_to_frames(sample_rate, min_non_speech_ms) // frame_step
+    return invert_too_short_consecutive_false(rms > threshold, min_frames)
+
+
+def framewise_rms_energy_vad_decisions_batch(signals, lengths, sample_rate,
+                                             frame_step_ms, min_non_speech_ms=0,
+                                             strength=0.05,
+                                             min_rms_threshold=1e-3):
+    """Batched, padding-aware energy VAD over [B, T] signals with valid
+    sample counts ``lengths`` [B]: the mean RMS covers valid frames only,
+    so a padded row decides as its unpadded slice would. Returns
+    [B, frames] bool, False on padded frames."""
+    frame_step = ms_to_frames(sample_rate, frame_step_ms)
+    frames = frame(signals, frame_step, frame_step, axis=-1)  # [B, F, L]
+    starts = torch.arange(frames.shape[1], device=signals.device) * frame_step
+    valid = (starts[None, :] + frame_step) <= lengths[:, None]
+    rms = root_mean_square(frames, axis=2)
+    vmask = valid.to(rms.dtype)
+    mean_rms = torch.sum(rms * vmask, dim=1, keepdim=True) / torch.clamp(
+        torch.sum(vmask, dim=1, keepdim=True), min=1.0)
+    threshold = strength * torch.clamp(mean_rms, min=min_rms_threshold)
+    decisions = (rms > threshold) & valid
+    min_frames = ms_to_frames(sample_rate, min_non_speech_ms) // frame_step
+    if min_frames > 0:
+        # padding is marked True before smoothing, so a short non-speech run
+        # at the end of the real signal keeps its own length instead of
+        # merging with the padding's False run; then masked again
+        decisions = invert_too_short_consecutive_false(
+            decisions | ~valid, min_frames) & valid
+    return decisions
+
+
+def compact_voiced(windows, vad):
+    """Voiced windows to the front, in order: windows [..., F, W] and
+    decisions [..., F] -> (samples [..., F * W] with a zero tail, voiced
+    window count [...]). A stable sort of (index if voiced else F)."""
+    num_windows = vad.shape[-1]
+    ar = torch.arange(num_windows, device=vad.device)
+    order = torch.argsort(torch.where(vad, ar, num_windows), dim=-1,
+                          stable=True)
+    compacted = torch.gather(windows, -2,
+                             order[..., None].expand(windows.shape))
+    keep = torch.sum(vad, dim=-1)
+    mask = (ar < keep[..., None])[..., None]
+    out = torch.where(mask, compacted, torch.zeros_like(compacted))
+    return out.flatten(-2), keep
+
+
+def remove_silence(signal, rate, window_ms=10, min_non_speech_ms=300):
+    """Drop the unvoiced ``window_ms`` windows of one [T] waveform by the
+    energy VAD (reference: lidbox/features/audio.py:332-353). Returns
+    (voiced windows compacted to the front with a zero tail, number of
+    valid samples)."""
+    window = (window_ms * rate) // 1000
+    vad = framewise_rms_energy_vad_decisions(
+        signal=signal, sample_rate=rate, frame_step_ms=window_ms,
+        min_non_speech_ms=min_non_speech_ms, strength=0.1)
+    trimmed, keep = compact_voiced(frame(signal, window, window, axis=0), vad)
+    return trimmed, keep * window

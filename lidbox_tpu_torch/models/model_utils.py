@@ -219,6 +219,7 @@ class ModelWrapper:
                           prefetch=feed.get("prefetch", 4),
                           stage_dtype=feed.get("stage_dtype"),
                           cache_staged=feed.get("cache_staged", False),
+                          cache_bytes_limit=feed.get("cache_bytes_limit"),
                           device=device)
         wrapper = cls(model, model_key, trainer)
         wrapper.steps_per_dispatch = int(feed.get("steps_per_dispatch", 1))
@@ -247,10 +248,15 @@ class ModelWrapper:
         """Train from raw waveform batches (train.signal_batches_from_dataset)
         through the fused chain declared in the config's ``features``
         section and its ``on_device_augment`` subsection: every step
-        featurizes its batch on the device (with ``stft_method: "pallas"``
-        the fused log-Mel kernel) and trains on it. Validation batches are
-        featurized clean (same features config, augmentation stripped) and
-        evaluated after every epoch.
+        augments and featurizes its batch on the device (with
+        ``stft_method: "pallas"`` the fused log-Mel kernel) and trains on
+        it. Validation batches are featurized clean (same features config,
+        augmentation stripped) and evaluated after every epoch. The
+        config's ``experiment.feed`` applies: ``stage_dtype``,
+        ``steps_per_dispatch`` (overridable per call), ``cache_staged``,
+        ``cache_shuffle`` and ``cache_bytes_limit``. (The JAX package's
+        fit_fused leaves ``cache_shuffle`` at True whatever the config
+        says; here the config's value holds.)
         """
         from lidbox_tpu_torch.data import on_device
         features_conf = dict((self.config or {}).get("features") or {})
@@ -266,14 +272,14 @@ class ModelWrapper:
                     "features.sample_rate in the config (the fused chain "
                     "builds rate-dependent stages ahead of the data)")
             sample_rate = int(features_conf["sample_rate"])
-        feature_fn = on_device.feature_fn_from_config(sample_rate,
-                                                      features_conf)
+        feature_fn = on_device.feature_fn_from_config(
+            sample_rate, features_conf, device=self.trainer.device)
         val_feature_fn = None
         if val_signal_batches is not None:
             clean_conf = {k: v for k, v in features_conf.items()
                           if k != "on_device_augment"}
-            val_feature_fn = on_device.feature_fn_from_config(sample_rate,
-                                                              clean_conf)
+            val_feature_fn = on_device.feature_fn_from_config(
+                sample_rate, clean_conf, device=self.trainer.device)
         return on_device.fit_signals(self.trainer, feature_fn, signal_batches,
                                      epochs=epochs, verbose=verbose,
                                      val_batches=val_signal_batches,
@@ -282,7 +288,8 @@ class ModelWrapper:
                                      steps_per_dispatch=(
                                          self.steps_per_dispatch
                                          if steps_per_dispatch is None
-                                         else steps_per_dispatch))
+                                         else steps_per_dispatch),
+                                     cache_shuffle=self.cache_shuffle)
 
     def count_params(self):
         return self.model.num_params()

@@ -19,14 +19,15 @@ functional loop, as the JAX package does:
   resume.
 
 Host batches reach the device through one ordered prefetch thread (pinned
-memory, non_blocking copies on the current stream). Dropout draws from a
-``torch.Generator`` the Trainer owns. The module is put in training mode
-for a train step only, and back in eval mode after.
+memory, non_blocking copies on the current stream), optionally compressed
+on the host (``stage_dtype``), grouped K to a transfer
+(``steps_per_dispatch``), or cached on the device after epoch 1
+(``cache_staged``, with ``cache_shuffle`` and a device-memory guard).
+Dropout draws from a ``torch.Generator`` the Trainer owns. The module is
+put in training mode for a train step only, and back in eval mode after.
 
 Not ported yet, and raising (ROADMAP queue 1): ``mesh`` and
-``param_sharding`` (item 12), ``steps_per_dispatch > 1``,
-``cache_staged`` / ``cache_bytes_limit`` and ``stage_dtype`` (item 7),
-``remat`` (item 6).
+``param_sharding`` (item 12), ``remat`` (item 6).
 """
 import dataclasses
 import queue
@@ -182,6 +183,66 @@ class LearningRateDateLogger(Callback):
                     time.strftime("%Y-%m-%d %H:%M:%S"), lr)
 
 
+def keyed_generator(device, *key):
+    """A ``torch.Generator`` on ``device`` whose seed depends on the
+    non-negative integers ``key`` alone (numpy's SeedSequence mixes them),
+    as ``jax.random.fold_in`` keys a stream: a train step's augmentation
+    generator is keyed (trainer seed, step, 7) and needs no device read."""
+    seed = np.random.SeedSequence([int(k) for k in key]).generate_state(
+        1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
+def torch_dtype(dtype):
+    """A stage dtype given by name ("int16", "bfloat16", ...) or as a torch
+    dtype, as a torch dtype."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    name = str(dtype)
+    return getattr(torch, name if name == "bfloat16" else np.dtype(name).name)
+
+
+def _tree_device_nbytes(tree):
+    """Bytes a staged tree (tensors and arrays in dicts, lists and tuples)
+    pins: the staged-cache accounting unit, compared against
+    _cache_budget_bytes."""
+    if isinstance(tree, dict):
+        return sum(_tree_device_nbytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_device_nbytes(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return int(getattr(tree, "nbytes", 0))
+
+
+def _cache_budget_bytes(limit=None, device=None):
+    """Device memory available to ``cache_staged``: ``limit``
+    (Trainer.cache_bytes_limit) when given, else on a CUDA device 90% of
+    the total less what is in use (``torch.cuda.mem_get_info``), else +inf
+    (the CPU)."""
+    if limit is not None:
+        return float(limit)
+    if device is not None and torch.device(device).type == "cuda":
+        free, total = torch.cuda.mem_get_info(device)
+        return 0.9 * float(total) - float(total - free)
+    return float("inf")
+
+
+def _signature_runs_contiguous(sigs):
+    """True when every distinct value in ``sigs`` appears as one contiguous
+    run: then stack-major cached replay reproduces the original sequence
+    exactly (Trainer._consolidate_cache, on_device._consolidate_signal_cache)."""
+    runs = 1 + sum(a != b for a, b in zip(sigs, sigs[1:]))
+    return runs == len(set(sigs))
+
+
+def _leaf_signature(value):
+    if isinstance(value, torch.Tensor):
+        return tuple(value.shape), str(value.dtype)
+    value = np.asarray(value)
+    return value.shape, value.dtype.str
+
+
 def to_device(value, device):
     """A numpy array or tensor on ``device``: host data bound for a CUDA
     device is pinned and copied with ``non_blocking`` on the current
@@ -205,11 +266,18 @@ class Trainer:
         metrics: dict name -> AverageDetectionCost-like object with
             init_state/update_sparse/result.
         lr_schedule: schedule or float, used only for logging.
-        rng: integer seed of the Trainer's ``torch.Generator`` (dropout);
-            default RANDOM_SEED.
+        rng: integer seed (default RANDOM_SEED) of the Trainer's
+            ``torch.Generator`` (dropout) and of the fused path's per-step
+            augmentation generators (``keyed_generator``).
         compute_dtype: e.g. torch.bfloat16: forwards run on parameters and
             inputs cast to it, while master parameters, optimizer state,
             loss and gradients stay float32.
+        stage_dtype: host-side compression of the feed ("bfloat16" for
+            feature batches; "int16" also for waveforms on the fused path),
+            upcast on the device.
+        cache_staged: keep the staged batches on the device after epoch 1
+            (fit's default), held to ``cache_bytes_limit`` bytes (None:
+            90% of the device's memory less what is in use; inf on the CPU).
         device: the model's device; default "cuda", which raises without
             CUDA.
     """
@@ -220,14 +288,10 @@ class Trainer:
                  param_sharding=None, prefetch=4, stage_dtype=None,
                  score_fn=None, cache_staged=False, cache_bytes_limit=None,
                  device="cuda"):
-        for name, value, item in (("mesh", mesh, 12),
-                                  ("param_sharding", param_sharding, 12),
-                                  ("stage_dtype", stage_dtype, 7),
-                                  ("cache_bytes_limit", cache_bytes_limit, 7)):
+        for name, value in (("mesh", mesh),
+                            ("param_sharding", param_sharding)):
             if value is not None:
-                _not_ported(name, item)
-        if cache_staged:
-            _not_ported("cache_staged", 7)
+                _not_ported(name, 12)
         self.device = get_device(device)
         if model.device != self.device:
             raise ValueError(f"the model lives on {model.device}, the "
@@ -237,6 +301,9 @@ class Trainer:
         self.loss_fn = loss_fn
         self.compute_dtype = compute_dtype
         self.prefetch = max(1, int(prefetch))
+        self.stage_dtype = stage_dtype
+        self.cache_staged = bool(cache_staged)
+        self.cache_bytes_limit = cache_bytes_limit
         # Maps raw model outputs -> per-class scores [B, N] for metrics
         # (None = identity; AngularProximity.predict for language vectors)
         self.score_fn = score_fn
@@ -246,8 +313,9 @@ class Trainer:
         self.lr_schedule = lr_schedule
         self.stop_training = False
         self.initial_epoch = 0
+        self.seed = RANDOM_SEED if rng is None else int(rng)
         self.generator = torch.Generator(device=self.device).manual_seed(
-            RANDOM_SEED if rng is None else int(rng))
+            self.seed)
         self.metrics_logger = MetricsLogger(log_dir) if log_dir else None
         self.state = None
 
@@ -354,6 +422,44 @@ class Trainer:
         loss, grads, new_bs = self._loss_and_grads(state, batch, generator)
         return self._apply_gradients(state, grads, new_bs), loss
 
+    def _replay_train_step(self, state, stacked, generator, order):
+        """Whole-epoch cached replay: train steps over the device-resident
+        stacked batch dict [K, B, ...] in ``order`` (a host permutation of
+        range(K)) -> (state, losses [K]); the stack is indexed, never
+        copied."""
+        losses = []
+        for i in np.asarray(order).tolist():
+            state, loss = self._train_step(
+                state, {k: v[i] for k, v in stacked.items()}, generator)
+            losses.append(loss)
+        return state, torch.stack(losses)
+
+    def _multi_train_step(self, state, stacked, generator=None):
+        """K train steps over a stacked batch dict [K, B, ...] that crossed
+        to the device as one transfer; per-step numerics identical to K
+        single steps."""
+        return self._replay_train_step(state, stacked, generator,
+                                       np.arange(self._batch_rows(stacked)))
+
+    def _replay_rows_train_step(self, state, stacked, generator, idx):
+        """Whole-epoch cached replay with a row-level reshuffle
+        (cache_shuffle="rows"): ``idx`` is a host [K, B] permutation of the
+        K*B cached example rows, so every epoch re-draws batch composition
+        (the reference re-shuffled elements every epoch,
+        lidbox/data/steps.py:997-999). Each step gathers its rows on the
+        device from the [K * B, ...] view of the stack; masks and targets
+        travel with their rows."""
+        flat = {k: v.reshape((-1,) + tuple(v.shape[2:]))
+                for k, v in stacked.items()}
+        rows_all = to_device(np.asarray(idx, np.int64), self.device)
+        losses = []
+        for rows in rows_all:
+            state, loss = self._train_step(
+                state, {k: v.index_select(0, rows) for k, v in flat.items()},
+                generator)
+            losses.append(loss)
+        return state, torch.stack(losses)
+
     @torch.no_grad()
     def _eval_step(self, state, batch, metric_states):
         outputs, _ = self._apply(state.params, state.batch_stats, batch,
@@ -372,6 +478,17 @@ class Trainer:
             for name, metric in self.metrics.items()}
         return loss_sum, count, new_metric_states
 
+    def _replay_eval_step(self, state, stacked, metric_states):
+        """Cached validation: eval steps over a stacked batch dict
+        [K, B, ...] -> (loss sum, count, metric states), accumulated on the
+        device."""
+        total = count = 0.0
+        for i in range(self._batch_rows(stacked)):
+            loss_sum, n, metric_states = self._eval_step(
+                state, {k: v[i] for k, v in stacked.items()}, metric_states)
+            total, count = total + loss_sum, count + n
+        return total, count, metric_states
+
     # -- host loop ----------------------------------------------------------
 
     @staticmethod
@@ -383,9 +500,105 @@ class Trainer:
                 return int(np.shape(batch[key])[0])
         return int(np.shape(next(iter(batch.values())))[0])
 
+    def _compress(self, batch):
+        """Host-side staging compression: a floating ``stage_dtype`` (e.g.
+        bfloat16, half the bytes of the transfer) converts float inputs to
+        it, and _apply upcasts on the device. Integer stage dtypes (int16
+        PCM) apply to the fused waveform route only (on_device
+        .stage_signals): feature batches pass through."""
+        if self.stage_dtype is None:
+            return batch
+        dt = torch_dtype(self.stage_dtype)
+        if not dt.is_floating_point:
+            return batch
+        x = batch["input"]
+        if not isinstance(x, torch.Tensor):
+            x = np.asarray(x)
+            if not np.issubdtype(x.dtype, np.floating):
+                return batch
+            x = torch.from_numpy(np.ascontiguousarray(x))
+        if x.is_floating_point() and x.dtype != dt:
+            batch = dict(batch)
+            batch["input"] = x.to(dt)
+        return batch
+
     def _put(self, batch):
-        """A host batch dict on the trainer's device."""
-        return {k: to_device(v, self.device) for k, v in batch.items()}
+        """A host batch dict on the trainer's device, compressed first."""
+        return {k: to_device(v, self.device)
+                for k, v in self._compress(batch).items()}
+
+    @staticmethod
+    def _grouped_batches(batches, spd, limit=None):
+        """Consecutive same-signature batch dicts in lists of up to ``spd``
+        (one stacked transfer per list). ``limit`` caps the number of
+        batches emitted, and group edges align with it: a stacked group
+        runs whole."""
+        buf, sig = [], None
+        for b in batches:
+            s = tuple(sorted((k, _leaf_signature(v)) for k, v in b.items()))
+            if buf and s != sig:
+                yield buf
+                if limit is not None:
+                    limit -= len(buf)
+                    if limit <= 0:
+                        return
+                buf = []
+            sig = s
+            buf.append(b)
+            if len(buf) == spd or (limit is not None and len(buf) >= limit):
+                yield buf
+                if limit is not None:
+                    limit -= len(buf)
+                    if limit <= 0:
+                        return
+                buf = []
+        if buf:
+            yield buf
+
+    def _put_group(self, group):
+        """A list of same-shape host batches as one stacked transfer (dict of
+        [K, B, ...] tensors) for _multi_train_step."""
+        group = [self._compress(b) for b in group]
+        return {k: to_device(torch.stack([torch.as_tensor(b[k])
+                                          for b in group]), self.device)
+                for k in group[0]}
+
+    def _consolidate_cache(self, items, grouped, preserve_order=False):
+        """Merge epoch 1's staged entries into per-shape device stacks for
+        whole-epoch replay: ``items`` are (n, batch dict [B, ...]) pairs, or
+        with ``grouped`` (list of n, stacked dict [k, B, ...]). Returns a
+        list of {"stack": dict of [K, B, ...] tensors, "ns": int64 [K]}, one
+        per distinct per-step batch signature. Consolidation holds the
+        originals and the stacks at once (~2x the corpus); callers release
+        the entries after.
+
+        ``preserve_order=True`` (the cache_shuffle=False contract: replay
+        epoch 1's sequence exactly) returns None when the signatures
+        interleave (e.g. padded buckets A, B, A), since stack-major replay
+        would reorder them; the caller keeps per-entry replay."""
+        lead = 1 if grouped else 0
+        sigs = [tuple(sorted((k, tuple(v.shape[lead:]), str(v.dtype))
+                             for k, v in batch.items()))
+                for _, batch in items]
+        if preserve_order and not _signature_runs_contiguous(sigs):
+            return None
+        order, by_sig = [], {}
+        for (n, batch), s in zip(items, sigs):
+            if s not in by_sig:
+                by_sig[s] = {"batches": [], "ns": []}
+                order.append(s)
+            by_sig[s]["batches"].append(batch)
+            by_sig[s]["ns"].extend(list(n) if grouped else [n])
+        join = torch.cat if grouped else torch.stack
+        return [{"stack": {k: join([b[k] for b in e["batches"]])
+                           for k in e["batches"][0]},
+                 "ns": np.asarray(e["ns"], np.int64)}
+                for e in (by_sig[s] for s in order)]
+
+    def _cache_budget(self):
+        """The cache_staged memory budget of this trainer's device
+        (_cache_budget_bytes)."""
+        return _cache_budget_bytes(self.cache_bytes_limit, self.device)
 
     def _staged(self, batches, count_fn=None, put=None):
         """Iterate ``batches`` with up to ``self.prefetch`` staged batches
@@ -460,13 +673,25 @@ class Trainer:
         Epoch numbering resumes from ``initial_epoch`` and ``epochs`` is
         the absolute target. Returns one logs dict per epoch.
 
-        Not ported yet (ROADMAP queue 1, item 7): ``steps_per_dispatch >
-        1`` and ``cache_staged`` (so ``cache_shuffle`` has nothing to
-        shuffle)."""
-        if int(steps_per_dispatch) > 1:
-            _not_ported("steps_per_dispatch > 1", 7)
-        if cache_staged:
-            _not_ported("cache_staged", 7)
+        ``steps_per_dispatch=K`` stages K consecutive same-shape batches as
+        one transfer for K train steps (_multi_train_step), per-step
+        numerics identical to single steps.
+
+        ``cache_staged`` (default: the Trainer's setting) keeps every staged
+        training and validation batch on the device after epoch 1 and
+        replays them in later epochs: no transfers, at the cost of freezing
+        both sets to their epoch-1 contents. The cached batches consolidate
+        into per-shape stacks (_consolidate_cache). ``cache_shuffle``
+        (default True) re-permutes the cached batch order each epoch,
+        drawn from ``np.random.default_rng(RANDOM_SEED + epoch)`` as in the
+        JAX package; ``"rows"`` re-draws batch composition too, permuting
+        the cached example rows within each shape stack
+        (_replay_rows_train_step); False replays epoch 1's order. A
+        ``steps_per_epoch``-truncated first epoch does not populate the
+        cache. A memory guard counts the staged bytes against
+        ``cache_bytes_limit`` (_cache_budget_bytes) and, when twice the
+        corpus (the consolidation transient) would not fit, releases the
+        cache with a warning and streams."""
         if self.remat:
             _not_ported("remat", 6)
         if self.state is None:
@@ -474,6 +699,13 @@ class Trainer:
         # a fresh fit() trains anew even if a previous fit on this trainer
         # was stopped early (Keras resets the flag on fit entry)
         self.stop_training = False
+        if cache_staged is None:
+            cache_staged = self.cache_staged
+        spd = max(1, int(steps_per_dispatch))
+        staged_cache = None
+        val_staged = None  # staged validation stacks (False: did not fit)
+        cached_bytes = 0
+        cache_budget = None  # resolved at the first cached batch
         for cb in self.callbacks:
             cb.on_train_begin(self)
         history = []
@@ -484,28 +716,146 @@ class Trainer:
                 cb.on_epoch_begin(self, epoch)
             meter = ThroughputMeter()
             losses = []
-            batches = (train_batches() if callable(train_batches)
-                       else train_batches)
-            source = self._staged(batches)
-            try:
-                for n, batch in source:
-                    if (steps_per_epoch is not None
-                            and len(losses) >= steps_per_epoch):
-                        break
-                    self.state, loss = self._train_step(self.state, batch,
-                                                        self.generator)
-                    meter.update(n)
-                    losses.append(loss)
-            finally:
-                # release the producer thread and its staged batches on
-                # every exit (normal, truncation, a raising train step)
-                source.close()
-            train_loss = (float(torch.stack(losses).mean()) if losses
-                          else float("nan"))
+            truncated = False
+            collecting = None
+            if staged_cache is not None:
+                rng_epoch = np.random.default_rng(RANDOM_SEED + epoch)
+                if isinstance(staged_cache[0], dict):
+                    # per-shape stacks
+                    gorder = (rng_epoch.permutation(len(staged_cache))
+                              if cache_shuffle
+                              else np.arange(len(staged_cache)))
+                    for gi in gorder:
+                        g = staged_cache[gi]
+                        K = len(g["ns"])
+                        if cache_shuffle == "rows":
+                            B = self._batch_rows(
+                                {k: v[0] for k, v in g["stack"].items()})
+                            idx = rng_epoch.permutation(K * B).reshape(K, B)
+                            self.state, loss_k = self._replay_rows_train_step(
+                                self.state, g["stack"], self.generator, idx)
+                        else:
+                            order = (rng_epoch.permutation(K)
+                                     if cache_shuffle else np.arange(K))
+                            self.state, loss_k = self._replay_train_step(
+                                self.state, g["stack"], self.generator, order)
+                        losses.append(loss_k)
+                        meter.update(int(g["ns"].sum()))
+                else:
+                    # per-entry replay: the order-exact fallback when
+                    # cache_shuffle=False met interleaved shape signatures
+                    replay = staged_cache
+                    if cache_shuffle:
+                        order = rng_epoch.permutation(len(staged_cache))
+                        replay = [staged_cache[i] for i in order]
+                    for n, batch in replay:
+                        if isinstance(n, list):  # a steps_per_dispatch stack
+                            self.state, loss = self._multi_train_step(
+                                self.state, batch, self.generator)
+                            meter.update(int(sum(n)))
+                        else:
+                            self.state, loss = self._train_step(
+                                self.state, batch, self.generator)
+                            meter.update(n)
+                        losses.append(loss)
+            else:
+                batches = (train_batches() if callable(train_batches)
+                           else train_batches)
+                if spd > 1:
+                    source = self._staged(
+                        self._grouped_batches(batches, spd,
+                                              limit=steps_per_epoch),
+                        count_fn=lambda g: [self._batch_rows(b) for b in g],
+                        put=self._put_group)
+                else:
+                    source = self._staged(batches)
+                # a steps_per_epoch-truncated epoch never populates the cache
+                collecting = ([] if cache_staged and steps_per_epoch is None
+                              else None)
+                steps_done = 0
+                try:
+                    for n, batch in source:
+                        if (steps_per_epoch is not None
+                                and steps_done >= steps_per_epoch):
+                            truncated = True
+                            break
+                        if collecting is not None:
+                            collecting.append((n, batch))
+                            cached_bytes += _tree_device_nbytes(batch)
+                            if cache_budget is None:
+                                cache_budget = self._cache_budget()
+                            # consolidation holds originals and stacks at
+                            # once, so the guard trips at 2x staged bytes
+                            if 2.0 * cached_bytes > cache_budget:
+                                logger.warning(
+                                    "cache_staged: staged corpus (%.0f MB "
+                                    "so far, ~2x transient during "
+                                    "consolidation) exceeds the device "
+                                    "memory budget (%.0f MB) — releasing "
+                                    "the cache and streaming every epoch "
+                                    "instead", cached_bytes / 1e6,
+                                    cache_budget / 1e6)
+                                collecting = None
+                                cache_staged = False
+                                val_staged = False
+                        if spd > 1:
+                            self.state, loss = self._multi_train_step(
+                                self.state, batch, self.generator)
+                            steps_done += len(n)
+                            meter.update(int(sum(n)))
+                        else:
+                            self.state, loss = self._train_step(
+                                self.state, batch, self.generator)
+                            steps_done += 1
+                            meter.update(n)
+                        losses.append(loss)
+                finally:
+                    # release the producer thread and its staged batches on
+                    # every exit (normal, truncation, a raising train step)
+                    source.close()
+            if collecting is not None and not truncated:
+                if not collecting:
+                    # freezing an empty epoch-1 cache would make every later
+                    # epoch silently train on nothing
+                    raise ValueError(
+                        "cache_staged: the first epoch produced no training "
+                        "batches — train_batches must be a callable or "
+                        "re-iterable collection that yields at least one "
+                        "batch")
+                # the stacks hold the cache: the per-batch entries go
+                staged_cache = (self._consolidate_cache(
+                    collecting, grouped=spd > 1,
+                    preserve_order=not cache_shuffle) or collecting)
+            train_loss = (float(torch.cat([l.reshape(-1) for l in losses])
+                                .mean()) if losses else float("nan"))
             logs = {"loss": train_loss, **meter.rates(),
                     "learning_rate": self.current_learning_rate()}
             if validation_batches is not None:
-                logs.update(self.evaluate(validation_batches))
+                if cache_staged and val_staged is not False:
+                    if val_staged is None:
+                        entries = list(self._staged(validation_batches))
+                        vbytes = sum(_tree_device_nbytes(b)
+                                     for _, b in entries)
+                        if cache_budget is None:
+                            cache_budget = self._cache_budget()
+                        if cached_bytes + 2.0 * vbytes > cache_budget:
+                            # keep the training cache (the bigger win) and
+                            # stream validation
+                            logger.warning(
+                                "cache_staged: staged validation set (%.0f "
+                                "MB, ~2x transient) on top of the training "
+                                "cache (%.0f MB) exceeds the device memory "
+                                "budget (%.0f MB) — streaming validation "
+                                "instead", vbytes / 1e6, cached_bytes / 1e6,
+                                cache_budget / 1e6)
+                            val_staged = False
+                        else:
+                            val_staged = self._consolidate_cache(
+                                entries, grouped=False)
+                    if val_staged is not False:
+                        logs.update(self.evaluate(val_staged, staged=True))
+                if not cache_staged or val_staged is False:
+                    logs.update(self.evaluate(validation_batches))
             history.append(logs)
             if self.metrics_logger:
                 self.metrics_logger.log(epoch, logs)
@@ -520,21 +870,27 @@ class Trainer:
         return history
 
     def evaluate(self, batches, prefix="val_", staged=False):
-        """Evaluate ``batches`` (host batch dicts, staged through _put
+        """Evaluate ``batches``: host batch dicts, staged through _put
         unless ``staged=True``, in which case they are (n, batch) pairs
-        already on the device). Loss sums, counts and metric states
-        accumulate on the device and are read back once."""
+        already on the device or _consolidate_cache stacks (the
+        cache_staged path, _replay_eval_step). Loss sums, counts and metric
+        states accumulate on the device and are read back once."""
         if self.state is None:
             self.create_state()
         metric_states = {name: m.init_state(self.device)
                          for name, m in self.metrics.items()}
         total = count = None
         it = batches() if callable(batches) else batches
-        source = it if staged else self._staged(it)
+        run = self._eval_step
+        if staged and isinstance(it, list) and it and "stack" in it[0]:
+            source = [(g["ns"], g["stack"]) for g in it]
+            run = self._replay_eval_step
+        else:
+            source = it if staged else self._staged(it)
         try:
             for _, batch in source:
-                loss_sum, n, metric_states = self._eval_step(
-                    self.state, batch, metric_states)
+                loss_sum, n, metric_states = run(self.state, batch,
+                                                 metric_states)
                 total = loss_sum if total is None else total + loss_sum
                 count = n if count is None else count + n
         finally:

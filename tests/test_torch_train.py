@@ -11,6 +11,9 @@ The port's training path against lidbox_tpu's, on the CPU.
   val_loss within 1e-5 and C_avg within 1e-6. The data puts every score
   more than 1e-3 from every C_avg threshold (asserted), so the two float32
   evaluations cannot count a decision differently.
+- Trainer.fit's feed options (bfloat16 staging, 2 steps per dispatch,
+  cached replay with the rows reshuffle) against the JAX Trainer's: 2
+  epochs, history within rtol 1e-4.
 - compute_dtype=torch.bfloat16 trains within the bound that
   tests/test_train.py::test_bf16_compute_trains_and_matches_f32_trajectory
   asserts for the JAX package.
@@ -42,6 +45,7 @@ from lidbox_tpu.train import optimizers as jopt
 from lidbox_tpu_torch import losses as tlosses
 from lidbox_tpu_torch import metrics as tmetrics
 from lidbox_tpu_torch.data import on_device
+from lidbox_tpu_torch.features import io as tio
 from lidbox_tpu_torch.models import layers
 from lidbox_tpu_torch.models.model_utils import ModelWrapper
 from lidbox_tpu_torch.ops import logmel
@@ -246,6 +250,38 @@ def toy_batches(n_batches=6, batch=16, seed=0):
     return out
 
 
+def test_trainer_fit_feed_options_match_jax():
+    """Trainer.fit with stage_dtype bfloat16 (both packages round the
+    features to bfloat16 on the host), 2 steps per dispatch and the cache
+    replayed with the rows reshuffle (permutations from
+    np.random.default_rng(RANDOM_SEED + epoch) in both), cached
+    validation: 2 epochs of 4 batches, history within rtol 1e-4. Adam at
+    lr 1e-4, eps 1e-4 keeps 8 steps of the two float32 runs together."""
+    adam = {"cls": "Adam", "kwargs": {"learning_rate": 1e-4, "epsilon": 1e-4}}
+    jm = jmodels.create("xvector", (T, FEAT), N_CLASSES).init()
+    tm = tmodels.create("xvector", (T, FEAT), N_CLASSES, device="cpu")
+    tm.load_flax_params(jax.device_get(jm.variables["params"]))
+    train, val = feature_batches(4, seed=5), feature_batches(2, seed=6)
+    history = {}
+    for name, pkg in (("jax", (jopt, jloop, jlosses, jmetrics, jm)),
+                      ("torch", (topt, tloop, tlosses, tmetrics, tm))):
+        opt, loop, losses, metrics, model = pkg
+        kw = {} if name == "jax" else {"device": "cpu"}
+        trainer = loop.Trainer(
+            model, opt.optimizer_from_config(adam)[0], losses.nll_loss,
+            metrics={"C_avg": metrics.SparseAverageDetectionCost(
+                N_CLASSES, THRESHOLDS)},
+            stage_dtype="bfloat16", cache_staged=True, **kw)
+        history[name] = trainer.fit(lambda: train, lambda: val, epochs=2,
+                                    steps_per_dispatch=2,
+                                    cache_shuffle="rows", verbose=False)
+    assert len(history["torch"]) == len(history["jax"]) == 2
+    for o, r in zip(history["torch"], history["jax"]):
+        for k in ("loss", "val_loss", "val_C_avg"):
+            np.testing.assert_allclose(o[k], r[k], rtol=1e-4, atol=1e-7,
+                                       err_msg=k)
+
+
 def test_bf16_compute_trains_within_the_jax_bound():
     model = tmodels.create("xvector", (24, 8), 3, device="cpu")
     trainer = tloop.Trainer(model, topt.adam(5e-3), tlosses.nll_loss,
@@ -380,23 +416,44 @@ def test_fit_fused_entry_points(fused_runs, tmp_path):
     "bad_prob", "steps_per_dispatch", "cache_staged", "mesh",
     "embedding_extractor", "orbax"])
 def test_left_options_raise(tmp_path, what):
+    """The options a later slice ports raise NotImplementedError naming
+    ROADMAP (mesh, the embedding extractor, Orbax), bad augmentation
+    configs raise ValueError; the augmentation stages and the feed options
+    this slice ported run (their numerics are in tests/test_torch_augment.py
+    and tests/test_torch_feed.py)."""
     cfg = fused_config(tmp_path)
-    aug = {"noise": {"noise_paths": ["n.wav"], "snr_range": [5, 20]},
+    noise = tmp_path / "n.wav"
+    tio.write_mono_wav(str(noise), np.full(RATE, 0.1, np.float32), RATE)
+    aug = {"noise": {"noise_paths": [str(noise)], "snr_range": [5, 20]},
            "fir": {"fir_coefs": 5}, "speed": {"speed_range": [0.9, 1.1]},
            "vad": {"vad": True}, "specaug": {"specaug": {"time_masks": 1}},
            "snr_without_noise": {"snr_range": [5, 20]},
            "bad_prob": {"augment_prob": 5}}.get(what)
     if aug is not None:
         cfg["features"]["on_device_augment"] = aug
-        error = (ValueError if what in ("snr_without_noise", "bad_prob")
-                 else NotImplementedError)
-        with pytest.raises(error):
-            on_device.feature_fn_from_config(RATE, cfg["features"])
+        if what in ("snr_without_noise", "bad_prob"):
+            with pytest.raises(ValueError):
+                on_device.feature_fn_from_config(RATE, cfg["features"])
+            return
+        fn = on_device.feature_fn_from_config(RATE, cfg["features"],
+                                              device="cpu")
+        x = torch.as_tensor(noisy_sines(1, seed=8)[0][0])
+        out = fn(torch.Generator().manual_seed(0), x)
+        feats = out[0] if isinstance(out, tuple) else out
+        assert feats.shape == (B, 48, 64) and torch.isfinite(feats).all()
+        assert isinstance(out, tuple) == (what in ("speed", "vad"))
+        clean = logmel.logmel_plain(x, RATE)
+        assert (not torch.equal(feats, clean)) == (what != "vad")
         return
-    if what == "steps_per_dispatch":
-        cfg["experiment"]["feed"] = {"steps_per_dispatch": 2}
-    if what == "cache_staged":
-        cfg["experiment"]["feed"] = {"cache_staged": True}
+    if what in ("steps_per_dispatch", "cache_staged"):
+        cfg["experiment"]["feed"] = {what: 2 if what == "steps_per_dispatch"
+                                     else True}
+        wrapper = ModelWrapper.from_config(cfg, device="cpu")
+        h = wrapper.fit_fused(lambda: noisy_sines(2, seed=8), epochs=2,
+                              verbose=False)
+        assert len(h) == 2 and np.isfinite(h).all()
+        assert wrapper.trainer.state.step == 4
+        return
     if what == "orbax":
         cfg["experiment"]["callbacks"][0]["kwargs"]["backend"] = "orbax"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
