@@ -47,7 +47,26 @@ Phases, each of which fails the run:
    signals (they replay the cache), and the first 4 step losses equal,
    bit for bit, those of a run with one step per dispatch. The kernel is
    held to its plain version on the first augmented batch of each epoch;
-6. kernel vs plain at the main paths' shapes: ``fused_logmel`` against
+6. the config-driven pipeline, the fourth main path: the configuration of
+   docs/config.md (filters, RMS VAD, repeat, additive noise from a
+   synthetic MUSAN-style directory and random resampling for the train
+   split, 2 s chunks, log-Mel 64 bins over 20-7000 Hz, window
+   normalization, ``group_by_input_length`` at 64, ``stft_method:
+   "pallas"``, CMVN, shuffle) on 100 train / 20 test noisy-sine wavs of 3-5
+   s, compiled by ``pipelines.create_dataset`` and run by
+   ``from_steps(steps, device="cuda")``; ``ModelWrapper.fit`` trains the
+   full-width x-vector on it for 3 epochs and ``steps.extract_embeddings``
+   embeds the test split from the best checkpoint. The launch count is
+   zeroed just before and read just after each: one launch per group per
+   pass, the groups counted from the host steps alone. The kernel is held
+   to its plain version on the full and the remainder groups the pipeline
+   handed it; the test split and the first train groups equal those of the
+   same pipeline with ``device="cpu"`` (ids, targets, order, shapes; inputs
+   within PIPE_ATOL + PIPE_RTOL); the loss must fall, the checkpoints carry
+   the JAX names, and one batch of embeddings equals the restored
+   extractor's bit for bit. Prints elements/s through the pipeline and the
+   kernel's times at [64, 32000] with this mel geometry;
+7. kernel vs plain at the main paths' shapes: ``fused_logmel`` against
    ``logmel_plain`` on the very batches kept in phase 3 (bucketed: a 3 s
    batch is padded to the 4 s bucket) and on a training batch, [32, 48000]
    (fixed-length crops, no bucket); kernel, plain and bound times per
@@ -56,12 +75,12 @@ Phases, each of which fails the run:
    float32 CUDA-core bound printed beside it; ``dft_gemm_ms`` is one cuBLAS
    float32 product of the unfolded frames by the DFT basis, a yardstick
    for the bulk of the work;
-7. the steady train step at [32, 48000]: the median of 30 steps on CUDA
+8. the steady train step at [32, 48000]: the median of 30 steps on CUDA
    events, split into features, forward + backward and optimizer, beside
    the kernel's time at that shape and its share of the step, and the
    device's busy time over 5 steps under ``torch.profiler``; then the
    augmented step the same way, split at each stage of the chain;
-8. the kernel table as one JSON line, the card line, and the result line.
+9. the kernel table as one JSON line, the card line, and the result line.
 
 Every comparison of the kernel with its plain version holds float32 within
 atol 1e-4 + rtol 1e-4 (the allclose of the tests; the distance of each from
@@ -119,6 +138,16 @@ TRAIN_BATCHES, VAL_BATCHES, TRAIN_EPOCHS = 8, 2, 3
 TRAIN_BATCH, TRAIN_SECONDS = 32, 3.0
 TRAIN_RTOL = 1e-3
 CKPT_NAME = re.compile(r"^epoch\d{6}__val_loss-?\d+\.\d{12}\.ckpt$")
+# The config-driven pipeline: 100 train / 20 test wavs, groups of at most
+# 64 chunks of 2 s (198 frames) for the kernel, 64 mel bins over 20-7000 Hz.
+PIPE_TRAIN, PIPE_TEST, PIPE_GROUP, PIPE_FRAMES = 100, 20, 64, 198
+PIPE_KW = {"num_mel_bins": 64, "fmin": 20.0, "fmax": 7000.0}
+# Card vs CPU pipeline inputs, after window normalization (CMVN over the
+# 198 frames: fewer than its 300-frame window) and the CMVN of
+# post_process: the log-Mel's float32 budget (1e-4 + 1e-4 |x|, |x| up to
+# ~15 at the quietest bins) divided by each bin's standard deviation over
+# the chunk, itself computed from the two log-Mels.
+PIPE_ATOL = PIPE_RTOL = 1e-3
 
 
 def check(ok, message):
@@ -845,6 +874,307 @@ def phase_augmented_train(root, rng, logmel):
     return launches, max(errors), train[0], wrapper
 
 
+def pipeline_corpus(io, root, rng):
+    """The pipeline phase's corpus: 3-5 s noisy sines at 16 kHz with one
+    0.35-0.8 s pause each (label k: a tone at 200 + 300 k Hz in white
+    noise of its amplitude), and a noise directory of the three MUSAN types
+    with its id2label and id2path files. Returns ({split: init_data},
+    noise_dir)."""
+    wavs = os.path.join(root, "pipeline_wavs")
+    noise_dir = os.path.join(root, "pipeline_noise")
+    os.makedirs(wavs)
+    os.makedirs(noise_dir)
+    init = {}
+    for split, n in (("train", PIPE_TRAIN), ("test", PIPE_TEST)):
+        rows = {"id": [], "path": [], "label": []}
+        for i in range(n):
+            k = int(rng.integers(0, len(LABELS)))
+            t = np.arange(int(RATE * rng.uniform(3.0, 5.0))) / RATE
+            f = 200.0 + 300.0 * k + rng.uniform(-20.0, 20.0)
+            sig = (np.sin(2 * np.pi * f * t + rng.uniform(0, 2 * np.pi))
+                   + rng.normal(0, 1, t.size))
+            width = int(RATE * rng.uniform(0.35, 0.8))
+            start = int(rng.integers(0, t.size - width))
+            sig[start:start + width] = 0.0
+            uid = f"{split}{i:03d}"
+            path = os.path.join(wavs, uid + ".wav")
+            io.write_mono_wav(path, (0.5 * sig / np.abs(sig).max()).astype(
+                np.float32), RATE)
+            rows["id"].append(uid)
+            rows["path"].append(path)
+            rows["label"].append(LABELS[k])
+        init[split] = rows
+    with open(os.path.join(noise_dir, "id2label"), "w") as f_label, \
+            open(os.path.join(noise_dir, "id2path"), "w") as f_path:
+        for j, kind in enumerate(("noise", "speech", "music") * 2):
+            noise = rng.normal(0, 1, RATE * 2)
+            if kind != "noise":  # coloured: a running sum, high-passed
+                noise = np.cumsum(noise)
+                noise -= np.convolve(noise, np.ones(64) / 64, mode="same")
+            path = os.path.join(noise_dir, f"{kind}{j}.wav")
+            io.write_mono_wav(path, (0.5 * noise / np.abs(noise).max()).astype(
+                np.float32), RATE)
+            f_label.write(f"{kind}{j} {kind}\n")
+            f_path.write(f"{kind}{j} {path}\n")
+    return init, noise_dir
+
+
+def pipeline_config(root, noise_dir):
+    """The configuration of docs/config.md as far as this machine runs it.
+    Left out: ``post_process.chunks`` (length 200 would drop every
+    198-frame chunk), ``post_process.tensorboard`` (no writer here), and the
+    ``embeddings`` section, which the extraction pass adds (a pipeline
+    built with it restores a checkpoint, so it comes after training)."""
+    return {
+        "pre_process": {
+            "filters": {"equal": {"key": "sample_rate", "value": RATE},
+                        "min_signal_length_ms": 500},
+            "rms_vad": {"strength": 0.1, "vad_frame_length_ms": 10,
+                        "min_non_speech_length_ms": 300},
+            "repeat_too_short_signals": {"min_length_ms": 2000},
+            "augment": [
+                {"type": "additive_noise", "split": "train",
+                 "noise_datadir": noise_dir,
+                 "snr_list": [["noise", 5, 15], ["speech", 15, 20],
+                              ["music", 10, 20]]},
+                {"type": "random_resampling", "split": "train",
+                 "min": 0.9, "max": 1.1}],
+            "chunks": {"length_ms": 2000, "step_ms": 1000, "max_pad_ms": 200},
+        },
+        "features": {
+            "type": "logmelspectrogram",
+            "melspectrogram": {"num_mel_bins": 64, "fmin": 20.0,
+                               "fmax": 7000.0},
+            "window_normalization": {"window_len": 300},
+            "group_by_input_length": {"max_batch_size": PIPE_GROUP},
+            "stft_method": "pallas",
+        },
+        "post_process": {"normalize": {"key": "input"},
+                         "shuffle_buffer_size": 1000},
+        "experiment": {
+            "cache_directory": root, "name": "smoke_pipeline",
+            "input_shape": [PIPE_FRAMES, 64], "output_shape": [len(LABELS)],
+            "model": {"key": "xvector"},
+            "optimizer": {"cls": "Adam", "kwargs": {"learning_rate": 1e-3}},
+            "loss": {"cls": "SparseCategoricalCrossentropy"},
+            "metrics": [{"cls": "SparseAverageDetectionCost", "name": "C_avg",
+                         "N": len(LABELS),
+                         "threshold_linspace": {"start": -10.0, "stop": 0.0,
+                                                "num": 50}}],
+            "callbacks": [{"cls": "ModelCheckpoint",
+                           "kwargs": {"monitor": "val_loss", "mode": "min"}}],
+            "data": {"train": {"split": "train", "batch_size": PIPE_GROUP},
+                     "test": {"split": "test"}},
+        },
+    }
+
+
+def embeddings_section(config):
+    return {"extractors": [{
+        "cache_directory": config["experiment"]["cache_directory"],
+        "model": {"key": "xvector"},
+        "experiment_name": config["experiment"]["name"],
+        "input_shape": [PIPE_FRAMES, 64], "output_shape": [len(LABELS)],
+        "best_checkpoint": {"monitor": "val_loss", "mode": "min"}}],
+        "batch_size": PIPE_GROUP}
+
+
+def phase_pipeline(root, rng, logmel, device="cuda"):
+    """The config-driven pipeline: create_dataset -> from_steps(device=...)
+    -> ModelWrapper.fit on the full-width x-vector -> checkpoints ->
+    steps.extract_embeddings from the best checkpoint. Returns the kernel's
+    launch count over fit and extraction, its worst float32 error on the
+    groups the pipeline handed it, and the timing line's numbers."""
+    from lidbox_tpu_torch import models
+    from lidbox_tpu_torch.data import from_steps
+    from lidbox_tpu_torch.data.device_pipeline import DeviceFeatureExtractor
+    from lidbox_tpu_torch.data.pipelines import create_dataset
+    from lidbox_tpu_torch.features import io
+    from lidbox_tpu_torch.models.model_api import as_embedding_extractor
+    from lidbox_tpu_torch.models.model_utils import (
+        ModelWrapper, best_model_checkpoint_from_config,
+        experiment_cache_from_config)
+    from lidbox_tpu_torch.train import batches_from_dataset
+
+    on_card = torch.device(device).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    init, noise_dir = pipeline_corpus(io, root, rng)
+    config = pipeline_config(root, noise_dir)
+
+    def pipeline(split, dev=device, cfg=config):
+        return from_steps(create_dataset(split, LABELS, init[split], cfg),
+                          device=dev)
+
+    # the group count, independently of the feature step: the host steps
+    # alone (up to the chunks) give the elements; one length and one rate,
+    # so ceil(elements / max_batch_size) groups
+    groups, elements = {}, {}
+    for split in ("train", "test"):
+        steps = create_dataset(split, LABELS, init[split], config)
+        host = steps[:[s.key for s in steps].index("extract_features")]
+        chunks = list(from_steps(host, device=device))
+        keys = {(x["signal"].size, int(x["sample_rate"])) for x in chunks}
+        check(keys == {(2 * RATE, RATE)}, f"{split}: chunk keys {keys}")
+        elements[split] = len(chunks)
+        groups[split] = -(-len(chunks) // PIPE_GROUP)
+    print(f"pipeline: {PIPE_TRAIN} train / {PIPE_TEST} test wavs of 3-5 s -> "
+          f"{elements['train']} / {elements['test']} chunks of 2 s -> "
+          f"{groups['train']} / {groups['test']} groups of at most "
+          f"{PIPE_GROUP} per pass (from the host steps alone)")
+
+    kept, calls = {}, []
+    extract, call = DeviceFeatureExtractor.extract, DeviceFeatureExtractor.__call__
+
+    def keeping(self, signals, sample_rate, **kw):
+        key = (tuple(signals.shape), int(sample_rate))
+        if key not in kept and not kw:
+            kept[key] = signals.clone()
+        return extract(self, signals, sample_rate, **kw)
+
+    def timed_call(self, signals, sample_rate):
+        t0 = time.perf_counter()
+        out = call(self, signals, sample_rate)  # ends in a readback
+        calls.append(time.perf_counter() - t0)
+        return out
+
+    DeviceFeatureExtractor.extract = keeping
+    DeviceFeatureExtractor.__call__ = timed_call
+    try:
+        train_ds, test_ds = pipeline("train"), pipeline("test")
+        sync()
+        t0 = time.perf_counter()
+        n_timed = sum(1 for _ in train_ds)
+        pass_s = time.perf_counter() - t0
+        check(n_timed == elements["train"] and len(calls) == groups["train"],
+              f"timed pass: {n_timed} elements, {len(calls)} groups")
+        group_call_ms = 1e3 * float(np.median(calls))
+
+        wrapper = ModelWrapper.from_config(config, device=device)
+        wrapper.model.init(torch.Generator().manual_seed(SEED))
+        logmel.fused_logmel.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        history = wrapper.fit(batches_from_dataset(train_ds, PIPE_GROUP),
+                              batches_from_dataset(test_ds, PIPE_GROUP),
+                              epochs=TRAIN_EPOCHS)
+        sync()
+        fit_s = time.perf_counter() - t0
+        fit_launches = logmel.fused_logmel.launches
+    finally:
+        DeviceFeatureExtractor.extract = extract
+        DeviceFeatureExtractor.__call__ = call
+    expected = TRAIN_EPOCHS * (groups["train"] + groups["test"])
+    if on_card:
+        check(fit_launches == expected,
+              f"fit launched the log-Mel kernel {fit_launches} times, not "
+              f"{TRAIN_EPOCHS} x ({groups['train']} + {groups['test']})")
+    losses = [h["loss"] for h in history]
+    check(len(history) == TRAIN_EPOCHS, f"{len(history)} epochs trained")
+    check(losses[-1] < losses[0], f"pipeline epoch loss did not fall: {losses}")
+    for h in history:
+        check(np.isfinite(h["val_loss"]) and np.isfinite(h["val_C_avg"]),
+              f"validation not finite: {h}")
+    ckpt_dir = os.path.join(experiment_cache_from_config(config), "checkpoints")
+    names = sorted(os.listdir(ckpt_dir))
+    check(len(names) == TRAIN_EPOCHS and all(CKPT_NAME.match(n) for n in names),
+          f"checkpoints {names} are not the JAX package's name scheme")
+    print(f"pipeline training: fit {TRAIN_EPOCHS} epochs in {fit_s:.2f} s "
+          "(smoke figure), epoch loss " + ", ".join(f"{v:.4f}" for v in losses)
+          + "; val_loss " + ", ".join(f"{h['val_loss']:.4f}" for h in history)
+          + "; C_avg " + ", ".join(f"{h['val_C_avg']:.4f}" for h in history)
+          + f"; kernel launches {fit_launches} = {TRAIN_EPOCHS} x "
+          f"({groups['train']} train + {groups['test']} test groups); "
+          f"checkpoints {names}")
+
+    # embeddings through the config's embeddings section, from the best
+    # checkpoint; one batch against the restored model's extractor
+    emb_config = dict(config, embeddings=embeddings_section(config))
+    logmel.fused_logmel.launches = 0
+    sync()
+    embedded = pipeline("test", cfg=emb_config).collect()
+    sync()
+    emb_launches = logmel.fused_logmel.launches
+    if on_card:
+        check(emb_launches == groups["test"],
+              f"extraction launched the kernel {emb_launches} times, not "
+              f"{groups['test']}")
+    emb = np.stack([x["embedding"] for x in embedded])
+    check(emb.shape == (elements["test"], 512) and np.isfinite(emb).all(),
+          f"embeddings of shape {emb.shape}, finite {np.isfinite(emb).all()}")
+    best = best_model_checkpoint_from_config(config)
+    restored = ModelWrapper.from_config(config, device=device)
+    restored.trainer.restore(best)
+    first = embedded[:PIPE_GROUP]
+    with torch.inference_mode():
+        direct = as_embedding_extractor(restored.model).apply(torch.as_tensor(
+            np.stack([x["input"] for x in first]), device=device)).cpu().numpy()
+    check(np.array_equal(direct, emb[:len(first)]),
+          "extract_embeddings differs from the restored best checkpoint's "
+          f"extractor by {np.abs(direct - emb[:len(first)]).max()}")
+    print(f"pipeline embeddings: {emb.shape} finite from {os.path.basename(best)}"
+          f"; kernel launches {emb_launches} = {groups['test']} test groups; the "
+          f"first batch of {len(first)} equals as_embedding_extractor(restored "
+          "best).apply bit for bit")
+
+    # the same pipeline with device="cpu": the plain version
+    if on_card:
+        for split, take in (("test", None), ("train", 2 * PIPE_GROUP)):
+            card, cpu = pipeline(split), pipeline(split, dev="cpu")
+            if take:
+                card, cpu = card.take(take), cpu.take(take)
+            card, cpu = card.collect(), cpu.collect()
+            for name in ("id", "target", "label"):
+                check([x[name] for x in card] == [x[name] for x in cpu],
+                      f"{split}: {name} differ between the card and the CPU")
+            a = np.stack([x["input"] for x in card])
+            b = np.stack([x["input"] for x in cpu])
+            check(a.shape == b.shape == (len(card), PIPE_FRAMES, 64),
+                  f"{split}: shapes {a.shape} vs {b.shape}")
+            diff = np.abs(a - b)
+            excess = (diff / (PIPE_ATOL + PIPE_RTOL * np.abs(b))).max()
+            check(excess <= 1.0, f"{split}: card vs CPU pipeline inputs differ "
+                                 f"by {diff.max()}")
+            print(f"pipeline card vs CPU ({split}, {len(card)} elements): ids, "
+                  f"targets, order and shapes equal; input max abs diff "
+                  f"{diff.max():.3e}, 99.99th percentile "
+                  f"{np.percentile(diff, 99.99):.3e} ({excess:.2f} of atol "
+                  f"{PIPE_ATOL} + rtol {PIPE_RTOL})")
+
+    errors, timing = [], None
+    if on_card:
+        with torch.inference_mode():
+            for (shape, rate), x in sorted(kept.items(), reverse=True):
+                errors.append(compare(logmel, f"pipeline_{shape[0]}x{shape[1]}",
+                                      x, rate, PIPE_KW))
+        check(any(s[0] == PIPE_GROUP for s, _ in kept)
+              and any(s[0] < PIPE_GROUP for s, _ in kept),
+              f"kept groups {sorted(kept)}: no full and remainder group")
+        x = kept[((PIPE_GROUP, 2 * RATE), RATE)]
+        kw = dict(PIPE_KW, precision="highest")
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: logmel.fused_logmel(x, RATE, **kw))
+            plain_ms = cuda_ms(lambda: logmel.logmel_plain(x, RATE, **kw))
+            gemm_ms = dft_gemm_ms(logmel, x, RATE, PIPE_KW)
+        bound_ms, bound_by = logmel_bound(logmel, PIPE_GROUP, 2 * RATE, RATE,
+                                          "highest", PIPE_KW)
+        timing = (ms, plain_ms, bound_ms, bound_by, gemm_ms)
+        print(f"fused_logmel [{PIPE_GROUP}, {2 * RATE}] 64 mel 20-7000 Hz "
+              f"precision=highest: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of "
+              f"bound, dft_gemm_ms {gemm_ms:.4f}")
+        print(f"pipeline throughput: {n_timed} train elements in {pass_s:.3f} s "
+              f"= {n_timed / pass_s:.1f} elements/s through the whole train "
+              f"pipeline (host clock, one pass); {1e3 * pass_s / len(calls):.3f}"
+              f" ms of pipeline per group, of which the extractor call "
+              f"(transfer, kernel, normalization, readback) {group_call_ms:.3f}"
+              f" ms median, the kernel alone {ms:.4f} ms")
+    return fit_launches + emb_launches, max(errors, default=0.0), timing
+
+
 STAGES = ("draw", "vad", "speed", "noise", "fir", "features", "specaug")
 
 
@@ -979,6 +1309,8 @@ def main():
             aug_launches, aug_err, aug_batch, aug_wrapper = \
                 phase_augmented_train(root, np.random.default_rng(SEED + 2),
                                       logmel)
+            pipe_launches, pipe_err, _ = phase_pipeline(
+                root, np.random.default_rng(SEED + 3), logmel)
         finally:
             torch.backends.cudnn.deterministic = False
         train_x = torch.as_tensor(train_batch[0], device="cuda")
@@ -992,15 +1324,17 @@ def main():
     ms, plain_ms, bound_ms, bound_by = timing[largest]
     print(f"kernel line: [{largest[0]}, {largest[1]}] highest; launches "
           f"{serve_launches} serving + {train_launches} training + "
-          f"{aug_launches} augmented training")
+          f"{aug_launches} augmented training + {pipe_launches} pipeline "
+          "(fit and embedding extraction)")
 
     print(json.dumps({"kernels": [{
         "name": "fused_logmel",
         "route": "cuda",
         "source": "lidbox_tpu_torch/csrc/logmel.cu",
         "replaces": "lidbox_tpu/ops/logmel.py:154",
-        "launches": serve_launches + train_launches + aug_launches,
-        "max_abs_err": max(geometry_err, path_err, aug_err),
+        "launches": (serve_launches + train_launches + aug_launches
+                     + pipe_launches),
+        "max_abs_err": max(geometry_err, path_err, aug_err, pipe_err),
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,

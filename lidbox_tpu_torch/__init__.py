@@ -67,6 +67,16 @@ def get_logger(name=None):
     return _logger if name is None else _logger.getChild(name)
 
 
+def iter_metadata_file(path, num_columns):
+    """Iterate rows of a space-separated metadata file, yielding tuples of
+    the first ``num_columns`` columns (reference lidbox/__init__.py:41-46)."""
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            cols = line.strip().split(" ", num_columns - 1)
+            if len(cols) == num_columns:
+                yield tuple(cols)
+
+
 def get_device(device="cuda"):
     """``device`` as a torch.device; raises when CUDA is requested but
     absent (entry points never fall back to the CPU silently)."""

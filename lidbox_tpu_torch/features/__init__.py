@@ -6,6 +6,7 @@ Features are ``[B, frames, channels]`` tensors and frame masks
 ``[B, frames]``, the JAX package's layouts. The masked variants reproduce
 each row's unpadded numerics on a zero-padded batch.
 """
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -265,3 +266,22 @@ def frame_mask_from_lengths(lengths, num_frames, frame_length, frame_step):
     lie entirely inside each unpadded signal (tf.signal's frame count)."""
     starts = torch.arange(num_frames, device=lengths.device) * frame_step
     return (starts[None, :] + frame_length) <= lengths[:, None]
+
+
+def num_non_finite(X):
+    """Count of NaN/Inf entries (reference sanitization analogue:
+    lidbox/data/steps.py:897-919)."""
+    return torch.sum(~torch.isfinite(X))
+
+
+def load_tensor_from_kaldi_archive(ark_key):
+    """Load a float32 matrix from a Kaldi archive key
+    (reference: lidbox/features/__init__.py:113-118). Uses kaldiio when
+    installed (covers compressed matrices); otherwise the built-in binary
+    ark reader (features.kaldi_io)."""
+    try:
+        import kaldiio
+        return np.asarray(kaldiio.load_mat(str(ark_key)), np.float32)
+    except ImportError:
+        from lidbox_tpu_torch.features import kaldi_io
+        return np.asarray(kaldi_io.read_mat(str(ark_key)), np.float32)

@@ -1,9 +1,10 @@
 """
 Audio DSP in PyTorch: the subset of ``lidbox_tpu.features.audio`` that
-feature extraction and the on-device augmentation chain need (framing,
-periodic Hann window, STFT, power spectrograms, mel projection, dB scaling,
-MFCC; RMS levels, the SNR mixer, FIR filtering, run-length smoothing and
-the energy VAD).
+feature extraction, the data pipeline and the on-device augmentation chain
+need (framing, periodic Hann window, STFT, power spectrograms, mel
+projection, dB scaling and its inverse, FFT bin frequencies, MFCC; peak
+normalization, RMS levels, the SNR mixer, FIR filtering, run-length
+smoothing and the energy VAD).
 
 Numerics follow tf.signal as the JAX package does (within 1e-4).
 
@@ -23,6 +24,8 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from lidbox_tpu_torch import get_device
 
 from . import mel_ops
 
@@ -56,6 +59,30 @@ def ms_to_frames(sample_rate, ms):
 
 def log10(x):
     return torch.log(x) / np.float32(np.log(10.0))
+
+
+def peak_normalize(signal, dBFS=0.0):
+    """Scale so the peak amplitude sits at the given dBFS level, on the
+    signal's device (reference: lidbox/features/audio.py:55-60). An
+    all-zero signal returns zeros instead of 0/0 = NaN."""
+    peak = torch.max(torch.abs(signal))
+    safe = torch.where(peak == 0, torch.ones_like(peak), peak)
+    scaled = torch.where(peak == 0, torch.zeros_like(signal), signal / safe)
+    return dBFS_to_linear(dBFS).to(signal.device) * scaled
+
+
+def db_to_power(S):
+    """(reference: lidbox/features/audio.py:177-181)"""
+    return torch.pow(10.0, S / 20.0)
+
+
+def fft_frequencies(sample_rate, n_fft, device="cuda"):
+    """Center frequency of each rFFT bin as a float32 tensor on ``device``,
+    equal to librosa.fft_frequencies
+    (reference: lidbox/features/audio.py:151-159)."""
+    return torch.as_tensor(
+        np.linspace(0.0, sample_rate // 2, 1 + n_fft // 2), dtype=torch.float32,
+        device=get_device(device))
 
 
 def root_mean_square(x, axis=-1, keepdims=False):
@@ -198,6 +225,14 @@ def linear_to_mel(S, sample_rate, num_mel_bins=40, fmin=0.0, fmax=8000.0,
                           float(fmin), float(fmax), S.device)
     return torch.matmul(dsp_operand(S, precision),
                         dsp_operand(weights, precision))
+
+
+def melspectrograms(S, sample_rate, num_mel_bins=40, fmin=0.0, fmax=8000.0):
+    """Alias for linear_to_mel: the reference pipeline called
+    ``audio_features.melspectrograms``, which it never defined
+    (reference: lidbox/data/tf_utils.py:175 vs lidbox/features/audio.py:253)."""
+    return linear_to_mel(S, sample_rate, num_mel_bins=num_mel_bins, fmin=fmin,
+                         fmax=fmax)
 
 
 @functools.lru_cache(maxsize=16)

@@ -9,9 +9,9 @@ Cache layout parity: ``<cache_directory>/<model key>/<experiment name>``
 (reference: keras_utils.py:19-24), checkpoints under ``checkpoints/`` with
 metric-bearing filenames.
 
-Not ported yet: ``from_config_as_embedding_extractor_fn`` (ROADMAP queue
-1, item 10), ``mesh`` (item 12), and the coupled conv-kernel weight decay
-of models that declare one (``crnn``, item 9); they raise.
+Not ported yet: ``mesh`` (ROADMAP queue 1, item 12) and the coupled
+conv-kernel weight decay of models that declare one (``crnn``, item 9);
+they raise.
 """
 import os
 
@@ -229,10 +229,45 @@ class ModelWrapper:
         return wrapper
 
     @classmethod
-    def from_config_as_embedding_extractor_fn(cls, config, mesh=None):
-        raise NotImplementedError(
-            "from_config_as_embedding_extractor_fn is not ported yet "
-            "(ROADMAP queue 1, item 10)")
+    def from_config_as_embedding_extractor_fn(cls, config, mesh=None,
+                                              device="cuda"):
+        """Restore the best checkpoint of the config's experiment and
+        return an ``inputs [B, T, F] -> embeddings [B, D]`` numpy function
+        running on ``device`` (reference: keras_utils.py:151-174). The
+        config's ``stage_dtype`` applies (``util.make_batch_predict_fn``).
+        ``mesh`` (data-parallel extraction) is not ported yet (ROADMAP
+        queue 1, item 12) and raises."""
+        if mesh is not None:
+            raise NotImplementedError("mesh is not ported yet (ROADMAP "
+                                      "queue 1, item 12)")
+        cache_dir = experiment_cache_from_config({"experiment": {
+            "cache_directory": config["cache_directory"],
+            "model": config["model"],
+            "name": config["experiment_name"]}})
+        model_key = config["model"]["key"]
+        input_shape = tuple(config["input_shape"])
+        num_outputs = int(np.squeeze(config["output_shape"]))
+        model = model_registry.create(model_key, input_shape, num_outputs,
+                                      device=device,
+                                      **config["model"].get("kwargs", {}))
+        best = ckpt_lib.get_best_checkpoint_path(
+            os.path.join(cache_dir, "checkpoints"),
+            key=config["best_checkpoint"].get("monitor"),
+            mode=config["best_checkpoint"].get("mode"))
+        if best is None:
+            raise FileNotFoundError(
+                f"no checkpoints under {cache_dir}/checkpoints")
+        logger.info("Restoring extractor weights from %s", best)
+        raw = ckpt_lib.load_raw_checkpoint(best)
+        model.module.load_state_dict({**raw["params"],
+                                      **(raw.get("batch_stats") or {})})
+        extractor = model_registry.as_embedding_extractor(model_key, model)
+
+        from lidbox_tpu_torch.util import make_batch_predict_fn
+        predict_fn = make_batch_predict_fn(
+            extractor, apply_kwargs={"output": "embedding"},
+            stage_dtype=config.get("stage_dtype"))
+        return lambda x: predict_fn(np.asarray(x))
 
     def fit(self, train_batches, validation_batches, **kwargs):
         """(reference: keras_utils.py:191-203). The config's

@@ -42,8 +42,13 @@ class Classifier:
             chunk_length_ms/chunk_step_ms: optional utterance chunking;
                 chunk scores are averaged back per utterance
                 (reference merge semantics, util.py:41-57).
-            compute_dtype, mesh, score_fn, stage_dtype: not ported yet
-                (ROADMAP queue 1); passing one raises.
+            compute_dtype: e.g. ``"bfloat16"``, the forward's dtype (scores
+                come back float32).
+            stage_dtype: e.g. ``"bfloat16"``: the feature feed is rounded
+                to it on the host (half the transfer bytes) and upcast on
+                the device; scores differ only by that input rounding.
+            mesh, score_fn: not ported yet (ROADMAP queue 1, items 12 and
+                9); passing one raises.
         """
         self.device = _check_device(model, device)
         self.model = model
@@ -129,7 +134,8 @@ class StreamingClassifier:
                  device="cuda"):
         if score_fn is not None:
             raise NotImplementedError("score_fn (language-vector models) is "
-                                      "not ported yet (ROADMAP queue 1)")
+                                      "not ported yet (ROADMAP queue 1, "
+                                      "item 9)")
         self.device = _check_device(model, device)
         self.model = model
         self.labels = list(labels)

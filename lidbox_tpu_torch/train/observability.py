@@ -5,11 +5,13 @@ lidbox/models/keras_utils.py:65-71, lidbox/data/steps.py:460-484).
 
 - MetricsLogger: JSONL event records, one per epoch, the JAX package's
   format,
-- ThroughputMeter: utterances/sec and audio-seconds/sec counters.
+- ThroughputMeter: utterances/sec and audio-seconds/sec counters,
+- profiler / cprofile: trace scopes, no-ops when disabled.
 
-Not ported yet (ROADMAP queue 1, item 11): TensorBoard mirroring and the
-profiler / cProfile scopes; they raise.
+Not ported yet (ROADMAP queue 1, item 11): TensorBoard mirroring; it
+raises.
 """
+import contextlib
 import json
 import os
 import time
@@ -71,11 +73,50 @@ class ThroughputMeter:
         return out
 
 
+@contextlib.contextmanager
 def profiler(log_dir=None, enabled=True):
-    raise NotImplementedError("the profiler scope (torch.profiler) is not "
-                              "ported yet (ROADMAP queue 1, item 11)")
+    """``torch.profiler`` trace scope: host ops, and the device's kernels
+    when CUDA is available, written to ``log_dir`` as a Chrome trace
+    (Perfetto or chrome://tracing read it). A no-op when disabled or
+    without ``log_dir`` (the JAX package's jax.profiler scope; reference
+    --run-tf-profiler, __main__.py:26-31)."""
+    if not enabled or log_dir is None:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        path = os.path.join(
+            log_dir, f"trace.{os.getpid()}.{int(time.time())}.pt.trace.json")
+        prof.export_chrome_trace(path)
+        logger.info("Wrote profiler trace to %s", path)
 
 
+@contextlib.contextmanager
 def cprofile(output_path="cProfile.log", enabled=True, sort="tottime"):
-    raise NotImplementedError("the cProfile scope is not ported yet "
-                              "(ROADMAP queue 1, item 11)")
+    """Host-side cProfile scope writing sorted pstats text to
+    ``output_path``; a no-op when disabled (reference:
+    lidbox/__main__.py:13-20,41-44)."""
+    if not enabled:
+        yield
+        return
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    prof.enable()
+    try:
+        yield
+    finally:
+        prof.disable()
+        with open(output_path, "w") as f:
+            pstats.Stats(prof, stream=f).sort_stats(sort).print_stats()
+        logger.info("Wrote cProfile stats to %s", output_path)

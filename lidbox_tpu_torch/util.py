@@ -28,25 +28,55 @@ def predictions_table(ids, predictions):
                                                                  np.float32)}
 
 
+def _torch_dtype(dtype):
+    """A torch dtype from a torch dtype or its name (``"bfloat16"``)."""
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    value = getattr(torch, str(dtype), None)
+    if not isinstance(value, torch.dtype):
+        raise ValueError(f"unknown dtype {dtype!r}")
+    return value
+
+
 def make_batch_predict_fn(model, batch_size=32, mesh=None, compute_dtype=None,
                           apply_kwargs=None, score_fn=None, stage_dtype=None):
     """``(inputs [B, T, F] numpy, frame_mask [B, T] or None) -> numpy
     outputs [B, ...]``: one forward on the model's device.
 
     ``apply_kwargs`` forwards model.apply options, e.g.
-    ``{"output": "embedding"}``. The JAX package's ``mesh``,
-    ``compute_dtype``, ``score_fn`` and ``stage_dtype`` options are not
-    ported yet (ROADMAP queue 1) and raise."""
-    for name, value in (("mesh", mesh), ("compute_dtype", compute_dtype),
-                        ("score_fn", score_fn), ("stage_dtype", stage_dtype)):
-        if value is not None:
-            raise NotImplementedError(f"{name} is not ported yet (ROADMAP "
-                                      "queue 1, 'left for later slices')")
+    ``{"output": "embedding"}``. ``compute_dtype`` (e.g. ``"bfloat16"``)
+    runs the forward on parameters and input cast to it, the output coming
+    back float32. ``stage_dtype`` (a floating type, e.g. ``"bfloat16"``)
+    rounds float inputs to it on the host before the transfer (half the
+    bytes) and upcasts them on the device: outputs differ from the float32
+    feed only by that input rounding. The JAX package's ``mesh`` (ROADMAP
+    queue 1, item 12) and ``score_fn`` (language-vector models, item 9)
+    are not ported yet and raise."""
+    if mesh is not None:
+        raise NotImplementedError("mesh is not ported yet (ROADMAP queue 1, "
+                                  "item 12)")
+    if score_fn is not None:
+        raise NotImplementedError("score_fn (language-vector models) is not "
+                                  "ported yet (ROADMAP queue 1, item 9)")
+    compute_dtype = _torch_dtype(compute_dtype)
+    stage = _torch_dtype(stage_dtype)
+    if stage is not None and not stage.is_floating_point:
+        raise ValueError(f"stage_dtype must be floating, got {stage_dtype!r}"
+                         " (integer PCM staging is a waveform-path "
+                         "feature: on_device.stage_signals)")
     kwargs = dict(apply_kwargs or {})
+    if compute_dtype is not None:
+        kwargs["compute_dtype"] = compute_dtype
 
     @torch.inference_mode()
     def predict_fn(inputs, mask=None):
-        x = torch.as_tensor(np.asarray(inputs, np.float32), device=model.device)
+        x = torch.as_tensor(np.asarray(inputs))
+        if stage is not None and x.is_floating_point():
+            x = x.to(stage)  # on the host: the transfer carries stage bytes
+        x = x.to(model.device)
+        # with compute_dtype, model.apply casts the input itself
+        if compute_dtype is None and x.is_floating_point():
+            x = x.float()
         if mask is not None:
             mask = torch.as_tensor(np.asarray(mask, bool), device=model.device)
         return model.apply(x, mask=mask, **kwargs).float().cpu().numpy()

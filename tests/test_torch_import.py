@@ -34,14 +34,14 @@ def test_package_imports_without_jax_or_lidbox_tpu():
     assert proc.returncode == 0, proc.stderr
     assert "LEAKED []" in proc.stdout, proc.stdout
     count = int(proc.stdout.split("COUNT")[1].split()[0])
-    assert count >= 15, proc.stdout  # every submodule was imported
+    assert count >= 28, proc.stdout  # every submodule was imported
 
 
 def test_sources_name_no_jax_flax_or_lidbox_tpu():
     pattern = re.compile(
         r"^\s*(import|from)\s+(jax|flax|lidbox_tpu)(\.|\s|$)", re.MULTILINE)
     files = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) >= 16
+    assert len(files) >= 30
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if pattern.search(f.read_text())]
     assert offenders == []

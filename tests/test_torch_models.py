@@ -136,7 +136,7 @@ def test_registry_and_unported_options():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmodels.create("lstm", (T, FEAT), NUM_OUTPUTS, device="cpu")
     model = tmodels.create("xvector", (T, FEAT), NUM_OUTPUTS, device="cpu")
-    # compute_dtype is ported (the trainer's casts); the serving flag is not
+    # compute_dtype: the trainer's casts, and the serving flag
     x = torch.as_tensor(np.random.default_rng(2).normal(0, 1, (2, T, FEAT)),
                         dtype=torch.float32)
     with torch.inference_mode():
@@ -145,8 +145,10 @@ def test_registry_and_unported_options():
     assert y16.dtype == torch.float32
     np.testing.assert_allclose(y16.numpy(), y32.numpy(), rtol=2e-2, atol=2e-2)
     from lidbox_tpu_torch.util import make_batch_predict_fn
+    served = make_batch_predict_fn(model, compute_dtype=torch.bfloat16)(x.numpy())
+    np.testing.assert_array_equal(served, y16.numpy())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_batch_predict_fn(model, compute_dtype=torch.bfloat16)
+        make_batch_predict_fn(model, mesh=object())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tmodels.create("xvector", (T, FEAT), NUM_OUTPUTS)

@@ -116,8 +116,10 @@ def test_streaming_equals_offline_chunking_and_jax(pair):
 
 def test_devices_and_unported_options(pair):
     _, tm = pair
+    tserve.Classifier(tm, LABELS, device="cpu", stage_dtype="bfloat16",
+                      compute_dtype="bfloat16")  # ported: the serving flags
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserve.Classifier(tm, LABELS, device="cpu", stage_dtype="bfloat16")
+        tserve.Classifier(tm, LABELS, device="cpu", score_fn=lambda s: s)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tserve.Classifier(tm, LABELS, device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):

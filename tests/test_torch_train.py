@@ -417,7 +417,7 @@ def test_fit_fused_entry_points(fused_runs, tmp_path):
     "embedding_extractor", "orbax"])
 def test_left_options_raise(tmp_path, what):
     """The options a later slice ports raise NotImplementedError naming
-    ROADMAP (mesh, the embedding extractor, Orbax), bad augmentation
+    ROADMAP (mesh, the embedding extractor's mesh, Orbax), bad augmentation
     configs raise ValueError; the augmentation stages and the feed options
     this slice ported run (their numerics are in tests/test_torch_augment.py
     and tests/test_torch_feed.py)."""
@@ -459,8 +459,9 @@ def test_left_options_raise(tmp_path, what):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if what == "mesh":
             ModelWrapper.from_config(cfg, mesh=object(), device="cpu")
-        elif what == "embedding_extractor":
-            ModelWrapper.from_config_as_embedding_extractor_fn({})
+        elif what == "embedding_extractor":  # ported, but not its mesh
+            ModelWrapper.from_config_as_embedding_extractor_fn(
+                {}, mesh=object(), device="cpu")
         else:
             ModelWrapper.from_config(cfg, device="cpu").fit_fused(
                 lambda: noisy_sines(1, seed=8))
@@ -635,3 +636,26 @@ def test_batch_helpers_match_jax():
     ragged = sigs[:1] + [{"signal": np.zeros(300, np.float32), "target": 0}]
     with pytest.raises(ValueError, match="equal-length"):
         list(tloop.signal_batches_from_dataset(ragged, 2)())
+
+
+@pytest.mark.parametrize("enabled", [False, True])
+def test_profiler_and_cprofile_scopes(tmp_path, enabled):
+    """Disabled scopes only yield, as the JAX package's do (its CLI enters
+    both on every command); enabled ones write the cProfile stats and a
+    torch.profiler trace of a tiny workload."""
+    import json
+    from lidbox_tpu_torch.train import observability
+    trace_dir, stats = tmp_path / "trace", tmp_path / "cProfile.log"
+    with observability.profiler(str(trace_dir), enabled=enabled), \
+            observability.cprofile(str(stats), enabled=enabled):
+        y = torch.ones(64, 64) @ torch.ones(64, 64)
+    assert float(y[0, 0]) == 64.0
+    if not enabled:
+        assert not trace_dir.exists() and not stats.exists()
+        with observability.profiler(None):  # no log_dir: a no-op too
+            pass
+        return
+    assert "function calls" in stats.read_text()
+    traces = list(trace_dir.glob("*.pt.trace.json"))
+    assert len(traces) == 1
+    assert json.loads(traces[0].read_text())["traceEvents"]
