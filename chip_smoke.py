@@ -66,7 +66,24 @@ Phases, each of which fails the run:
    the JAX names, and one batch of embeddings equals the restored
    extractor's bit for bit. Prints elements/s through the pipeline and the
    kernel's times at [64, 32000] with this mel geometry;
-7. kernel vs plain at the main paths' shapes: ``fused_logmel`` against
+7. the command line, the fifth main path: ``python -m lidbox_tpu_torch``
+   driven in-process through ``cli.main`` on phase 6's corpus and
+   configuration with a ``metadata`` CSV: ``utils --validate-config``,
+   ``train`` for 2 epochs and ``train --resume`` to 3, ``evaluate``,
+   ``extract-embeddings`` of both splits, the numpy back-end (scaler,
+   PLDA, GaussianNB, report) on those embeddings, ``classify`` of 8 test
+   wavs whole and in 2 s chunks, and ``export --torch-export``. The launch
+   count is zeroed just before and read just after each command: phase
+   6's groups per pass for train, evaluate and extraction. The epochs
+   number 1, 2, 3 with a falling loss and the JAX checkpoint names; the
+   report equals ``util.evaluate_testset_with_model`` on the CPU
+   (predictions within PIPE_ATOL + PIPE_RTOL, confusion matrix and
+   supports equal); the test embeddings equal ``steps.extract_embeddings``
+   bit for bit; the back-end gives equal results twice; the CSV equals
+   ``serve.Classifier``; the exported model and program reproduce the
+   live model at batch 1, 2 and 32 (atol 1e-5 + rtol 1e-5). The kernel
+   is held to its plain version on the groups the commands handed it;
+8. kernel vs plain at the main paths' shapes: ``fused_logmel`` against
    ``logmel_plain`` on the very batches kept in phase 3 (bucketed: a 3 s
    batch is padded to the 4 s bucket) and on a training batch, [32, 48000]
    (fixed-length crops, no bucket); kernel, plain and bound times per
@@ -75,12 +92,12 @@ Phases, each of which fails the run:
    float32 CUDA-core bound printed beside it; ``dft_gemm_ms`` is one cuBLAS
    float32 product of the unfolded frames by the DFT basis, a yardstick
    for the bulk of the work;
-8. the steady train step at [32, 48000]: the median of 30 steps on CUDA
+9. the steady train step at [32, 48000]: the median of 30 steps on CUDA
    events, split into features, forward + backward and optimizer, beside
    the kernel's time at that shape and its share of the step, and the
    device's busy time over 5 steps under ``torch.profiler``; then the
    augmented step the same way, split at each stage of the chain;
-9. the kernel table as one JSON line, the card line, and the result line.
+10. the kernel table as one JSON line, the card line, and the result line.
 
 Every comparison of the kernel with its plain version holds float32 within
 atol 1e-4 + rtol 1e-4 (the allclose of the tests; the distance of each from
@@ -1172,7 +1189,304 @@ def phase_pipeline(root, rng, logmel, device="cuda"):
               f" ms of pipeline per group, of which the extractor call "
               f"(transfer, kernel, normalization, readback) {group_call_ms:.3f}"
               f" ms median, the kernel alone {ms:.4f} ms")
-    return fit_launches + emb_launches, max(errors, default=0.0), timing
+    return (fit_launches + emb_launches, max(errors, default=0.0), timing,
+            (init, noise_dir, groups))
+
+
+def cli_config(root, init, noise_dir):
+    """The pipeline phase's configuration under a cache of its own, with a
+    ``metadata`` section: a CSV of both splits (id, path, label, split).
+    Returns (config, {id: label})."""
+    csv_path = os.path.join(root, "cli_meta.csv")
+    id2label = {}
+    with open(csv_path, "w", encoding="utf-8") as f:
+        f.write("id,path,label,split\n")
+        for split, rows in init.items():
+            for uid, path, label in zip(rows["id"], rows["path"],
+                                        rows["label"]):
+                f.write(f"{uid},{path},{label},{split}\n")
+                id2label[uid] = label
+    config = pipeline_config(root, noise_dir)
+    config["metadata"] = {"csv": csv_path}
+    config["experiment"] = dict(config["experiment"],
+                                cache_directory=os.path.join(root, "cli"),
+                                name="smoke_cli", epochs=2)
+    return config, id2label
+
+
+def write_json(config, path):
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(config, f)
+    return path
+
+
+def phase_cli(root, logmel, pipeline_data, device="cuda"):
+    """``python -m lidbox_tpu_torch`` on the pipeline phase's corpus and
+    configuration, each command driven in-process through ``cli.main`` with
+    the launch count zeroed just before and read just after: utils
+    --validate-config, train 2 epochs, train --resume to 3, evaluate,
+    extract-embeddings of both splits, the numpy back-end on them, classify
+    whole and in 2 s chunks, export --torch-export. Every output is held to
+    the Python entry points. Returns the kernel's launches over the
+    commands, its worst float32 error on the groups the CLI handed it, and
+    the commands' wall times. With ``device="cpu"`` it rehearses the phase
+    on the plain version (the launch counts and the kernel checks need the
+    card)."""
+    import contextlib
+    import io
+    from lidbox_tpu_torch import cli, export, serve, util
+    from lidbox_tpu_torch.data import from_steps
+    from lidbox_tpu_torch.data import steps as steps_mod
+    from lidbox_tpu_torch.data.device_pipeline import DeviceFeatureExtractor
+    from lidbox_tpu_torch.data.pipelines import create_dataset
+    from lidbox_tpu_torch.embed import sklearn_utils as backend
+    from lidbox_tpu_torch.meta import generate_label2target
+    from lidbox_tpu_torch.models.model_utils import (
+        ModelWrapper, best_model_checkpoint_from_config,
+        experiment_cache_from_config)
+
+    on_card = torch.device(device).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def check_launches(name, expected):
+        if on_card:
+            check(launches[name] == expected,
+                  f"{name} launched the kernel {launches[name]} times, not "
+                  f"{expected}")
+
+    init, noise_dir, groups = pipeline_data
+    config, id2label = cli_config(root, init, noise_dir)
+    path = write_json(config, os.path.join(root, "cli.json"))
+    cache = experiment_cache_from_config(config)
+    walls, launches = {}, {}
+    kept = {}
+    extract = DeviceFeatureExtractor.extract
+
+    def keeping(self, signals, sample_rate, **kw):
+        key = (tuple(signals.shape), int(sample_rate))
+        if key not in kept and not kw:
+            kept[key] = signals.clone()
+        return extract(self, signals, sample_rate, **kw)
+
+    def command(name, argv):
+        """Run one command; returns its standard output."""
+        out = io.StringIO()
+        logmel.fused_logmel.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        DeviceFeatureExtractor.extract = keeping
+        try:
+            with contextlib.redirect_stdout(out):
+                code = cli.main(argv, device=device)
+        finally:
+            DeviceFeatureExtractor.extract = extract
+        sync()
+        walls[name] = time.perf_counter() - t0
+        launches[name] = logmel.fused_logmel.launches
+        check(code == 0, f"{name}: exit code {code}")
+        return out.getvalue()
+
+    def epoch_logs():
+        with open(os.path.join(cache, "logs", "events.jsonl")) as f:
+            return [json.loads(line) for line in f]
+
+    out = command("utils", ["utils", "--validate-config", path])
+    check(out.strip() == "config ok", f"validate-config printed {out!r}")
+
+    per_epoch = groups["train"] + groups["test"]
+    command("train", ["train", path])
+    check_launches("train", 2 * per_epoch)
+    check([r["step"] for r in epoch_logs()] == [1, 2],
+          f"train ran epochs {[r['step'] for r in epoch_logs()]}, not 1, 2")
+    path = write_json(dict(config, experiment=dict(config["experiment"],
+                                                   epochs=3)), path)
+    command("train --resume", ["train", path, "--resume"])
+    check_launches("train --resume", per_epoch)
+    logs = epoch_logs()
+    losses = [r["metrics"]["loss"] for r in logs]
+    names = sorted(os.listdir(os.path.join(cache, "checkpoints")))
+    check([r["step"] for r in logs] == [1, 2, 3],
+          f"epoch numbering {[r['step'] for r in logs]} is not 1, 2, 3")
+    check(losses[-1] < losses[0], f"CLI epoch loss did not fall: {losses}")
+    check(len(names) == 3 and all(CKPT_NAME.match(n) for n in names)
+          and [n[:11] for n in names] == [f"epoch00000{e}" for e in (1, 2, 3)],
+          f"checkpoints {names} are not the JAX package's name scheme")
+    print(f"cli train: 2 epochs then --resume to 3, epoch loss "
+          + ", ".join(f"{v:.4f}" for v in losses) + f"; kernel launches "
+          f"{launches['train']} + {launches['train --resume']} = 3 x "
+          f"({groups['train']} + {groups['test']}); checkpoints {names}")
+
+    # evaluate: the report against util.evaluate_testset_with_model on the
+    # CPU from the same checkpoint; predictions caught on their way in
+    reports = []
+    classification_report = util.classification_report
+
+    def catching(true, pred, *args, **kw):
+        reports.append((np.asarray(true), np.asarray(pred)))
+        return classification_report(true, pred, *args, **kw)
+    util.classification_report = catching
+    try:
+        report = json.loads(command("evaluate", ["evaluate", path]))
+        meta, label2target = generate_label2target(cli.load_metadata(config)[0])
+        rows = [i for i, s in enumerate(meta["split"]) if s == "test"]
+        test_meta = {"id": [meta["id"][i] for i in rows],
+                     "target": meta["target"][rows]}
+        cpu = ModelWrapper.from_config(config, device="cpu")
+        cpu.trainer.restore(best_model_checkpoint_from_config(config))
+        cpu_ds = from_steps(create_dataset("test", LABELS, init["test"],
+                                           config), device="cpu")
+        cpu_report = util.evaluate_testset_with_model(
+            cpu.model, cpu_ds, test_meta, label2target)
+    finally:
+        util.classification_report = classification_report
+    check_launches("evaluate", groups["test"])
+    (true, pred), (cpu_true, cpu_pred) = reports
+    diff = np.abs(pred - cpu_pred)
+    check(np.array_equal(true, cpu_true)
+          and (diff <= PIPE_ATOL + PIPE_RTOL * np.abs(cpu_pred)).all(),
+          f"evaluate: predictions differ from the CPU's by {diff.max()}")
+    check(report["confusion_matrix"] == cpu_report["confusion_matrix"].tolist()
+          and all(report[l]["support"] == cpu_report[l]["support"]
+                  for l in LABELS),
+          "evaluate: confusion matrix or supports differ from the CPU's")
+    print(f"cli evaluate: accuracy {report['accuracy']:.4f}, C_avg "
+          f"{report['avg_detection_cost']:.4f}, EER "
+          f"{report['avg_equal_error_rate']:.4f} ({len(true)} utterances); "
+          f"predictions within {diff.max():.3e} of the CPU's, confusion "
+          f"matrix and supports equal; kernel launches "
+          f"{launches['evaluate']} = {groups['test']} test groups")
+
+    # extract-embeddings, both splits; the test split against
+    # steps.extract_embeddings on the card from the same checkpoint
+    emb = embeddings_section(config)
+    emb_path = write_json(dict(config, embeddings=emb),
+                          os.path.join(root, "cli_emb.json"))
+    npz = {}
+    for split in ("train", "test"):
+        name = f"extract-embeddings {split}"
+        npz[split] = os.path.join(root, f"cli_{split}.npz")
+        command(name, ["extract-embeddings", emb_path, npz[split],
+                       "--split", split])
+        check_launches(name, groups[split])
+    data = {s: np.load(p) for s, p in npz.items()}
+    direct = steps_mod.extract_embeddings(
+        from_steps(create_dataset("test", LABELS, init["test"], config),
+                   device=device), emb, device=device).collect()
+    check([str(x["id"]) for x in direct] == list(data["test"]["ids"])
+          and np.array_equal(np.stack([x["embedding"] for x in direct]),
+                             data["test"]["embeddings"]),
+          "extract-embeddings differs from steps.extract_embeddings")
+    print(f"cli extract-embeddings: train {data['train']['embeddings'].shape}, "
+          f"test {data['test']['embeddings'].shape}; the test file equals "
+          "steps.extract_embeddings bit for bit; kernel launches "
+          f"{launches['extract-embeddings train']} + "
+          f"{launches['extract-embeddings test']}")
+
+    # the numpy back-end on those embeddings, twice
+    target2label = {t: l for l, t in label2target.items()}
+
+    def as_xy(split):
+        # chunk ids of augmented copies read "augmented-<id>-noise-...-<n>"
+        labels = [id2label[re.search(r"(train|test)\d{3}", str(i)).group(0)]
+                  for i in data[split]["ids"]]
+        return {"X": data[split]["embeddings"].copy(),
+                "y": np.asarray([label2target[l] for l in labels])}
+
+    def backend_report():
+        t0 = time.perf_counter()
+        pipe = backend.fit_classifier(
+            as_xy("train"), as_xy("test"), LABELS,
+            {"sklearn_experiment": {"cache_directory": root,
+                                    "model": {"key": "xvector"},
+                                    "name": "smoke_cli"}},
+            target2label, backend.GaussianNB, plot_demo=False)
+        scores = backend.predict_with_trained_classifier(
+            as_xy("test"), None, None, pipe)
+        rep = util.classification_report(as_xy("test")["y"], scores,
+                                         label2target)
+        return scores, rep, time.perf_counter() - t0
+    scores, be_report, walls["back-end"] = backend_report()
+    scores2, be_report2, _ = backend_report()
+    check(np.array_equal(scores, scores2) and np.array_equal(
+        be_report["confusion_matrix"], be_report2["confusion_matrix"])
+          and be_report["avg_detection_cost"]
+          == be_report2["avg_detection_cost"],
+          "the back-end differs between two runs on the same embeddings")
+    print(f"cli back-end (StandardScaler -> PLDA -> normalize -> GaussianNB, "
+          f"numpy): accuracy {be_report['accuracy']:.4f}, C_avg "
+          f"{be_report['avg_detection_cost']:.4f} on "
+          f"{len(scores)} test chunks; a second run on the same embeddings "
+          "equal")
+
+    # classify 8 test wavs, whole and in 2 s chunks, against
+    # serve.Classifier called directly
+    wavs = init["test"]["path"][:8]
+    wrapper = ModelWrapper.from_config(config, device=device)
+    wrapper.trainer.restore(best_model_checkpoint_from_config(config))
+    for chunk_ms in (None, 2000):
+        name = "classify" + (f" {chunk_ms} ms chunks" if chunk_ms else "")
+        argv = ["classify", path] + wavs
+        if chunk_ms:
+            argv += ["--chunk-length-ms", str(chunk_ms)]
+        text = command(name, argv)
+        rows = [line.split(",") for line in text.strip().splitlines()]
+        table = serve.Classifier(wrapper.model, LABELS,
+                                 feature_config=config["features"],
+                                 chunk_length_ms=chunk_ms,
+                                 device=device).classify(wavs)
+        columns = ["id", "label"] + [f"score_{l}" for l in LABELS]
+        check(rows[0] == columns and [r[:2] for r in rows[1:]]
+              == [[i, l] for i, l in zip(table["id"], table["label"])],
+              f"{name}: header, ids or labels differ from serve.Classifier")
+        csv_scores = np.asarray([r[2:] for r in rows[1:]], np.float32)
+        direct_scores = np.stack([table[c] for c in columns[2:]], axis=1)
+        check(np.array_equal(csv_scores, direct_scores),
+              f"{name}: CSV scores differ from serve.Classifier by "
+              f"{np.abs(csv_scores - direct_scores).max()}")
+        check(launches[name] > 0 or not on_card, f"{name} launched no kernel")
+        print(f"cli {name}: {len(rows) - 1} rows equal to serve.Classifier; "
+              f"kernel launches {launches[name]}")
+
+    # export --torch-export: the saved model and program against the live
+    # model, and the weights read back
+    out_dir = os.path.join(root, "cli_deploy")
+    command("export", ["export", path, out_dir, "--torch-export"])
+    loaded = export.load_model(out_dir, device=device)
+    program = export.load_program(os.path.join(out_dir, export.PROGRAM_NAME))
+    live = dict(wrapper.model.module.state_dict())
+    check(all(torch.equal(v, live[k])
+              for k, v in loaded.module.state_dict().items()),
+          "export: the saved weights differ from the checkpoint's")
+    worst = 0.0
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    with torch.inference_mode():
+        for batch in (1, 2, 32):
+            x = torch.randn(batch, PIPE_FRAMES, 64, device=device,
+                            generator=gen)
+            ref = wrapper.model.apply(x)
+            for got in (loaded.apply(x), program(x)):
+                err = (got - ref).abs()
+                check((err <= 1e-5 + 1e-5 * ref.abs()).all(),
+                      f"export: batch {batch} differs by {err.max().item()}")
+                worst = max(worst, err.max().item())
+    print(f"cli export: model.json + variables.msgpack + forward.pt2; "
+          f"load_model and load_program reproduce the live model at batch 1, "
+          f"2 and 32 within {worst:.3e} (atol 1e-5 + rtol 1e-5)")
+
+    errors = []
+    if on_card:
+        with torch.inference_mode():
+            errors = [compare(logmel, f"cli_{shape[0]}x{shape[1]}", x, rate,
+                              PIPE_KW) for (shape, rate), x
+                      in sorted(kept.items(), reverse=True)]
+        check(errors, "the CLI handed the kernel no signal batch")
+    where = card_line() if on_card else "cpu"
+    print(f"cli wall times on {where} (s, host clock, the kernel's build "
+          "excluded): " + ", ".join(f"{k} {v:.2f}" for k, v in walls.items()))
+    return sum(launches.values()), max(errors, default=0.0), walls
 
 
 STAGES = ("draw", "vad", "speed", "noise", "fir", "features", "specaug")
@@ -1309,8 +1623,9 @@ def main():
             aug_launches, aug_err, aug_batch, aug_wrapper = \
                 phase_augmented_train(root, np.random.default_rng(SEED + 2),
                                       logmel)
-            pipe_launches, pipe_err, _ = phase_pipeline(
+            pipe_launches, pipe_err, _, pipe_data = phase_pipeline(
                 root, np.random.default_rng(SEED + 3), logmel)
+            cli_launches, cli_err, _ = phase_cli(root, logmel, pipe_data)
         finally:
             torch.backends.cudnn.deterministic = False
         train_x = torch.as_tensor(train_batch[0], device="cuda")
@@ -1325,7 +1640,7 @@ def main():
     print(f"kernel line: [{largest[0]}, {largest[1]}] highest; launches "
           f"{serve_launches} serving + {train_launches} training + "
           f"{aug_launches} augmented training + {pipe_launches} pipeline "
-          "(fit and embedding extraction)")
+          f"(fit and embedding extraction) + {cli_launches} CLI")
 
     print(json.dumps({"kernels": [{
         "name": "fused_logmel",
@@ -1333,8 +1648,9 @@ def main():
         "source": "lidbox_tpu_torch/csrc/logmel.cu",
         "replaces": "lidbox_tpu/ops/logmel.py:154",
         "launches": (serve_launches + train_launches + aug_launches
-                     + pipe_launches),
-        "max_abs_err": max(geometry_err, path_err, aug_err, pipe_err),
+                     + pipe_launches + cli_launches),
+        "max_abs_err": max(geometry_err, path_err, aug_err, pipe_err,
+                           cli_err),
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,

@@ -51,6 +51,29 @@ def params_from_flax(params):
     return state
 
 
+def params_to_flax(state):
+    """This port's ``state_dict`` -> the JAX package's parameter tree, the
+    inverse of ``params_from_flax``: nested dicts of float32 numpy arrays
+    with every level's keys sorted, as a JAX pytree holds them."""
+    tree = {}
+    for path, value in state.items():
+        *modules, name = path.split(".")
+        a = value.detach().cpu().numpy().astype(np.float32)
+        if name == "weight":
+            name = "kernel"
+            a = a.transpose(2, 1, 0) if a.ndim == 3 else a.T
+        node = tree
+        for m in modules:
+            node = node.setdefault(m, {})
+        node[name] = np.ascontiguousarray(a)
+
+    def ordered(node):
+        if isinstance(node, dict):
+            return {k: ordered(node[k]) for k in sorted(node)}
+        return node
+    return ordered(tree)
+
+
 def flax_default_init_(module, generator):
     """Flax's default initialization in place: lecun_normal weights of
     every Conv1d and Linear, zero biases."""

@@ -137,8 +137,8 @@ def init_callback_from_config(config, cache_dir):
     if cls == "LearningRateDateLogger":
         return LearningRateDateLogger()
     if cls == "TensorBoard":
-        # the JSONL MetricsLogger stands in; TensorBoard mirroring is
-        # ROADMAP queue 1, item 11
+        # no callback: the Trainer's MetricsLogger mirrors its records to
+        # TensorBoard (ModelWrapper.from_config passes tensorboard=True)
         return None
     raise KeyError(f"unknown callback class {cls!r}")
 
@@ -220,6 +220,9 @@ class ModelWrapper:
                           stage_dtype=feed.get("stage_dtype"),
                           cache_staged=feed.get("cache_staged", False),
                           cache_bytes_limit=feed.get("cache_bytes_limit"),
+                          tensorboard=any(
+                              c["cls"] == "TensorBoard"
+                              for c in experiment.get("callbacks", [])),
                           device=device)
         wrapper = cls(model, model_key, trainer)
         wrapper.steps_per_dispatch = int(feed.get("steps_per_dispatch", 1))

@@ -12,8 +12,11 @@ and ``.ckpt`` suffix, so best-checkpoint selection and ``initial_epoch``
 resume behave identically. Writes go through a temp file + rename so a
 crashed run never leaves a torn checkpoint.
 
-Not ported yet (ROADMAP queue 1, item 6): the Orbax directory backend, and
-reading the JAX package's msgpack ``.ckpt`` files; both raise.
+The JAX package's msgpack ``.ckpt`` files (``flax.serialization``) read
+too: ``load_raw_checkpoint`` converts their parameters, batch statistics
+and optax state to this port's train state, so a model trained by the JAX
+package resumes, evaluates and serves here. Not ported yet (ROADMAP queue
+1, item 6): the Orbax directory backend; it raises.
 """
 import os
 import tempfile
@@ -103,19 +106,46 @@ def save_checkpoint(checkpoints_dir, state, epoch, val_loss=0.0,
     return path
 
 
-def load_raw_checkpoint(path):
-    """A checkpoint as a dict of its ``STATE_KEYS``, tensors on the CPU."""
+def load_raw_checkpoint(path, params=None):
+    """A checkpoint as a dict of its ``STATE_KEYS``, tensors on the CPU.
+
+    Reads this port's ``torch.save`` files and the JAX package's msgpack
+    files. A JAX train state converts on the way: its parameters and batch
+    statistics through ``params_from_flax``, its optax state through
+    ``opt_state_from_optax`` with the moments listed in the order of
+    ``params`` (a name -> tensor dict; default the checkpoint's own order),
+    and its step to an int."""
     if os.path.isdir(path):
         raise NotImplementedError(
             f"{path} is an Orbax checkpoint directory; the Orbax backend is "
             "not ported yet (ROADMAP queue 1, item 6)")
     with open(path, "rb") as f:
-        if f.read(2) != b"PK":  # torch.save writes a zip archive
-            raise NotImplementedError(
-                f"{path} is not a torch.save checkpoint (the JAX package's "
-                "msgpack checkpoints are not read yet, ROADMAP queue 1, "
-                "item 6)")
-    return torch.load(path, map_location="cpu", weights_only=True)
+        head = f.read(2)
+    if head == b"PK":  # torch.save writes a zip archive
+        return torch.load(path, map_location="cpu", weights_only=True)
+    if head[:1] and (0x80 <= head[0] <= 0x8F or head[0] in (0xDE, 0xDF)):
+        return _from_flax_state(path, params)
+    raise ValueError(f"{path} is neither a torch.save checkpoint nor a "
+                     "msgpack state dict")
+
+
+def _from_flax_state(path, params):
+    """A JAX package checkpoint (a msgpack TrainState) as this port's raw
+    state."""
+    from lidbox_tpu_torch.models.model_api import params_from_flax
+    from lidbox_tpu_torch.train.optimizers import opt_state_from_optax
+    from lidbox_tpu_torch.train.serialization import msgpack_restore
+    with open(path, "rb") as f:
+        raw = msgpack_restore(f.read())
+    missing = [k for k in STATE_KEYS if k not in raw]
+    if missing:
+        raise ValueError(f"{path}: not a train state (missing {missing})")
+    state = {"step": int(np.asarray(raw["step"])),
+             "params": params_from_flax(raw["params"]),
+             "batch_stats": params_from_flax(raw["batch_stats"] or {})}
+    order = state["params"] if params is None else params
+    state["opt_state"] = opt_state_from_optax(raw["opt_state"], order)
+    return state
 
 
 def _restore_into(target, value, where):
@@ -144,7 +174,7 @@ def _restore_into(target, value, where):
 def restore_checkpoint(path, target):
     """Restore a checkpoint into the structure of ``target`` (a train
     state with ``replace``); raises when the structures differ."""
-    raw = load_raw_checkpoint(path)
+    raw = load_raw_checkpoint(path, params=target.params)
     return target.replace(**{k: _restore_into(getattr(target, k), raw[k], k)
                              for k in STATE_KEYS})
 

@@ -278,6 +278,8 @@ class Trainer:
         cache_staged: keep the staged batches on the device after epoch 1
             (fit's default), held to ``cache_bytes_limit`` bytes (None:
             90% of the device's memory less what is in use; inf on the CPU).
+        tensorboard: mirror the epoch records of the ``log_dir`` metrics
+            log to TensorBoard (``observability.MetricsLogger``).
         device: the model's device; default "cuda", which raises without
             CUDA.
     """
@@ -287,7 +289,7 @@ class Trainer:
                  log_dir=None, rng=None, compute_dtype=None,
                  param_sharding=None, prefetch=4, stage_dtype=None,
                  score_fn=None, cache_staged=False, cache_bytes_limit=None,
-                 device="cuda"):
+                 tensorboard=False, device="cuda"):
         for name, value in (("mesh", mesh),
                             ("param_sharding", param_sharding)):
             if value is not None:
@@ -316,7 +318,8 @@ class Trainer:
         self.seed = RANDOM_SEED if rng is None else int(rng)
         self.generator = torch.Generator(device=self.device).manual_seed(
             self.seed)
-        self.metrics_logger = MetricsLogger(log_dir) if log_dir else None
+        self.metrics_logger = (MetricsLogger(log_dir, tensorboard=tensorboard)
+                               if log_dir else None)
         self.state = None
 
     # -- state --------------------------------------------------------------

@@ -4,12 +4,12 @@ Training observability: metric event logs and throughput counters
 lidbox/models/keras_utils.py:65-71, lidbox/data/steps.py:460-484).
 
 - MetricsLogger: JSONL event records, one per epoch, the JAX package's
-  format,
+  format, optionally mirrored to TensorBoard through
+  ``torch.utils.tensorboard`` (host logging; when the writer cannot be
+  imported it warns and carries on, as the JAX version does without
+  tensorflow),
 - ThroughputMeter: utterances/sec and audio-seconds/sec counters,
 - profiler / cprofile: trace scopes, no-ops when disabled.
-
-Not ported yet (ROADMAP queue 1, item 11): TensorBoard mirroring; it
-raises.
 """
 import contextlib
 import json
@@ -25,21 +25,34 @@ class MetricsLogger:
     """Append-only JSONL metric event log, one record per step/epoch."""
 
     def __init__(self, log_dir, filename="events.jsonl", tensorboard=False):
-        if tensorboard:
-            raise NotImplementedError("TensorBoard mirroring is not ported "
-                                      "yet (ROADMAP queue 1, item 11)")
         os.makedirs(log_dir, exist_ok=True)
         self.path = os.path.join(log_dir, filename)
         self._fh = open(self.path, "a", encoding="utf-8")
+        self._tb_writer = None
+        if tensorboard:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+                self._tb_writer = SummaryWriter(
+                    os.path.join(log_dir, "tensorboard"))
+            except ImportError:
+                logger.warning("torch.utils.tensorboard unavailable, "
+                               "tensorboard mirroring off")
 
     def log(self, step, metrics):
         rec = {"wall_time": time.time(), "step": int(step),
                "metrics": {k: float(v) for k, v in metrics.items()}}
         self._fh.write(json.dumps(rec) + "\n")
         self._fh.flush()
+        if self._tb_writer is not None:
+            for k, v in rec["metrics"].items():
+                self._tb_writer.add_scalar(k, v, global_step=int(step),
+                                           walltime=rec["wall_time"])
+            self._tb_writer.flush()
 
     def close(self):
         self._fh.close()
+        if self._tb_writer is not None:
+            self._tb_writer.close()
 
 
 class ThroughputMeter:

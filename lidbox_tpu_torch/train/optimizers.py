@@ -358,7 +358,11 @@ def opt_state_from_optax(opt_state, params):
 
     Chains become tuples, each optax state its fields as a dict; moment
     trees are converted like the parameters (``params_from_flax``) and
-    listed in ``params``' order, and step counts become ints."""
+    listed in ``params``' order, and step counts become ints.
+
+    ``opt_state`` may also be the msgpack form of a JAX checkpoint
+    (``flax.serialization.to_state_dict``): a chain is a dict keyed
+    ``"0"``, ``"1"``, ... and each state a dict of its fields."""
     from lidbox_tpu_torch.models.model_api import params_from_flax
 
     def field(value):
@@ -374,6 +378,10 @@ def opt_state_from_optax(opt_state, params):
     def convert(node):
         if isinstance(node, tuple) and hasattr(node, "_fields"):
             return {f: field(getattr(node, f)) for f in node._fields}
+        if isinstance(node, dict):
+            if node and set(node) == {str(i) for i in range(len(node))}:
+                return tuple(convert(node[str(i)]) for i in range(len(node)))
+            return {f: field(v) for f, v in node.items()}
         if isinstance(node, (tuple, list)):
             return tuple(convert(n) for n in node)
         raise TypeError(f"unsupported optimizer state node {type(node)}")

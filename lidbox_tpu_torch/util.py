@@ -1,10 +1,12 @@
 """
-Prediction and chunk-score merging (counterpart of the serving half of
-``lidbox_tpu.util``; reference: lidbox/util.py).
+High-level API: prediction, chunk merging, classification reports
+(counterpart of ``lidbox_tpu.util``; reference: lidbox/util.py).
 
 Results are plain Python/numpy tables in place of the JAX package's pandas
 DataFrames: a dict of equal-length columns whose ``"id"`` column is sorted
-and unique, e.g. ``{"id": [...], "prediction": np.ndarray [N, C]}``.
+and unique, e.g. ``{"id": [...], "prediction": np.ndarray [N, C]}``. The
+report is numpy where the JAX package calls ``sklearn.metrics`` (absent on
+the card's machine), to the same values.
 """
 import collections
 
@@ -12,6 +14,8 @@ import numpy as np
 import torch
 
 from lidbox_tpu_torch.data.dataset import padded_batch
+from lidbox_tpu_torch.metrics import SparseAverageDetectionCost
+from lidbox_tpu_torch.metrics import equal_error_rate as metrics_eer
 
 
 def predictions_table(ids, predictions):
@@ -91,7 +95,9 @@ def predict_with_model(model, ds, predict_fn=None, batch_size=32,
 
     A ragged batch is zero-padded (to ``pad_buckets`` when given) and its
     frame mask passed to ``predict_fn(inputs, mask)``, so stats-pooling
-    models see only real frames."""
+    models see only real frames. Only ``input`` is batched: other keys of
+    the elements (a ``signal`` of another length) may differ in shape,
+    where the JAX package's padded batch raises on them."""
     if predict_fn is None:
         predict_fn = make_batch_predict_fn(model, batch_size=batch_size)
     ids, predictions = [], []
@@ -102,7 +108,8 @@ def predict_with_model(model, ds, predict_fn=None, batch_size=32,
         if len(lengths) == 1:
             inputs = np.stack([p["input"] for p in pending])
         else:
-            batch = padded_batch(pending, "input", buckets=pad_buckets)
+            batch = padded_batch([{"input": p["input"]} for p in pending],
+                                 "input", buckets=pad_buckets)
             inputs = batch["input"]
             mask = (np.arange(inputs.shape[1])[None, :]
                     < batch["input_length"][:, None])
@@ -143,3 +150,170 @@ def merge_chunk_predictions(chunk_predictions, merge_rows_fn=None):
         groups.setdefault(chunk_parent_id(cid), []).append(pred)
     return predictions_table(list(groups),
                              [merge_rows_fn(rows) for rows in groups.values()])
+
+
+def _divide(numerator, denominator):
+    """Elementwise ``numerator / denominator``, 0 where the denominator is
+    0 (scikit-learn's ``zero_division=0``)."""
+    numerator = np.asarray(numerator, np.float64)
+    denominator = np.asarray(denominator, np.float64)
+    safe = np.where(denominator == 0.0, 1.0, denominator)
+    return np.where(denominator == 0.0, 0.0, numerator / safe)
+
+
+def _label_counts(true_sparse, pred_sparse, num_labels):
+    """Per-label true positive, predicted and true counts."""
+    tp = np.zeros(num_labels, np.int64)
+    pred_sum = np.zeros(num_labels, np.int64)
+    true_sum = np.zeros(num_labels, np.int64)
+    for t, p in zip(true_sparse, pred_sparse):
+        if 0 <= p < num_labels:
+            pred_sum[p] += 1
+        if 0 <= t < num_labels:
+            true_sum[t] += 1
+            tp[t] += t == p
+    return tp, pred_sum, true_sum
+
+
+def _prf(tp, pred_sum, true_sum):
+    """Precision, recall and f1 from counts (scikit-learn's formulas)."""
+    return (_divide(tp, pred_sum), _divide(tp, true_sum),
+            _divide(2.0 * tp, true_sum.astype(np.float64) + pred_sum))
+
+
+def confusion_matrix(true_sparse, pred_sparse, num_labels):
+    """[N, N] counts, row = true class, column = predicted class; every
+    class keeps its row even when absent from the data."""
+    cm = np.zeros((num_labels, num_labels), np.int64)
+    for t, p in zip(true_sparse, pred_sparse):
+        if 0 <= t < num_labels and 0 <= p < num_labels:
+            cm[t, p] += 1
+    return cm
+
+
+def classification_report(true_sparse, pred_dense, label2target,
+                          dense2sparse_fn=None, num_cavg_thresholds=100,
+                          eer_convention="fpr"):
+    """Per-class precision, recall, f1 and support, accuracy, macro and
+    weighted averages (``sklearn.metrics.classification_report`` with
+    ``labels=range(N)``, ``output_dict=True``, ``zero_division=0``), min
+    C_avg over a threshold grid spanning the score range, per-class EER
+    and its nanmean, and the [N, N] confusion matrix
+    (reference: util.py:60-105).
+
+    C_avg runs through ``metrics.SparseAverageDetectionCost`` on the CPU,
+    EER through ``metrics.equal_error_rate`` with ``eer_convention``
+    (``"fpr"``, the reference's, or ``"midpoint"``); a class absent from
+    the test set (or covering all of it) has EER NaN and is left out of
+    the average."""
+    if dense2sparse_fn is None:
+        dense2sparse_fn = lambda pred: pred.argmax(axis=1)
+    true_sparse = np.asarray(true_sparse)
+    pred_dense = np.asarray(pred_dense)
+    pred_sparse = np.asarray(dense2sparse_fn(pred_dense))
+    num_labels = len(label2target)
+    names = list(label2target)
+
+    tp, pred_sum, true_sum = _label_counts(true_sparse, pred_sparse,
+                                           num_labels)
+    precision, recall, f1 = _prf(tp, pred_sum, true_sum)
+    headers = ("precision", "recall", "f1-score", "support")
+    report = {name: dict(zip(headers, (float(p), float(r), float(f), float(n))))
+              for name, p, r, f, n in zip(names, precision, recall, f1,
+                                          true_sum)}
+    support = float(np.sum(true_sum))
+    micro = [float(v[0]) for v in _prf(tp.sum(keepdims=True),
+                                        pred_sum.sum(keepdims=True),
+                                        true_sum.sum(keepdims=True))]
+    seen = set(np.unique(true_sparse).tolist()) | set(
+        np.unique(pred_sparse).tolist())
+    if seen <= set(range(num_labels)):
+        report["accuracy"] = micro[0]  # micro precision is the accuracy
+    else:
+        report["micro avg"] = dict(zip(headers, (*micro, support)))
+    report["macro avg"] = dict(zip(headers, (
+        float(np.nanmean(precision)), float(np.nanmean(recall)),
+        float(np.nanmean(f1)), support)))
+    if np.sum(true_sum) == 0:
+        weighted = (np.nanmean(precision), np.nanmean(recall), np.nanmean(f1))
+    else:
+        weighted = tuple(np.average(v, weights=true_sum)
+                         for v in (precision, recall, f1))
+    report["weighted avg"] = dict(zip(headers, (*map(float, weighted),
+                                                support)))
+
+    thresholds = np.linspace(pred_dense.min(), pred_dense.max(),
+                             num_cavg_thresholds)
+    cavg = SparseAverageDetectionCost(num_labels, tuple(thresholds.tolist()))
+    state = cavg.update_sparse(cavg.init_state(),
+                               torch.as_tensor(true_sparse),
+                               torch.as_tensor(pred_dense))
+    report["avg_detection_cost"] = float(cavg.result(state))
+
+    true_dense = np.eye(num_labels)[true_sparse]
+    eer = np.zeros(num_labels)
+    for l in range(num_labels):
+        eer[l] = metrics_eer(pred_dense[:, l], true_dense[:, l],
+                             convention=eer_convention)
+    report["avg_equal_error_rate"] = float(np.nanmean(eer))
+    for label, i in label2target.items():
+        report[label]["equal_error_rate"] = eer[i]
+    report["confusion_matrix"] = confusion_matrix(true_sparse, pred_sparse,
+                                                  num_labels)
+    return report
+
+
+def evaluate_testset_with_model(model, test_ds, test_meta, lang2target,
+                                score_fn=None):
+    """predict + join on metadata + report (reference: util.py:108-119).
+
+    ``test_meta`` is a table with ``"id"`` and ``"target"`` columns.
+    Chunk-level predictions (ids carrying a ``-<chunknum>`` suffix from
+    create_signal_chunks / create_input_chunks) are merged back to
+    utterance level by averaging before the join; a join whose id sets
+    differ raises. ``score_fn`` (language-vector models) is not ported yet
+    (ROADMAP queue 1, item 9) and raises."""
+    if score_fn is not None:
+        raise NotImplementedError("score_fn (language-vector models) is not "
+                                  "ported yet (ROADMAP queue 1, item 9)")
+    utt2pred = predict_with_model(model, test_ds)
+    meta_ids = {str(i) for i in test_meta["id"]}
+    pred_ids = utt2pred["id"]
+    if (pred_ids and not set(pred_ids) <= meta_ids
+            and {chunk_parent_id(i) for i in pred_ids} <= meta_ids):
+        utt2pred = merge_chunk_predictions(utt2pred)
+    if set(utt2pred["id"]) != meta_ids:
+        raise AssertionError("Failed to join predictions with test_meta: "
+                             "utterance id sets differ")
+    target = dict(zip((str(i) for i in test_meta["id"]), test_meta["target"]))
+    true_sparse = np.asarray([target[i] for i in utt2pred["id"]], np.int32)
+    return classification_report(true_sparse, utt2pred["prediction"],
+                                 lang2target)
+
+
+def model2function(model):
+    """Model -> inference callable ``x [B, T, F] -> outputs`` on the
+    model's device with its configured head, the analogue of the
+    reference's concrete tf.function (reference: util.py:122-127);
+    ``export.export_program`` makes the ahead-of-time version."""
+    @torch.inference_mode()
+    def model_fn(x):
+        x = torch.as_tensor(np.asarray(x, np.float32), device=model.device)
+        return model.apply(x, output=model.output)
+    return model_fn
+
+
+def standard_scaler(dataset, axis=0, key="input"):
+    """Dataset-level standardization closure from two-pass float64 moments
+    (reference: util.py:130-146)."""
+    from lidbox_tpu_torch.data import steps as data_steps
+    _, means, variances = data_steps.unstable_reduce_features_mean_variance(
+        dataset, axis=axis, key=key)
+    stddevs = np.sqrt(np.maximum(1e-9, variances))
+
+    def scale_dataset(ds):
+        def _scale(x):
+            scaled = (np.asarray(x[key], np.float64) - means) / stddevs
+            return dict(x, **{key: scaled.astype(np.asarray(x[key]).dtype)})
+        return ds.map(_scale)
+    return scale_dataset

@@ -1,6 +1,9 @@
 """
-The PyTorch port stands alone: ``lidbox_tpu_torch`` and ``chip_smoke.py``
-import neither jax nor flax nor anything of ``lidbox_tpu``.
+The PyTorch port stands alone: ``lidbox_tpu_torch``, its examples and
+``chip_smoke.py`` import neither jax nor flax nor anything of
+``lidbox_tpu``, nor the libraries the card's machine lacks (pandas,
+scikit-learn, joblib, msgpack); yaml, matplotlib and TensorBoard are
+imported only inside the functions that need them.
 """
 import os
 import pathlib
@@ -10,38 +13,49 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "lidbox_tpu_torch"
+EXAMPLES = ("examples/end_to_end_torch.py",
+            "examples/fused_feed_training_torch.py")
+ABSENT = ("jax", "flax", "pandas", "sklearn", "joblib", "msgpack")
+LAZY = ("yaml", "matplotlib", "tensorboard", "torch.utils.tensorboard")
 
 _IMPORT_ALL = r"""
 import importlib, importlib.util, pkgutil, sys
-sys.modules["jax"] = None
-sys.modules["flax"] = None
+for name in %(absent)r:
+    sys.modules[name] = None
 import lidbox_tpu_torch
 for info in pkgutil.walk_packages(lidbox_tpu_torch.__path__, "lidbox_tpu_torch."):
     importlib.import_module(info.name)
-spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for i, path in enumerate(("chip_smoke.py",) + %(examples)r):
+    spec = importlib.util.spec_from_file_location(f"script{i}", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 leaked = sorted(m for m in sys.modules
                 if m == "lidbox_tpu" or m.startswith("lidbox_tpu."))
 print("LEAKED", leaked)
+print("EAGER", sorted(m for m in %(lazy)r if m in sys.modules))
 print("COUNT", sum(m.startswith("lidbox_tpu_torch.") for m in sys.modules))
 """
 
 
 def test_package_imports_without_jax_or_lidbox_tpu():
     env = dict(os.environ, PYTHONPATH=str(ROOT))
-    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
+    script = _IMPORT_ALL % {"absent": ABSENT, "examples": EXAMPLES,
+                            "lazy": LAZY}
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
                           env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "LEAKED []" in proc.stdout, proc.stdout
+    assert "EAGER []" in proc.stdout, proc.stdout
     count = int(proc.stdout.split("COUNT")[1].split()[0])
-    assert count >= 28, proc.stdout  # every submodule was imported
+    assert count >= 40, proc.stdout  # every submodule was imported
 
 
 def test_sources_name_no_jax_flax_or_lidbox_tpu():
     pattern = re.compile(
-        r"^\s*(import|from)\s+(jax|flax|lidbox_tpu)(\.|\s|$)", re.MULTILINE)
-    files = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) >= 30
+        r"^\s*(import|from)\s+(jax|flax|lidbox_tpu|pandas|sklearn|joblib"
+        r"|msgpack)(\.|\s|$)", re.MULTILINE)
+    files = (sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + [ROOT / e for e in EXAMPLES])
+    assert len(files) >= 42
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if pattern.search(f.read_text())]
     assert offenders == []

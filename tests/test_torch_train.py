@@ -230,9 +230,16 @@ def test_checkpoint_names_and_best_match_jax(tmp_path, entries, key, mode):
 
 
 def test_foreign_checkpoints_raise(tmp_path):
+    """The JAX package's msgpack train states read (tests/
+    test_torch_meta_cli.py); a msgpack file that holds no train state, a
+    file of neither format and an Orbax directory raise."""
     msgpack = jckpt.save_checkpoint(str(tmp_path), {"w": np.zeros(2)}, 1, 0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="not a train state"):
         tckpt.load_raw_checkpoint(msgpack)
+    text = tmp_path / "epoch000002__val_loss0.1.ckpt"
+    text.write_text("not a checkpoint")
+    with pytest.raises(ValueError, match="neither"):
+        tckpt.load_raw_checkpoint(str(text))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tckpt.load_raw_checkpoint(str(tmp_path))
 
@@ -549,7 +556,7 @@ def test_callback_factory_matches_jax(tmp_path, conf):
         return
     ours = tutils.init_callback_from_config(conf, str(tmp_path))
     assert type(ours).__name__ == type(ref).__name__
-    if ref is None:  # TensorBoard: the JSONL events log stands in
+    if ref is None:  # TensorBoard: the Trainer's MetricsLogger mirrors
         return
     assert vars(ours).keys() <= vars(ref).keys()
     for k in ("monitor", "mode", "patience", "checkpoints_dir"):
