@@ -83,7 +83,24 @@ Phases, each of which fails the run:
    ``serve.Classifier``; the exported model and program reproduce the
    live model at batch 1, 2 and 32 (atol 1e-5 + rtol 1e-5). The kernel
    is held to its plain version on the groups the commands handed it;
-8. kernel vs plain at the main paths' shapes: ``fused_logmel`` against
+8. the model zoo: the 13 registry keys besides the x-vector at their
+   published widths, plus clstm with ``use_conv2d`` and with
+   ``use_attention`` + ``use_lstm`` and convnet_extractor's MobileNetV2
+   trunk (16 configurations, weights from the seed). Each trains through
+   ``ModelWrapper.from_config(config, device="cuda").fit_fused`` for 2
+   steps and 1 validation batch of [32, 48000] (a stream of its own, seed
+   1238) with the launch count zeroed just before and read just after
+   (one launch per step and per validation batch), a finite loss and
+   every BatchNorm running statistic moved; its first step's loss is
+   held to the CPU's from the same weights and batch (rtol 1e-3; in eval
+   mode for clstm and multilevel_attention, whose noise and dropout draw
+   from the device's generator), then ``serve.Classifier`` scores 4 wavs
+   (``score_fn`` for ap_lstm: AngularProximity's -theta) within 1e-3 of
+   the CPU's with one launch. The kernel is held to its plain version on
+   a zoo batch; each configuration prints its parameters, forward and
+   train-step ms on CUDA events and device busy ms under torch.profiler
+   at [32, 298, 64];
+9. kernel vs plain at the main paths' shapes: ``fused_logmel`` against
    ``logmel_plain`` on the very batches kept in phase 3 (bucketed: a 3 s
    batch is padded to the 4 s bucket) and on a training batch, [32, 48000]
    (fixed-length crops, no bucket); kernel, plain and bound times per
@@ -92,12 +109,12 @@ Phases, each of which fails the run:
    float32 CUDA-core bound printed beside it; ``dft_gemm_ms`` is one cuBLAS
    float32 product of the unfolded frames by the DFT basis, a yardstick
    for the bulk of the work;
-9. the steady train step at [32, 48000]: the median of 30 steps on CUDA
+10. the steady train step at [32, 48000]: the median of 30 steps on CUDA
    events, split into features, forward + backward and optimizer, beside
    the kernel's time at that shape and its share of the step, and the
    device's busy time over 5 steps under ``torch.profiler``; then the
    augmented step the same way, split at each stage of the chain;
-10. the kernel table as one JSON line, the card line, and the result line.
+11. the kernel table as one JSON line, the card line, and the result line.
 
 Every comparison of the kernel with its plain version holds float32 within
 atol 1e-4 + rtol 1e-4 (the allclose of the tests; the distance of each from
@@ -1489,6 +1506,232 @@ def phase_cli(root, logmel, pipeline_data, device="cuda"):
     return sum(launches.values()), max(errors, default=0.0), walls
 
 
+# The model zoo: the 13 keys of the registry besides the x-vector (phases
+# 3-7) at their published widths, plus clstm's two options and
+# convnet_extractor's MobileNetV2 trunk, trained by fit_fused on
+# train_config's features ([32, 48000] -> [32, 298, 64]).
+ZOO = [(key, {}) for key in (
+    "ap_lstm", "bi_gru", "clstm", "cnn", "convnet_extractor", "crnn", "dnn",
+    "lstm", "multilevel_attention", "spherespeaker", "xvector_2d",
+    "xvector_extended", "xvector_freq_attention")] + [
+    ("clstm", {"use_conv2d": True}),
+    ("clstm", {"use_attention": True, "use_lstm": True}),
+    ("convnet_extractor", {"core": "mobilenet_v2"})]
+# Noise and dropout draw from the device's generator, so their training
+# forwards differ between the card and the CPU: their losses are compared
+# in eval mode.
+ZOO_STOCHASTIC = ("clstm", "multilevel_attention")
+ZOO_BATCHES, ZOO_VAL_BATCHES, ZOO_WAVS = 2, 1, 4
+ZOO_BATCH, ZOO_SECONDS = TRAIN_BATCH, TRAIN_SECONDS
+# Card vs CPU: the first step's loss and the served scores. The features
+# differ within the kernel's float32 budget, and 16-50 layers carry that
+# difference to the outputs.
+ZOO_RTOL = ZOO_ATOL = 1e-3
+
+
+def sync(device):
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def zoo_name(key, kw):
+    return key + "".join(f"+{k}={v}" for k, v in kw.items())
+
+
+def zoo_config(root, key, kw):
+    config = train_config(root)
+    experiment = config["experiment"]
+    experiment["name"] = "zoo_" + zoo_name(key, kw).replace("=", "_")
+    experiment["model"] = {"key": key, "kwargs": dict(kw)}
+    experiment["callbacks"] = []
+    if key == "ap_lstm":  # language vectors, 4 x 62 wide, and their loss
+        experiment["loss"] = {"cls": "AngularProximity",
+                              "kwargs": {"N": len(LABELS), "D": 4 * 62}}
+    return config
+
+
+def zoo_wrapper(root, key, kw, device):
+    """ModelWrapper.from_config of one zoo configuration, weights drawn
+    from SEED on the CPU (so every device starts from the same ones)."""
+    from lidbox_tpu_torch.models.model_utils import ModelWrapper
+    wrapper = ModelWrapper.from_config(zoo_config(root, key, kw),
+                                       device=device)
+    wrapper.model.init(torch.Generator().manual_seed(SEED))
+    return wrapper
+
+
+def zoo_first_loss(wrapper, signals, targets, train):
+    """The loss of a fresh wrapper's first step on one signal batch: the
+    kernel (or, on the CPU, the plain version) then the model in training
+    mode (eval mode for ZOO_STOCHASTIC), before any update."""
+    from lidbox_tpu_torch.data import on_device
+    from lidbox_tpu_torch.train.loop import to_device
+    trainer = wrapper.trainer
+    trainer.create_state()
+    features = on_device.feature_fn_from_config(
+        RATE, wrapper.config["features"], device=trainer.device)
+    batch = {"input": features(None, to_device(signals, trainer.device)),
+             "target": to_device(targets.astype(np.int64), trainer.device)}
+    with torch.no_grad():
+        out, _ = trainer._apply(trainer.state.params,
+                                trainer.state.batch_stats, batch, train=train,
+                                generator=trainer.generator)
+        return float(trainer._masked_mean(trainer.loss_fn(batch["target"],
+                                                          out), batch))
+
+
+def zoo_times(wrapper, feats, targets, reps=5, warmup=2):
+    """(forward ms, train step ms, device busy ms per step) at [32, 298,
+    64]: CUDA events around one eval forward and one train step (forward,
+    backward, update) on the features, medians of ``reps``; the busy time
+    from 3 steps under torch.profiler."""
+    trainer, model = wrapper.trainer, wrapper.model
+    batch = {"input": feats, "target": targets}
+    state = trainer.state
+
+    def step():
+        trainer._train_step(state, batch, trainer.generator)
+
+    def forward():
+        with torch.inference_mode():
+            model.apply(feats)
+
+    out = []
+    for fn in (forward, step):
+        for _ in range(warmup):
+            fn()
+        times = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        out.append(float(np.median(times)))
+    busy = sum(ms for ms, _ in device_ops(step, calls=3))
+    return out[0], out[1], busy
+
+
+def phase_zoo(root, rng, logmel, device="cuda"):
+    """Every zoo configuration on the fused training path: fit_fused for
+    ZOO_BATCHES steps and ZOO_VAL_BATCHES validation batch of [32, 48000]
+    with the launch count zeroed just before and read just after (one
+    launch per step and per validation batch), a finite loss, BatchNorm
+    running statistics moved off their init, the first step's loss against
+    the CPU's from the same weights and batch, and serve.Classifier on
+    ZOO_WAVS wavs (score_fn for ap_lstm) against the CPU's scores, one
+    launch per feature batch. Returns (launches, the kernel's error on a
+    zoo batch, the per-configuration rows).
+
+    ``device="cpu"`` rehearses the phase on the plain version (set
+    ZOO_BATCH and ZOO_SECONDS small first): the launch counts, the kernel
+    check and the timing need the card and are skipped."""
+    from lidbox_tpu_torch import serve
+    from lidbox_tpu_torch.data import on_device
+    from lidbox_tpu_torch.features import io
+    from lidbox_tpu_torch.train.loop import to_device
+
+    on_card = device == "cuda"
+    train = class_sines(rng, ZOO_BATCHES, ZOO_BATCH, ZOO_SECONDS)
+    val = class_sines(rng, ZOO_VAL_BATCHES, ZOO_BATCH, ZOO_SECONDS)
+    wav_root = os.path.join(root, "zoo_wavs")
+    os.makedirs(wav_root)
+    paths = write_wavs(io, wav_root, rng, ZOO_WAVS, ZOO_SECONDS)
+    print(f"zoo: {len(ZOO)} configurations, fit_fused {ZOO_BATCHES} steps + "
+          f"{ZOO_VAL_BATCHES} validation batch of [{ZOO_BATCH}, "
+          f"{int(RATE * ZOO_SECONDS)}], then serve.Classifier on "
+          f"{ZOO_WAVS} wavs of {ZOO_SECONDS} s; data seed {SEED + 4}")
+    x = torch.as_tensor(train[0][0], device=device)
+    kernel_err = (compare(logmel, "zoo batch", x, RATE, KERNEL_KW)
+                  if on_card else 0.0)
+    total, rows = 0, []
+    for key, kw in ZOO:
+        name = zoo_name(key, kw)
+        wrapper = zoo_wrapper(root, key, kw, device)
+        trainer = wrapper.trainer
+        stochastic = key in ZOO_STOCHASTIC
+        first = zoo_first_loss(wrapper, *train[0], train=not stochastic)
+        cpu = zoo_first_loss(zoo_wrapper(root, key, kw, "cpu"), *train[0],
+                             train=not stochastic)
+        loss_err = abs(first - cpu) / abs(cpu)
+        check(np.isfinite(first) and loss_err <= ZOO_RTOL,
+              f"zoo {name}: first step loss {first} on the card, {cpu} on "
+              f"the CPU (rel {loss_err}) beyond rtol {ZOO_RTOL}")
+        init_stats = {k: v.clone() for k, v in trainer.state.batch_stats.items()}
+        logmel.fused_logmel.launches = 0
+        history = wrapper.fit_fused(lambda: train, epochs=1,
+                                    val_signal_batches=lambda: val,
+                                    verbose=False)
+        sync(device)
+        launches = logmel.fused_logmel.launches
+        check(launches == ZOO_BATCHES + ZOO_VAL_BATCHES or not on_card,
+              f"zoo {name}: {launches} kernel launches over fit_fused, not "
+              f"{ZOO_BATCHES + ZOO_VAL_BATCHES}")
+        check(np.isfinite(history[0]["loss"])
+              and np.isfinite(history[0]["val_loss"]),
+              f"zoo {name}: loss not finite: {history}")
+        moved = [k for k, v in trainer.state.batch_stats.items()
+                 if not torch.equal(v, init_stats[k])]
+        check(len(moved) == len(init_stats),
+              f"zoo {name}: {len(init_stats) - len(moved)} of "
+              f"{len(init_stats)} BatchNorm statistics did not move")
+        # serving: the trained weights on the card and copied to the CPU
+        cpu_model = zoo_wrapper(root, key, kw, "cpu").model
+        cpu_model.module.load_state_dict(
+            {k: v.cpu() for k, v in wrapper.model.module.state_dict().items()})
+        clf_kw = {"feature_config": FEATURES_PALLAS,
+                  "score_fn": wrapper.score_fn}
+        logmel.fused_logmel.launches = 0
+        ours = serve.Classifier(wrapper.model, LABELS, device=device,
+                                **clf_kw).classify(paths)
+        sync(device)
+        serve_launches = logmel.fused_logmel.launches
+        check(serve_launches == 1 or not on_card, f"zoo {name}: serving launched the kernel "
+                                   f"{serve_launches} times, not 1")
+        ref = serve.Classifier(cpu_model, LABELS, device="cpu",
+                               **clf_kw).classify(paths)
+        serve_err = max(float(np.abs(ours[f"score_{lab}"]
+                                     - ref[f"score_{lab}"]).max())
+                        for lab in LABELS)
+        check(ours["id"] == ref["id"] and serve_err <= ZOO_ATOL,
+              f"zoo {name}: served scores {serve_err} from the CPU's, beyond "
+              f"{ZOO_ATOL}")
+        features = on_device.feature_fn_from_config(
+            RATE, {k: v for k, v in wrapper.config["features"].items()
+                   if k != "on_device_augment"}, device=trainer.device)
+        feats = features(None, x)
+        targets = to_device(train[0][1].astype(np.int64), trainer.device)
+        fwd_ms = step_ms = busy_ms = float("nan")
+        if on_card:
+            fwd_ms, step_ms, busy_ms = zoo_times(wrapper, feats, targets)
+        total += launches + serve_launches
+        row = {"config": name, "params": wrapper.count_params(),
+               "forward_ms": fwd_ms, "train_step_ms": step_ms,
+               "busy_ms": busy_ms, "loss_rel_err": loss_err,
+               "serve_max_err": serve_err,
+               "launches": launches + serve_launches,
+               "batch_norms": len(init_stats) // 2,
+               "first_loss": first, "compared_in": "eval" if stochastic
+               else "train"}
+        rows.append(row)
+        print(f"zoo {name}: {row['params']} parameters; forward "
+              f"{fwd_ms:.3f} ms, train step {step_ms:.3f} ms, device busy "
+              f"{busy_ms:.3f} ms per step at [{ZOO_BATCH}, "
+              f"{feats.shape[1]}, {feats.shape[2]}]; first loss {first:.6f} "
+              f"vs CPU {cpu:.6f} ({row['compared_in']} mode, rel "
+              f"{loss_err:.2e}); served scores max |card - CPU| "
+              f"{serve_err:.2e}; {len(moved)} BatchNorm statistics moved; "
+              f"kernel launches {launches} fit + {serve_launches} serving")
+        del wrapper, trainer, cpu_model
+        if on_card:
+            torch.cuda.empty_cache()
+    print(f"zoo table ({card_line() if on_card else 'CPU rehearsal'}): "
+          + json.dumps(rows))
+    return total, kernel_err, rows
+
+
 STAGES = ("draw", "vad", "speed", "noise", "fir", "features", "specaug")
 
 
@@ -1628,6 +1871,8 @@ def main():
             cli_launches, cli_err, _ = phase_cli(root, logmel, pipe_data)
         finally:
             torch.backends.cudnn.deterministic = False
+        zoo_launches, zoo_err, _ = phase_zoo(
+            root, np.random.default_rng(SEED + 4), logmel)
         train_x = torch.as_tensor(train_batch[0], device="cuda")
         path_err, timing = phase_path_kernel(logmel,
                                              batches + [(train_x, RATE)])
@@ -1640,7 +1885,8 @@ def main():
     print(f"kernel line: [{largest[0]}, {largest[1]}] highest; launches "
           f"{serve_launches} serving + {train_launches} training + "
           f"{aug_launches} augmented training + {pipe_launches} pipeline "
-          f"(fit and embedding extraction) + {cli_launches} CLI")
+          f"(fit and embedding extraction) + {cli_launches} CLI + "
+          f"{zoo_launches} model zoo")
 
     print(json.dumps({"kernels": [{
         "name": "fused_logmel",
@@ -1648,9 +1894,9 @@ def main():
         "source": "lidbox_tpu_torch/csrc/logmel.cu",
         "replaces": "lidbox_tpu/ops/logmel.py:154",
         "launches": (serve_launches + train_launches + aug_launches
-                     + pipe_launches + cli_launches),
+                     + pipe_launches + cli_launches + zoo_launches),
         "max_abs_err": max(geometry_err, path_err, aug_err, pipe_err,
-                           cli_err),
+                           cli_err, zoo_err),
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,

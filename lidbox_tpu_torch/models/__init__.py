@@ -3,8 +3,7 @@ Model zoo with the reference's per-module contract:
 ``create(input_shape, num_outputs, **kw) -> Model`` and optional
 ``as_embedding_extractor(model)`` (counterpart of ``lidbox_tpu.models``).
 
-Only ``"xvector"`` is ported; the other keys of the JAX package raise
-``NotImplementedError`` until their slice (ROADMAP queue 1, item 9).
+Every key of the JAX package's registry is ported.
 """
 import importlib
 
@@ -24,17 +23,13 @@ MODEL_KEYS = (
     "xvector_extended",
     "xvector_freq_attention",
 )
-PORTED_KEYS = ("xvector",)
+PORTED_KEYS = MODEL_KEYS
 
 
 def get_module(key):
     """Import the model module for a config key."""
     if key not in MODEL_KEYS:
         raise KeyError(f"unknown model key {key!r}; valid: {MODEL_KEYS}")
-    if key not in PORTED_KEYS:
-        raise NotImplementedError(
-            f"model {key!r} is not ported yet (ROADMAP queue 1, item 9); "
-            f"ported: {PORTED_KEYS}")
     return importlib.import_module(f"lidbox_tpu_torch.models.{key}")
 
 
@@ -44,5 +39,10 @@ def create(key, input_shape, num_outputs, **kwargs):
 
 
 def as_embedding_extractor(key, model):
-    """The module's embedding-extractor transform."""
-    return get_module(key).as_embedding_extractor(model)
+    """The module's embedding-extractor transform (the generic
+    pre-activation-output transform where the module has none)."""
+    mod = get_module(key)
+    if hasattr(mod, "as_embedding_extractor"):
+        return mod.as_embedding_extractor(model)
+    from .model_api import as_embedding_extractor as _generic
+    return _generic(model)

@@ -4,14 +4,32 @@ Shared layers of the model zoo, in PyTorch (counterpart of
 
 Activations keep the JAX package's ``[batch, time, channels]`` layout
 between layers; the time-pooling layers take an optional boolean frame
-``mask`` so padded batches reproduce variable-length numerics.
+``mask`` so padded batches reproduce variable-length numerics. The 2-D
+models run their images in NCHW with the JAX package's H/W meaning (an
+NHWC ``[B, T, F, 1]`` image becomes ``[B, 1, T, F]``), so a Flax
+``[kh, kw, in, out]`` kernel maps onto ``[out, in, kh, kw]`` by one
+transpose.
+
+Stochastic layers (dropout, Gaussian noise) draw from the
+``torch.Generator`` their forward is given, as ``SpatialDropout1D`` does;
+the JAX package's ``rngs`` streams cannot be matched draw for draw.
 """
+import contextlib
+import math
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.nn.utils.rnn import (PackedSequence, pack_padded_sequence,
+                                pad_packed_sequence)
 
 TIME_AXIS = 1
 STDDEV_SQRT_MIN_CLIP = 1e-10
+
+# Keras-compatible BatchNorm defaults (momentum 0.99, eps 1e-3), as the
+# JAX package's batch_norm (lidbox_tpu/models/layers.py:20-28).
+BN_MOMENTUM = 0.99
+BN_EPSILON = 1e-3
 
 
 class GlobalMeanStddevPooling1D(nn.Module):
@@ -56,14 +74,12 @@ class FrameLayer(nn.Module):
     def __init__(self, in_channels, filters, kernel_size, strides,
                  activation="relu"):
         super().__init__()
-        self.kernel_size = kernel_size
         self.activation = activation
-        self.conv = nn.Conv1d(in_channels, filters, kernel_size,
-                              stride=strides)
+        self.conv = Conv1d(in_channels, filters, kernel_size, strides,
+                           padding="CAUSAL")
 
     def forward(self, x):
-        x = F.pad(x.transpose(1, 2), (self.kernel_size - 1, 0))
-        x = self.conv(x).transpose(1, 2)
+        x = self.conv(x)
         if self.activation:
             x = getattr(F, self.activation)(x)
         return x
@@ -81,10 +97,378 @@ class SpatialDropout1D(nn.Module):
         self.rate = rate
 
     def forward(self, x, generator=None):
-        if not self.training or self.rate == 0:
+        if not self.training:
             return x
-        keep = 1.0 - self.rate
-        probs = torch.full((x.shape[0], 1, x.shape[2]), keep,
-                           dtype=torch.float32, device=x.device)
-        mask = torch.bernoulli(probs, generator=generator).to(x.dtype)
-        return x * mask / keep
+        return dropout(x, self.rate, generator, broadcast_dims=(TIME_AXIS,))
+
+
+def activation(x, name):
+    """Flax's ``getattr(nn, name)(x)`` head activation ("log_softmax",
+    "softmax" over the last axis, or any elementwise one); a falsy name
+    leaves x as it is."""
+    if not name:
+        return x
+    if name in ("softmax", "log_softmax"):
+        return getattr(torch, name)(x, dim=-1)
+    return getattr(F, name)(x)
+
+
+def dropout(x, rate, generator=None, broadcast_dims=()):
+    """Flax ``nn.Dropout`` in training mode: keep each element (or each
+    slice along ``broadcast_dims``, which share one draw) with probability
+    1 - rate and scale the kept ones by 1 / (1 - rate). The keep mask is
+    drawn from ``generator``."""
+    if rate == 0:
+        return x
+    keep = 1.0 - rate
+    shape = [1 if d in broadcast_dims else n for d, n in enumerate(x.shape)]
+    probs = torch.full(shape, keep, dtype=torch.float32, device=x.device)
+    mask = torch.bernoulli(probs, generator=generator).to(x.dtype)
+    return x * mask / keep
+
+
+class GaussianNoise(nn.Module):
+    """Additive zero-mean Gaussian noise of ``stddev``, active only in
+    training (Keras GaussianNoise; reference: lidbox/models/clstm.py:48),
+    drawn from ``generator``."""
+
+    def __init__(self, stddev):
+        super().__init__()
+        self.stddev = stddev
+
+    def forward(self, x, generator=None):
+        if not self.training or self.stddev == 0:
+            return x
+        noise = torch.randn(x.shape, generator=generator, device=x.device,
+                            dtype=torch.float32)
+        return x + self.stddev * noise.to(x.dtype)
+
+
+class BatchNorm(nn.Module):
+    """Flax ``nn.BatchNorm`` with the Keras defaults of the JAX package:
+    momentum 0.99, epsilon 1e-3, features on ``axis``.
+
+    Parameters ``scale`` / ``bias`` and running statistics ``mean`` /
+    ``var`` (buffers) carry Flax's names. A training-mode forward
+    normalizes with the batch's statistics, reduced in float32 over every
+    axis but ``axis``: the mean and the biased variance, taken in two
+    passes as E[(x - E[x])^2]. Flax's one-pass E[x^2] - E[x]^2 is the same
+    value, but in torch's float32 reductions it cancels badly (crnn's
+    3-step trajectory at 40 frames left rtol 1e-4 of the JAX package's and
+    of a float64 run); the two-pass form stays with both. Padded rows of a
+    masked batch count, as in the JAX package. It never writes its buffers: inside ``collect_batch_stats``
+    it hands the new running statistics (the momentum average of the old
+    ones and the batch's) to the collector, which is how the trainer gets
+    them back as the new state (Flax's ``mutable=["batch_stats"]``).
+    Evaluation normalizes with the running statistics."""
+
+    def __init__(self, num_features, axis=-1):
+        super().__init__()
+        self.axis = axis
+        self.scale = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("mean", torch.zeros(num_features))
+        self.register_buffer("var", torch.ones(num_features))
+        self.collector = None
+
+    def forward(self, x):
+        axis = self.axis % x.dim()
+        shape = [1] * x.dim()
+        shape[axis] = -1
+        if self.training:
+            dims = [d for d in range(x.dim()) if d != axis]
+            xf = x.float()
+            mean = xf.mean(dim=dims)
+            var = torch.square(xf - mean.reshape(shape)).mean(dim=dims)
+            if self.collector is not None:
+                self.collector[self] = (
+                    BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean,
+                    BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + BN_EPSILON) * self.scale
+        y = (x - mean.reshape(shape)) * mul.reshape(shape)
+        y = y + self.bias.reshape(shape)
+        return y.to(torch.promote_types(x.dtype, torch.promote_types(
+            self.scale.dtype, self.bias.dtype)))
+
+
+@contextlib.contextmanager
+def collect_batch_stats(module):
+    """Collect the new running statistics of every ``BatchNorm`` of
+    ``module`` over the training-mode forwards run inside the block.
+
+    Yields a dict that, after the block, maps each updated statistic's
+    ``state_dict`` name (``<path>.mean``, ``<path>.var``) to its new
+    float32 tensor (outside the autograd graph); statistics of BatchNorms
+    that did not run are absent.
+    The module's own buffers, and the tensors a ``functional_call`` put in
+    their place, are left as they were."""
+    norms = [(name, m) for name, m in module.named_modules()
+             if isinstance(m, BatchNorm)]
+    store, out = {}, {}
+    for _, m in norms:
+        m.collector = store
+    try:
+        yield out
+    finally:
+        for name, m in norms:
+            m.collector = None
+            if m in store:
+                prefix = f"{name}." if name else ""
+                mean, var = store[m]
+                out[prefix + "mean"] = mean.detach().float()
+                out[prefix + "var"] = var.detach().float()
+
+
+def global_avg_pool_1d(x, mask=None):
+    """Masked GlobalAveragePooling1D over the time axis. The valid-frame
+    count accumulates in float32 (a bf16 sum of ones saturates at 256)."""
+    if mask is None:
+        return torch.mean(x, dim=TIME_AXIS)
+    m = mask[..., None].to(x.dtype)
+    count = torch.clamp(mask.to(torch.float32).sum(dim=TIME_AXIS),
+                        min=1.0)[:, None]
+    return ((x * m).sum(dim=TIME_AXIS).float() / count).to(x.dtype)
+
+
+class FrequencyAttention(nn.Module):
+    """Frequency attention over d_f bins (Miao et al., Interspeech 2019;
+    reference: lidbox/models/clstm.py:31-42): softmax bin weights from two
+    bias-free dense layers, applied multiplicatively to channel groups."""
+
+    def __init__(self, channels, d_a=64, d_f=16):
+        super().__init__()
+        if channels % d_f:
+            raise ValueError(f"channels ({channels}) must divide evenly into "
+                             f"d_f={d_f} bins")
+        self.d_f = d_f
+        self.Wf_1 = nn.Linear(channels, d_a, bias=False)
+        self.Wf_2 = nn.Linear(d_a, d_f, bias=False)
+
+    def forward(self, H):
+        B, T, d_h = H.shape
+        F_A = torch.softmax(self.Wf_2(F.relu(self.Wf_1(H))), dim=-1)
+        H_bins = H.reshape(B, T, self.d_f, d_h // self.d_f)
+        return (F_A[..., None] * H_bins).reshape(B, T, d_h)
+
+
+def l2_normalize(x, dim=-1, epsilon=1e-12):
+    """tf.math.l2_normalize semantics: x / max(||x||, sqrt(eps))."""
+    sq = torch.sum(torch.square(x), dim=dim, keepdim=True)
+    return x * torch.rsqrt(torch.clamp(sq, min=epsilon))
+
+
+class DenseBlock(nn.Module):
+    """Dense + BN + relu + dropout (reference:
+    lidbox/models/multilevel_attention.py:47-66)."""
+
+    def __init__(self, in_features, units, dropout_rate):
+        super().__init__()
+        self.fc = nn.Linear(in_features, units)
+        self.bn = BatchNorm(units)
+        self.dropout_rate = dropout_rate
+
+    def forward(self, x, generator=None):
+        x = F.relu(self.bn(self.fc(x)))
+        if self.training:
+            x = dropout(x, self.dropout_rate, generator)
+        return x
+
+
+def same_padding(size, kernel, stride):
+    """Flax/XLA ``SAME`` padding of one spatial axis as (low, high):
+    ceil(size / stride) outputs, total = max((out - 1) * stride + kernel -
+    size, 0), the smaller half on the low side."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class Conv1d(nn.Conv1d):
+    """A Flax ``nn.Conv`` over [B, T, C]: ``padding`` "SAME", "VALID" or
+    "CAUSAL" (left pad k - 1)."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding="SAME", bias=True):
+        super().__init__(in_channels, out_channels, kernel_size,
+                         stride=stride, bias=bias)
+        self.flax_padding = padding.upper()
+
+    def forward(self, x):
+        x = x.transpose(1, 2)
+        k, s = self.kernel_size[0], self.stride[0]
+        if self.flax_padding == "CAUSAL":
+            x = F.pad(x, (k - 1, 0))
+        elif self.flax_padding == "SAME":
+            x = F.pad(x, same_padding(x.shape[-1], k, s))
+        return super().forward(x).transpose(1, 2)
+
+
+class Conv2d(nn.Conv2d):
+    """A Flax ``nn.Conv`` over an NCHW image, ``padding`` "SAME" (Flax's
+    asymmetric split, ``same_padding``) or "VALID"; ``groups`` is Flax's
+    ``feature_group_count``."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding="SAME", groups=1, bias=True):
+        super().__init__(in_channels, out_channels, kernel_size,
+                         stride=stride, groups=groups, bias=bias)
+        self.flax_padding = padding.upper()
+
+    def forward(self, x):
+        if self.flax_padding == "SAME":
+            (kh, kw), (sh, sw) = self.kernel_size, self.stride
+            x = F.pad(x, same_padding(x.shape[-1], kw, sw)
+                      + same_padding(x.shape[-2], kh, sh))
+        return super().forward(x)
+
+
+def max_pool_same(x, window, stride):
+    """Flax ``nn.max_pool(..., padding="SAME")`` over an NCHW image: -inf
+    padding on Flax's asymmetric split."""
+    x = F.pad(x, same_padding(x.shape[-1], window[1], stride[1])
+              + same_padding(x.shape[-2], window[0], stride[0]),
+              value=-math.inf)
+    return F.max_pool2d(x, window, stride)
+
+
+def mask_to_lengths(mask):
+    """Prefix-contiguous frame mask [B, T] -> valid lengths [B] (None
+    passthrough)."""
+    if mask is None:
+        return None
+    return mask.to(torch.int64).sum(dim=1)
+
+
+def _final_step(y, lengths):
+    """Output at each row's last valid step (y[:, n - 1])."""
+    idx = torch.clamp(lengths.to(torch.int64) - 1, 0, y.shape[1] - 1)
+    return y[torch.arange(y.shape[0], device=y.device), idx.to(y.device)]
+
+
+class RNNCell(nn.Module):
+    """The parameters of a Flax recurrent cell under its names, as torch
+    ``Linear`` layers (weight [out, in]).
+
+    ``"lstm"`` is ``OptimizedLSTMCell``: input kernels ``ii/if/ig/io``
+    without bias, hidden kernels ``hi/hf/hg/ho`` with bias. ``"gru"`` is
+    ``GRUCell``: ``ir/iz/in`` with bias, ``hr/hz`` without and ``hn`` with.
+    ``flat_weights`` lays them out as cuDNN's (torch's ``nn.LSTM`` /
+    ``nn.GRU``) single layer: gate order i, f, g, o and r, z, n, with the
+    biases Flax lacks held at zero. Flax's formulas are torch's, GRU's
+    n = tanh(W_in x + b_in + r * (W_hn h + b_hn)) and h' = (1 - z) n + z h
+    included. Initialization (Flax's defaults): lecun_normal input
+    kernels, orthogonal hidden kernels, zero biases."""
+
+    def __init__(self, kind, in_features, units):
+        super().__init__()
+        self.kind = kind
+        self.units = units
+        self.gates = "ifgo" if kind == "lstm" else "rzn"
+        for g in self.gates:
+            self.add_module(f"i{g}", nn.Linear(in_features, units,
+                                               bias=kind == "gru"))
+            self.add_module(f"h{g}", nn.Linear(units, units,
+                                               bias=kind == "lstm" or g == "n"))
+
+    def flax_init_(self, generator):
+        """Orthogonal hidden kernels, drawn on the CPU from ``generator``
+        (the input kernels and the biases are the generic init's)."""
+        for g in self.gates:
+            w = getattr(self, f"h{g}").weight
+            cpu = torch.empty(w.shape, dtype=torch.float32)
+            nn.init.orthogonal_(cpu, generator=generator)
+            with torch.no_grad():
+                w.copy_(cpu)
+
+    def flat_weights(self):
+        def bias(layer):
+            return (layer.bias if layer.bias is not None
+                    else torch.zeros_like(layer.weight[:, 0]))
+        ins = [getattr(self, f"i{g}") for g in self.gates]
+        hids = [getattr(self, f"h{g}") for g in self.gates]
+        return [torch.cat([l.weight for l in ins]),
+                torch.cat([l.weight for l in hids]),
+                torch.cat([bias(l) for l in ins]),
+                torch.cat([bias(l) for l in hids])]
+
+
+def run_rnn(cells, x, lengths=None):
+    """One cuDNN (or CPU) RNN layer of one or two directions over
+    [B, T, F] -> [B, T, D * units].
+
+    ``cells`` is (forward,) or (forward, backward) ``RNNCell``s. With
+    ``lengths`` the batch is packed (``pack_padded_sequence``), so the
+    backward direction reads each row's valid prefix reversed, Flax's
+    ``reverse=True, keep_order=True`` with ``seq_lengths``; outputs past a
+    row's length are zero (the JAX package's are unspecified there and
+    must be masked downstream). Packing needs the lengths on the host: a
+    masked forward on the card waits for them once. Lengths under 1 are
+    run as 1."""
+    kind = cells[0].kind
+    units = cells[0].units
+    weights = [w for c in cells for w in c.flat_weights()]
+    bidirectional = len(cells) == 2
+    h0 = x.new_zeros(len(cells), x.shape[0], units)
+    hx = (h0, h0) if kind == "lstm" else h0
+    fn = torch.lstm if kind == "lstm" else torch.gru
+    # cuDNN keeps what its backward needs only in training mode
+    train = torch.is_grad_enabled()
+    if lengths is None:
+        return fn(x, hx, weights, True, 1, 0.0, train, bidirectional,
+                  True)[0]
+    packed = pack_padded_sequence(
+        x, torch.clamp(lengths.detach().to("cpu", torch.int64), min=1),
+        batch_first=True, enforce_sorted=False)
+    out = fn(packed.data, packed.batch_sizes, hx, weights, True, 1, 0.0,
+             train, bidirectional)[0]
+    return pad_packed_sequence(
+        PackedSequence(out, packed.batch_sizes, packed.sorted_indices,
+                       packed.unsorted_indices),
+        batch_first=True, total_length=x.shape[1])[0]
+
+
+class LSTMLayer(nn.Module):
+    """Unidirectional LSTM over [B, T, F] (Flax ``nn.RNN`` of an
+    ``OptimizedLSTMCell``). With ``lengths``, return_sequences=False takes
+    each row's last valid step."""
+
+    def __init__(self, in_features, units, return_sequences=True):
+        super().__init__()
+        self.return_sequences = return_sequences
+        self.OptimizedLSTMCell_0 = RNNCell("lstm", in_features, units)
+
+    def forward(self, x, lengths=None):
+        y = run_rnn((self.OptimizedLSTMCell_0,), x, lengths)
+        if self.return_sequences:
+            return y
+        return y[:, -1] if lengths is None else _final_step(y, lengths)
+
+
+class BidirectionalRNN(nn.Module):
+    """Bidirectional LSTM/GRU with concat merge (Keras Bidirectional),
+    Flax's forward cell ``<Cell>_0`` and backward cell ``<Cell>_1``.
+
+    With ``lengths`` the backward pass reads only each row's valid prefix
+    (``run_rnn``). return_sequences=False concatenates the forward's last
+    valid step with the backward's index 0 (Keras Bidirectional)."""
+
+    def __init__(self, in_features, units, cell="lstm",
+                 return_sequences=True):
+        super().__init__()
+        self.return_sequences = return_sequences
+        name = "OptimizedLSTMCell" if cell == "lstm" else "GRUCell"
+        self.cell_names = (f"{name}_0", f"{name}_1")
+        for n in self.cell_names:
+            self.add_module(n, RNNCell(cell, in_features, units))
+
+    def forward(self, x, lengths=None):
+        y = run_rnn(tuple(getattr(self, n) for n in self.cell_names), x,
+                    lengths)
+        if self.return_sequences:
+            return y
+        units = y.shape[-1] // 2
+        yf, yb = y[..., :units], y[..., units:]
+        yf_final = yf[:, -1] if lengths is None else _final_step(yf, lengths)
+        return torch.cat([yf_final, yb[:, 0]], dim=-1)

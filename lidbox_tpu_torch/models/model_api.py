@@ -21,14 +21,21 @@ from lidbox_tpu_torch import RANDOM_SEED, get_device
 # distribution keeps variance 1 / fan_in.
 _TRUNCATED_NORMAL_STDDEV = 0.87962566103423978
 
+# kernel rank -> axes of a Flax kernel in torch's weight layout, and back
+_KERNEL_TO_TORCH = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}
+_KERNEL_TO_FLAX = {2: (1, 0), 3: (2, 1, 0), 4: (2, 3, 1, 0)}
+
 
 def params_from_flax(params):
     """JAX package parameters -> this port's ``state_dict``.
 
-    ``params`` is the Flax ``variables["params"]`` tree as nested dicts of
-    numpy arrays. Conv kernels go from [k, in, out] to [out, in, k], Dense
-    kernels are transposed, biases are kept; ``kernel`` becomes ``weight``
-    and the module path is joined with dots."""
+    ``params`` is the Flax ``variables["params"]`` tree (or its
+    ``batch_stats``) as nested dicts of numpy arrays. Conv kernels go from
+    [k, in, out] to [out, in, k] and 2-D ones (depthwise too) from
+    [kh, kw, in, out] to [out, in, kh, kw], Dense kernels (the gates of
+    the recurrent cells too) are transposed; biases, BatchNorm ``scale`` /
+    ``bias`` and running ``mean`` / ``var`` are kept. ``kernel`` becomes
+    ``weight`` and the module path is joined with dots."""
     state = {}
 
     def walk(tree, prefix):
@@ -40,12 +47,9 @@ def params_from_flax(params):
             a = np.asarray(value, np.float32)
             if name == "kernel":
                 path = f"{prefix}weight"
-                if a.ndim == 3:
-                    a = a.transpose(2, 1, 0)
-                elif a.ndim == 2:
-                    a = a.T
-                else:
+                if a.ndim not in _KERNEL_TO_TORCH:
                     raise ValueError(f"{path}: unsupported kernel rank {a.ndim}")
+                a = a.transpose(_KERNEL_TO_TORCH[a.ndim])
             state[path] = torch.tensor(a)
     walk(params, "")
     return state
@@ -61,7 +65,7 @@ def params_to_flax(state):
         a = value.detach().cpu().numpy().astype(np.float32)
         if name == "weight":
             name = "kernel"
-            a = a.transpose(2, 1, 0) if a.ndim == 3 else a.T
+            a = a.transpose(_KERNEL_TO_FLAX[a.ndim])
         node = tree
         for m in modules:
             node = node.setdefault(m, {})
@@ -76,14 +80,17 @@ def params_to_flax(state):
 
 def flax_default_init_(module, generator):
     """Flax's default initialization in place: lecun_normal weights of
-    every Conv1d and Linear, zero biases."""
+    every Conv1d, Conv2d and Linear (fan_in = in / groups x the kernel's
+    extent, so kh * kw for a depthwise conv), zero biases, BatchNorm scale
+    1, bias 0 and running statistics 0 / 1; then each module's own
+    ``flax_init_`` (the recurrent cells' orthogonal hidden kernels). Every
+    draw is made on the CPU from ``generator``, in module order, so one
+    seed gives one set of weights on any device."""
+    from lidbox_tpu_torch.models.layers import BatchNorm
     for sub in module.modules():
-        if isinstance(sub, (nn.Conv1d, nn.Linear)):
+        if isinstance(sub, (nn.Conv1d, nn.Conv2d, nn.Linear)):
             w = sub.weight
-            fan_in = w.shape[1] * (w.shape[2] if w.dim() == 3 else 1)
-            std = math.sqrt(1.0 / fan_in) / _TRUNCATED_NORMAL_STDDEV
-            # drawn on the CPU so one seed gives one set of weights on any
-            # device
+            std = math.sqrt(1.0 / w[0].numel()) / _TRUNCATED_NORMAL_STDDEV
             cpu = torch.empty(w.shape, dtype=torch.float32)
             nn.init.trunc_normal_(cpu, std=std, a=-2.0 * std, b=2.0 * std,
                                   generator=generator)
@@ -91,28 +98,57 @@ def flax_default_init_(module, generator):
                 w.copy_(cpu)
                 if sub.bias is not None:
                     sub.bias.zero_()
+        elif isinstance(sub, BatchNorm):
+            with torch.no_grad():
+                sub.scale.fill_(1.0)
+                sub.bias.zero_()
+                sub.mean.zero_()
+                sub.var.fill_(1.0)
+    for sub in module.modules():
+        if hasattr(sub, "flax_init_"):
+            sub.flax_init_(generator)
 
 
 def functional_forward(module, params, buffers, x, compute_dtype=None,
-                       **kwargs):
+                       train=False, **kwargs):
     """``module``'s forward on the given parameter and buffer tensors
     (dicts name -> tensor) instead of its own.
 
     With ``compute_dtype`` every floating tensor and the input are cast to
     it inside the autograd graph, so gradients reach the float32 tensors
     passed in, and the output is cast back to float32 (the JAX package's
-    explicit casts, ``Trainer._apply``; not autocast)."""
+    explicit casts, ``Trainer._apply``; not autocast).
+
+    ``train=True`` runs the module in training mode for the call (back in
+    eval mode after) and returns ``(outputs, new batch stats)``: the
+    buffers with every running statistic a BatchNorm updated replaced by
+    its new float32 value (Flax's ``mutable=["batch_stats"]``). The
+    tensors passed in are never written."""
+    from lidbox_tpu_torch.models.layers import collect_batch_stats
     if compute_dtype is not None:
         def cast(t):
             return t.to(compute_dtype) if t.is_floating_point() else t
-        params = {k: cast(v) for k, v in params.items()}
-        buffers = {k: cast(v) for k, v in buffers.items()}
+        cast_params = {k: cast(v) for k, v in params.items()}
+        cast_buffers = {k: cast(v) for k, v in buffers.items()}
         x = x.to(compute_dtype)
-    elif x.is_floating_point() and x.dtype != torch.float32:
-        x = x.float()
-    out = torch.func.functional_call(module, {**params, **buffers}, (x,),
-                                     kwargs)
-    return out.float() if compute_dtype is not None else out
+    else:
+        cast_params, cast_buffers = params, buffers
+        if x.is_floating_point() and x.dtype != torch.float32:
+            x = x.float()
+    if not train:
+        out = torch.func.functional_call(
+            module, {**cast_params, **cast_buffers}, (x,), kwargs)
+        return out.float() if compute_dtype is not None else out
+    module.train()
+    try:
+        with collect_batch_stats(module) as updates:
+            out = torch.func.functional_call(
+                module, {**cast_params, **cast_buffers}, (x,), kwargs)
+    finally:
+        module.eval()
+    if compute_dtype is not None:
+        out = out.float()
+    return out, {**buffers, **updates}
 
 
 class Model:
@@ -137,25 +173,41 @@ class Model:
         flax_default_init_(self.module, generator)
         return self
 
-    def load_flax_params(self, params):
-        """Load the JAX package's parameter tree (``params_from_flax``)."""
-        self.module.load_state_dict(params_from_flax(params))
+    def load_flax_params(self, params, batch_stats=None):
+        """Load the JAX package's parameter tree and, when given, its
+        ``batch_stats`` tree (``params_from_flax``); without them the
+        running statistics stay as they are."""
+        state = {k: b.detach() for k, b in self.module.named_buffers()}
+        state.update(params_from_flax(params))
+        state.update(params_from_flax(batch_stats or {}))
+        self.module.load_state_dict(state)
         return self
 
     def num_params(self):
         return sum(p.numel() for p in self.module.parameters())
 
-    def apply(self, x, mask=None, output=None, compute_dtype=None):
+    def apply(self, x, mask=None, output=None, compute_dtype=None,
+              train=False, generator=None):
         """Forward of [B, T, F] features (frame ``mask`` [B, T] for padded
         batches) on the model's device. ``compute_dtype`` (e.g.
         torch.bfloat16) runs it on parameters and input cast to that type,
-        as the trainer does; the output comes back float32."""
-        if compute_dtype is None:
-            return self.module(x, mask=mask, output=output or self.output)
+        as the trainer does; the output comes back float32.
+
+        ``train=True`` runs training mode (dropout and noise drawn from
+        ``generator``, BatchNorm on the batch's statistics) and returns
+        ``(outputs, new batch stats)`` as the JAX package's
+        ``apply(..., train=True)`` does; the model's own buffers stay as
+        they are."""
+        output = output or self.output
+        if compute_dtype is None and not train:
+            return self.module(x, mask=mask, output=output)
+        kwargs = {"mask": mask, "output": output}
+        if train:
+            kwargs["generator"] = generator
         return functional_forward(
             self.module, dict(self.module.named_parameters()),
             dict(self.module.named_buffers()), x, compute_dtype=compute_dtype,
-            mask=mask, output=output or self.output)
+            train=train, **kwargs)
 
     __call__ = apply
 

@@ -9,9 +9,7 @@ Cache layout parity: ``<cache_directory>/<model key>/<experiment name>``
 (reference: keras_utils.py:19-24), checkpoints under ``checkpoints/`` with
 metric-bearing filenames.
 
-Not ported yet: ``mesh`` (ROADMAP queue 1, item 12) and the coupled
-conv-kernel weight decay of models that declare one (``crnn``, item 9);
-they raise.
+Not ported yet: ``mesh`` (ROADMAP queue 1, item 12); it raises.
 """
 import os
 
@@ -27,7 +25,8 @@ from lidbox_tpu_torch.metrics import (AverageDetectionCost,
 from lidbox_tpu_torch.train import checkpoint as ckpt_lib
 from lidbox_tpu_torch.train.loop import (EarlyStopping, LearningRateDateLogger,
                                          ModelCheckpoint, Trainer)
-from lidbox_tpu_torch.train.optimizers import optimizer_from_config
+from lidbox_tpu_torch.train.optimizers import (add_decayed_weights, chain,
+                                               optimizer_from_config)
 
 logger = get_logger("models.utils")
 
@@ -100,6 +99,17 @@ def init_loss_from_config(config, output_activation="log_softmax"):
     if cls in ("SparseAngularProximity", "AngularProximity"):
         return AngularProximity(**kwargs)
     return get_loss(cls, **kwargs)
+
+
+def _conv_kernel_decay_mask(params):
+    """True for conv-layer kernels (``weight`` of a module whose path has a
+    part starting with "conv"): the parameter set the reference
+    regularizes with ``kernel_regularizer=l2`` (reference crnn.py:30-38),
+    the JAX package's ``_conv_kernel_decay_mask`` on this port's names."""
+    def is_conv_kernel(name):
+        *path, leaf = name.split(".")
+        return leaf == "weight" and any(p.startswith("conv") for p in path)
+    return {name: is_conv_kernel(name) for name in params}
 
 
 def init_callback_from_config(config, cache_dir):
@@ -182,10 +192,14 @@ class ModelWrapper:
                                       device=device,
                                       **experiment["model"].get("kwargs", {}))
         optimizer, lr_schedule = optimizer_from_config(experiment["optimizer"])
-        if float(getattr(model.module, "weight_decay", 0.0) or 0.0):
-            raise NotImplementedError(
-                "the coupled conv-kernel weight decay (crnn) is not ported "
-                "yet (ROADMAP queue 1, item 9)")
+        # Keras kernel_regularizer=l2(wd) adds wd * sum(w^2) to the loss, so
+        # grad += 2 * wd * w flows through the optimizer: a coupled decay of
+        # the conv kernels ahead of it (reference crnn.py:30-38)
+        weight_decay = float(getattr(model.module, "weight_decay", 0.0) or 0.0)
+        if weight_decay:
+            optimizer = chain(add_decayed_weights(2.0 * weight_decay,
+                                                  mask=_conv_kernel_decay_mask),
+                              optimizer)
         loss = init_loss_from_config(
             experiment["loss"],
             output_activation=getattr(model.module, "output_activation",

@@ -47,8 +47,11 @@ class Classifier:
             stage_dtype: e.g. ``"bfloat16"``: the feature feed is rounded
                 to it on the host (half the transfer bytes) and upcast on
                 the device; scores differ only by that input rounding.
-            mesh, score_fn: not ported yet (ROADMAP queue 1, items 12 and
-                9); passing one raises.
+            score_fn: raw outputs -> [B, len(labels)] scores, for headless
+                language-vector models (pass AngularProximity.predict);
+                log-probability heads leave it None.
+            mesh: not ported yet (ROADMAP queue 1, item 12); passing one
+                raises.
         """
         self.device = _check_device(model, device)
         self.model = model
@@ -132,10 +135,7 @@ class StreamingClassifier:
     def __init__(self, model, labels, feature_config=None, sample_rate=16000,
                  chunk_seconds=2.0, hop_seconds=1.0, score_fn=None,
                  device="cuda"):
-        if score_fn is not None:
-            raise NotImplementedError("score_fn (language-vector models) is "
-                                      "not ported yet (ROADMAP queue 1, "
-                                      "item 9)")
+        self.score_fn = score_fn  # outputs -> [B, N] (language vectors)
         self.device = _check_device(model, device)
         self.model = model
         self.labels = list(labels)
@@ -159,7 +159,10 @@ class StreamingClassifier:
         feats = self.extractor.extract(x, self.sample_rate)
         if self.extractor.validate_finite:
             self.extractor.to_host(feats)
-        return self.model.apply(feats)[0].float().cpu().numpy()
+        out = self.model.apply(feats)
+        if self.score_fn is not None:
+            out = self.score_fn(out)
+        return out[0].float().cpu().numpy()
 
     def feed(self, samples):
         """Append audio samples (any length); runs the model on every

@@ -367,25 +367,26 @@ class Trainer:
     # -- steps --------------------------------------------------------------
 
     def _apply(self, params, batch_stats, batch, train, generator=None):
-        """Model outputs of one batch on the given state tensors, with the
-        module in training mode only for the call when ``train``. The
-        batch stats come back unchanged: no ported model updates buffers
-        in training (BatchNorm comes with ROADMAP queue 1, item 9)."""
+        """Model outputs of one batch on the given state tensors and the
+        batch stats after it: with ``train`` the module runs in training
+        mode for the call, dropout and noise draw from ``generator``, and
+        every BatchNorm's running statistics come back updated, in
+        float32 under ``compute_dtype`` too (the JAX package's
+        ``mutable=["batch_stats"]``, lidbox_tpu/train/loop.py:507-538);
+        in eval mode they come back as they were. The state's tensors are
+        never written."""
         kwargs = {"output": self.model.output}
         if "input_mask" in batch:
             kwargs["mask"] = batch["input_mask"]
-        if train:
-            kwargs["generator"] = generator
-        module = self.model.module
-        module.train(train)
-        try:
-            out = functional_forward(module, params, batch_stats,
-                                     batch["input"],
-                                     compute_dtype=self.compute_dtype,
-                                     **kwargs)
-        finally:
-            module.eval()
-        return out, batch_stats
+        if not train:
+            return functional_forward(self.model.module, params, batch_stats,
+                                      batch["input"],
+                                      compute_dtype=self.compute_dtype,
+                                      **kwargs), batch_stats
+        return functional_forward(self.model.module, params, batch_stats,
+                                  batch["input"],
+                                  compute_dtype=self.compute_dtype,
+                                  train=True, generator=generator, **kwargs)
 
     @staticmethod
     def _masked_mean(losses, batch):

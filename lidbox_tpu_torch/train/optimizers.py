@@ -144,17 +144,29 @@ def trace(decay, nesterov=False):
     return GradientTransformation(init, update)
 
 
-def add_decayed_weights(weight_decay=0.0):
+def add_decayed_weights(weight_decay=0.0, mask=None):
     """g + weight_decay * p (AdamW's decoupled decay, before the learning
-    rate scales it)."""
+    rate scales it; a coupled L2 term when it comes first in a chain).
+
+    ``mask`` follows optax: a dict name -> bool, or a callable params ->
+    such a dict; only the names it marks True decay, the others pass
+    unchanged, and the state is optax's ``MaskedState``,
+    ``{"inner_state": {}}``."""
     def update(updates, state, params=None):
         if params is None:
             raise ValueError("add_decayed_weights needs the params")
-        out = torch._foreach_add(_lists(updates),
-                                 torch._foreach_mul(_lists(params),
+        chosen = list(updates)
+        if mask is not None:
+            marks = mask(params) if callable(mask) else mask
+            chosen = [k for k in chosen if marks[k]]
+        if not chosen:
+            return updates, state
+        out = torch._foreach_add([updates[k] for k in chosen],
+                                 torch._foreach_mul([params[k] for k in chosen],
                                                     weight_decay))
-        return _like(updates, out), state
-    return GradientTransformation(lambda params: {}, update)
+        return {**updates, **dict(zip(chosen, out))}, state
+    return GradientTransformation(
+        lambda params: {} if mask is None else {"inner_state": {}}, update)
 
 
 def scale_by_learning_rate(learning_rate):
@@ -366,6 +378,10 @@ def opt_state_from_optax(opt_state, params):
     from lidbox_tpu_torch.models.model_api import params_from_flax
 
     def field(value):
+        if isinstance(value, tuple):  # a nested state (optax MaskedState)
+            return convert(value)
+        if (isinstance(value, dict) or hasattr(value, "items")) and not value:
+            return {}  # an empty nested state, in flax's state-dict form
         if isinstance(value, dict) or hasattr(value, "items"):
             state = params_from_flax(value)
             if set(state) != set(params):

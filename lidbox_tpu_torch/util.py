@@ -50,18 +50,18 @@ def make_batch_predict_fn(model, batch_size=32, mesh=None, compute_dtype=None,
     ``apply_kwargs`` forwards model.apply options, e.g.
     ``{"output": "embedding"}``. ``compute_dtype`` (e.g. ``"bfloat16"``)
     runs the forward on parameters and input cast to it, the output coming
-    back float32. ``stage_dtype`` (a floating type, e.g. ``"bfloat16"``)
-    rounds float inputs to it on the host before the transfer (half the
-    bytes) and upcasts them on the device: outputs differ from the float32
-    feed only by that input rounding. The JAX package's ``mesh`` (ROADMAP
-    queue 1, item 12) and ``score_fn`` (language-vector models, item 9)
-    are not ported yet and raise."""
+    back float32. ``score_fn`` maps the raw outputs to [B, N] class scores
+    on the device before the readback: language-vector models (ap_lstm)
+    pass ``AngularProximity.predict``, so every consumer (C_avg, reports,
+    Classifier) sees scores. ``stage_dtype`` (a floating type, e.g.
+    ``"bfloat16"``) rounds float inputs to it on the host before the
+    transfer (half the bytes) and upcasts them on the device: outputs
+    differ from the float32 feed only by that input rounding. The JAX
+    package's ``mesh`` (ROADMAP queue 1, item 12) is not ported yet and
+    raises."""
     if mesh is not None:
         raise NotImplementedError("mesh is not ported yet (ROADMAP queue 1, "
                                   "item 12)")
-    if score_fn is not None:
-        raise NotImplementedError("score_fn (language-vector models) is not "
-                                  "ported yet (ROADMAP queue 1, item 9)")
     compute_dtype = _torch_dtype(compute_dtype)
     stage = _torch_dtype(stage_dtype)
     if stage is not None and not stage.is_floating_point:
@@ -83,12 +83,15 @@ def make_batch_predict_fn(model, batch_size=32, mesh=None, compute_dtype=None,
             x = x.float()
         if mask is not None:
             mask = torch.as_tensor(np.asarray(mask, bool), device=model.device)
-        return model.apply(x, mask=mask, **kwargs).float().cpu().numpy()
+        out = model.apply(x, mask=mask, **kwargs)
+        if score_fn is not None:
+            out = score_fn(out)
+        return out.float().cpu().numpy()
     return predict_fn
 
 
 def predict_with_model(model, ds, predict_fn=None, batch_size=32,
-                       pad_buckets=None):
+                       pad_buckets=None, score_fn=None):
     """Map a model over all elements of ds (dict elements with ``input``)
     in batches of ``batch_size``; returns the ``{"id", "prediction"}``
     table (reference: util.py:23-38).
@@ -97,9 +100,18 @@ def predict_with_model(model, ds, predict_fn=None, batch_size=32,
     frame mask passed to ``predict_fn(inputs, mask)``, so stats-pooling
     models see only real frames. Only ``input`` is batched: other keys of
     the elements (a ``signal`` of another length) may differ in shape,
-    where the JAX package's padded batch raises on them."""
+    where the JAX package's padded batch raises on them. ``score_fn`` maps
+    the outputs to class scores (``make_batch_predict_fn``; applied to a
+    custom ``predict_fn``'s outputs too)."""
     if predict_fn is None:
-        predict_fn = make_batch_predict_fn(model, batch_size=batch_size)
+        predict_fn = make_batch_predict_fn(model, batch_size=batch_size,
+                                           score_fn=score_fn)
+    elif score_fn is not None:
+        base_fn = predict_fn
+
+        def predict_fn(inputs, mask):
+            out = torch.as_tensor(np.asarray(base_fn(inputs, mask)))
+            return score_fn(out).float().cpu().numpy()
     ids, predictions = [], []
 
     def run(pending):
@@ -271,12 +283,10 @@ def evaluate_testset_with_model(model, test_ds, test_meta, lang2target,
     Chunk-level predictions (ids carrying a ``-<chunknum>`` suffix from
     create_signal_chunks / create_input_chunks) are merged back to
     utterance level by averaging before the join; a join whose id sets
-    differ raises. ``score_fn`` (language-vector models) is not ported yet
-    (ROADMAP queue 1, item 9) and raises."""
-    if score_fn is not None:
-        raise NotImplementedError("score_fn (language-vector models) is not "
-                                  "ported yet (ROADMAP queue 1, item 9)")
-    utt2pred = predict_with_model(model, test_ds)
+    differ raises. ``score_fn`` maps the raw model outputs to [B, N] class
+    scores first (required for language-vector models: pass the
+    AngularProximity loss's ``predict``)."""
+    utt2pred = predict_with_model(model, test_ds, score_fn=score_fn)
     meta_ids = {str(i) for i in test_meta["id"]}
     pred_ids = utt2pred["id"]
     if (pred_ids and not set(pred_ids) <= meta_ids

@@ -13,6 +13,7 @@ import os
 import struct
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -35,6 +36,30 @@ from lidbox_tpu_torch.features import kaldi_io as tkaldi
 RATE = 16000
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HELPER_RTOL = 1e-6
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_native_library():
+    """The JAX package's native library, loaded again where this process's
+    first load lost a build race.
+
+    ``lidbox_tpu.native`` builds ``libaudioio.so`` with ``g++ -o`` straight
+    into its final path. A process that opens it while another process is
+    still writing it marks the library unavailable for its whole life, and
+    every JAX decode in that process takes the Python fallback. The port's
+    loader builds into a temporary file and renames it, so the port's
+    library loading while the JAX one does not means the JAX file was torn
+    then: by now the other build has finished, and a fresh load sees the
+    whole file. A JAX library that really cannot load stays unavailable,
+    and the tests that compare with it fail."""
+    if tnative.available() and not jnative.available():
+        for _ in range(10):
+            jnative._lib = None
+            jnative._build_failed = False
+            if jnative.load_library() is not None:
+                break
+            time.sleep(1.0)
+    yield
 
 
 def encode_mp3(path, signal, rate):

@@ -133,8 +133,12 @@ def test_init_is_flax_default_and_seeded():
 def test_registry_and_unported_options():
     with pytest.raises(KeyError):
         tmodels.get_module("resnet")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodels.create("lstm", (T, FEAT), NUM_OUTPUTS, device="cpu")
+    # every key of the JAX registry is ported (the zoo's parity is in
+    # tests/test_torch_zoo*.py)
+    assert tmodels.PORTED_KEYS == tmodels.MODEL_KEYS == jmodels.MODEL_KEYS
+    assert tmodels.create("lstm", (T, FEAT), NUM_OUTPUTS, device="cpu",
+                          num_units=8).num_params() == jmodels.create(
+        "lstm", (T, FEAT), NUM_OUTPUTS, num_units=8).init().num_params()
     model = tmodels.create("xvector", (T, FEAT), NUM_OUTPUTS, device="cpu")
     # compute_dtype: the trainer's casts, and the serving flag
     x = torch.as_tensor(np.random.default_rng(2).normal(0, 1, (2, T, FEAT)),

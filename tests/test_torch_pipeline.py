@@ -667,6 +667,11 @@ def test_batch_predict_dtype_flags_match(checkpoints, flag):
             np.testing.assert_allclose(ours, ref, atol=EMBED_ATOL, rtol=0)
     with pytest.raises(ValueError, match="stage_dtype must be floating"):
         tutil.make_batch_predict_fn(tm, stage_dtype="int16")
-    for left in ({"mesh": object()}, {"score_fn": lambda s: s}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tutil.make_batch_predict_fn(tm, **left)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tutil.make_batch_predict_fn(tm, mesh=object())
+    # score_fn (ported with the language-vector models) maps the outputs
+    # on the device before the readback, as the JAX package's does
+    scored = tutil.make_batch_predict_fn(tm, score_fn=lambda s: -2.0 * s)
+    np.testing.assert_allclose(scored(x, mask),
+                               -2.0 * tutil.make_batch_predict_fn(tm)(x, mask),
+                               rtol=1e-6)

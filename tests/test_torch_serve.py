@@ -119,12 +119,13 @@ def test_devices_and_unported_options(pair):
     tserve.Classifier(tm, LABELS, device="cpu", stage_dtype="bfloat16",
                       compute_dtype="bfloat16")  # ported: the serving flags
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserve.Classifier(tm, LABELS, device="cpu", score_fn=lambda s: s)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         tserve.Classifier(tm, LABELS, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserve.StreamingClassifier(tm, LABELS, device="cpu",
-                                   score_fn=lambda s: s)
+    # score_fn is ported (language-vector models; their serving parity is
+    # in tests/test_torch_zoo_train.py): both entry points take it
+    tserve.Classifier(tm, LABELS, device="cpu", score_fn=lambda s: s)
+    stream = tserve.StreamingClassifier(tm, LABELS, device="cpu",
+                                        score_fn=lambda s: s)
+    assert stream.score_fn is not None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tserve.Classifier(tm, LABELS)  # device defaults to "cuda"
