@@ -114,7 +114,24 @@ Phases, each of which fails the run:
    the kernel's time at that shape and its share of the step, and the
    device's busy time over 5 steps under ``torch.profiler``; then the
    augmented step the same way, split at each stage of the chain;
-11. the kernel table as one JSON line, the card line, and the result line.
+11. data parallelism (``lidbox_tpu_torch.parallel``): the full-width
+   x-vector and crnn through ``ModelWrapper.from_config(..., mesh=)
+   .fit_fused``, 3 steps of [32, 48000] and 1 validation batch (a stream
+   of its own, seed 1239). (a) In this process, mesh-less and on a 1-rank
+   NCCL mesh (``parallel.get_mesh()``): the x-vector's step losses and
+   validation must be equal; the NCCL all-reduce of the 18 MB gradient
+   bucket and the step with and without the mesh are timed. (b) Two ranks
+   of this script (``--dp-rank``) share the card over gloo (NCCL refuses
+   one card twice: a probe pair prints its refusal), each feeding its
+   [16, 48000] rows: their step losses within rtol 1e-3 of (a)'s
+   mesh-less run, parameters and batch statistics bit-equal across ranks,
+   one kernel launch per step and validation batch on each rank, each
+   rank's batch held to the plain version, ``Classifier(mesh=)`` within
+   SERVE_ATOL of the mesh-less scores, the gloo all-reduce, the feed
+   guard and the step timed; (c) an uneven feed raises on both ranks. A
+   rank that fails, or outlives its time limit, fails the run;
+12. the kernel table as one JSON line (after phase 6's [64, 32000] kernel
+   line again), the card line, and the result line.
 
 Every comparison of the kernel with its plain version holds float32 within
 atol 1e-4 + rtol 1e-4 (the allclose of the tests; the distance of each from
@@ -1836,6 +1853,430 @@ def phase_augmented_step_timing(wrapper, batch, steps=30, warmup=5):
     return parts
 
 
+# Data parallelism (phase 11): the x-vector and crnn through fit_fused, 3
+# steps of [32, 48000] and 1 validation batch (a stream of its own, seed
+# 1239): mesh-less and on a 1-rank NCCL mesh in this process, then on 2
+# ranks sharing the card over gloo (NCCL refuses one card twice), each
+# feeding its [16, 48000] rows of every batch.
+DP_KEYS = ("xvector", "crnn")
+DP_STEPS, DP_BATCH, DP_SECONDS = 3, TRAIN_BATCH, TRAIN_SECONDS
+DP_RANKS, DP_WAVS = 2, 8
+DP_RTOL = 1e-3
+DP_COLLECTIVE_TIMEOUT_S, DP_RANK_TIMEOUT_S = 120, 420
+
+
+def dp_config(root, key, name):
+    """The training phase's config for ``key``, with Adam's epsilon at
+    1e-4 (as tests/test_torch_train.py): two ranks sum the gradient in
+    another order than one process, and with Keras' 1e-7 Adam's first
+    updates (about lr * sign(g)) turn that float32 noise into 1e-4 to
+    1e-3 of loss wherever a gradient sits near zero (crnn, on the card)."""
+    config = train_config(root)
+    config["experiment"].update(
+        name=name, model={"key": key},
+        optimizer={"cls": "Adam", "kwargs": {"learning_rate": 1e-3,
+                                             "epsilon": 1e-4}})
+    return config
+
+
+def dp_fit(root, key, name, train, val, mesh=None, device="cuda"):
+    """fit_fused of ``key`` (weights from SEED) for one epoch of ``train``
+    with ``val`` validating: (step losses, epoch logs, the kernel's launches
+    over the fit, the wrapper). Under a mesh of several ranks each rank
+    feeds its rows of every batch (``parallel.local_batches``)."""
+    from lidbox_tpu_torch import parallel
+    from lidbox_tpu_torch.models.model_utils import ModelWrapper
+    from lidbox_tpu_torch.ops import logmel
+    wrapper = ModelWrapper.from_config(dp_config(root, key, name), mesh=mesh,
+                                       device=device)
+    wrapper.model.init(torch.Generator().manual_seed(SEED))
+    trainer = wrapper.trainer
+    losses = []
+    train_step = trainer._train_step
+
+    def recording(*args, **kw):
+        state, loss = train_step(*args, **kw)
+        losses.append(loss)
+        return state, loss
+
+    feed, val_feed = (lambda: train), (lambda: val)
+    if parallel.mesh_spans_processes(mesh):
+        feed = parallel.local_batches(train, mesh)
+        val_feed = parallel.local_batches(val, mesh)
+    trainer._train_step = recording
+    try:
+        logmel.fused_logmel.launches = 0
+        history = wrapper.fit_fused(feed, epochs=1, verbose=False,
+                                    val_signal_batches=val_feed)
+        sync(device)
+        launches = logmel.fused_logmel.launches
+    finally:
+        del trainer._train_step
+    return [float(v) for v in losses], history[0], launches, wrapper
+
+
+def dp_digest(tensors):
+    """A 60-bit digest of a dict of tensors' bytes, in key order."""
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(tensors):
+        h.update(tensors[k].detach().cpu().contiguous().numpy().tobytes())
+    return int(h.hexdigest()[:15], 16)
+
+
+def dp_step_ms(wrapper, signals, targets, steps=8, warmup=3):
+    """The median fused train step (features + forward, backward, the
+    collectives and the update) on CUDA events."""
+    from lidbox_tpu_torch.data import on_device
+    from lidbox_tpu_torch.train.loop import to_device
+    trainer = wrapper.trainer
+    step = on_device.make_fused_train_step(
+        trainer, on_device.feature_fn_from_config(RATE,
+                                                  wrapper.config["features"]))
+    x = to_device(signals, trainer.device)
+    y = to_device(targets.astype(np.int64), trainer.device)
+    state, times = trainer.state, []
+    for i in range(warmup + steps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        state, _ = step(state, x, y, trainer.generator)
+        end.record()
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def dp_allreduce_ms(mesh, numel, reps=10):
+    """The median all-reduce of a float32 buffer of ``numel`` (the
+    gradient's bucket) over the mesh's device group, on CUDA events."""
+    import torch.distributed as dist
+    buf = torch.zeros(numel, device=mesh.device)
+    times = []
+    for i in range(reps + 2):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        dist.all_reduce(buf, group=mesh.group)
+        end.record()
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def dp_guard_ms(mesh, reps=20):
+    """The feed-parity guard's per-step agreement: one allgather of two
+    int64 over the CPU group, median on the host clock."""
+    from lidbox_tpu_torch import parallel
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        parallel.host_allgather(np.int64([1, 0]), mesh)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def dp_classifier(mesh, device):
+    from lidbox_tpu_torch import models, serve
+    model = models.create("xvector", (None, 64), len(LABELS),
+                          device=device).init(
+        torch.Generator().manual_seed(SEED))
+    return serve.Classifier(model, LABELS, feature_config=FEATURES_PALLAS,
+                            batch_size=DP_WAVS, mesh=mesh, device=device)
+
+
+def dp_rank_main(workdir):
+    """One rank of phase 11b (``chip_smoke.py --dp-rank DIR``, started by
+    phase_data_parallel with the launcher variables): both models through
+    fit_fused on this rank's rows, digests of the parameters and batch
+    statistics, this rank's training batch held to the plain version,
+    serve.Classifier(mesh=), the collectives' times and an uneven feed.
+    Writes dp_rank<r>.json to DIR."""
+    from lidbox_tpu_torch import parallel
+    from lidbox_tpu_torch.ops import logmel
+    device = os.environ["LIDBOX_SMOKE_DEVICE"]
+    on_card = device == "cuda"
+    if on_card:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+    parallel.initialize_distributed(backend="gloo",
+                                    device="cuda:0" if on_card else "cpu",
+                                    timeout=DP_COLLECTIVE_TIMEOUT_S)
+    mesh = parallel.get_mesh()
+    data = np.load(os.path.join(workdir, "dp_data.npz"))
+    train = list(zip(data["train_x"], data["train_y"]))
+    val = list(zip(data["val_x"], data["val_y"]))
+    out = {"rank": mesh.rank, "size": mesh.size, "allreduce_ms": {}}
+    for key in DP_KEYS:
+        losses, logs, launches, wrapper = dp_fit(
+            workdir, key, f"dp2_{key}", train, val, mesh, device)
+        state = wrapper.trainer.state
+        out[key] = {
+            "losses": losses, "val_loss": logs["val_loss"],
+            "val_C_avg": logs["val_C_avg"], "launches": launches,
+            "params": parallel.host_allgather(
+                np.int64(dp_digest(state.params)), mesh)[:, 0].tolist(),
+            "stats": parallel.host_allgather(
+                np.int64(dp_digest(state.batch_stats)), mesh)[:, 0].tolist(),
+            "num_stats": len(state.batch_stats)}
+        if on_card:
+            x, y = parallel.local_slice(train[0], mesh)[:2]
+            out[key]["step_ms"] = dp_step_ms(wrapper, x, y)
+            numel = sum(p.numel() for p in state.params.values())
+            out["allreduce_ms"][f"{numel * 4 / 1e6:.2f} MB ({key})"] = \
+                dp_allreduce_ms(mesh, numel)
+    clf = dp_classifier(mesh, device)
+    paths = [os.path.join(workdir, f"dp{i}.wav") for i in range(DP_WAVS)]
+    logmel.fused_logmel.launches = 0
+    scores = clf.scores(paths, ids=[f"dp{i}" for i in range(DP_WAVS)])
+    sync(device)
+    out["serve_launches"] = logmel.fused_logmel.launches
+    out["scores"] = np.asarray(scores["prediction"]).tolist()
+    if on_card:
+        out["kernel_err"] = compare(
+            logmel, f"rank {mesh.rank} training batch",
+            torch.as_tensor(parallel.local_slice(train[0], mesh)[0],
+                            device="cuda"), RATE, KERNEL_KW)
+        out["guard_ms"] = dp_guard_ms(mesh)
+    # an uneven feed: rank 0 has a third batch, rank 1 two
+    from lidbox_tpu_torch.models.model_utils import ModelWrapper
+    wrapper = ModelWrapper.from_config(dp_config(workdir, "xvector",
+                                                 "dp2_uneven"),
+                                       mesh=mesh, device=device)
+    local = parallel.local_slice(train[0], mesh)
+    try:
+        wrapper.fit_fused(lambda: [local] * (3 if mesh.rank == 0 else 2),
+                          epochs=1, verbose=False)
+        out["uneven"] = "no error"
+    except RuntimeError as e:
+        out["uneven"] = str(e)
+    with open(os.path.join(workdir, f"dp_rank{mesh.rank}.json"), "w") as f:
+        json.dump(out, f)
+    parallel.shutdown_distributed()
+    return 0
+
+
+def dp_start_ranks(workdir, device, backend_probe=False):
+    """Start DP_RANKS copies of this script as the ranks of a group that
+    rendezvous through a file under ``workdir``."""
+    env = dict(os.environ, LIDBOX_SMOKE_DEVICE=device,
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)),
+               COORDINATOR_ADDRESS="file://" + os.path.join(
+                   workdir, "nccl_store" if backend_probe else "store"),
+               NUM_PROCESSES=str(DP_RANKS))
+    flag = "--dp-nccl-probe" if backend_probe else "--dp-rank"
+    procs = []
+    for rank in range(DP_RANKS):
+        log = open(os.path.join(workdir, f"{flag[2:]}{rank}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), flag, workdir],
+            env=dict(env, PROCESS_ID=str(rank)), stdout=log,
+            stderr=subprocess.STDOUT), log))
+    return procs
+
+
+def dp_wait(procs, timeout):
+    """The ranks' exit codes; every rank still running at ``timeout`` (or
+    after another's failure) is killed."""
+    codes = []
+    deadline = time.perf_counter() + timeout
+    try:
+        for p, _ in procs:
+            try:
+                codes.append(p.wait(timeout=max(1.0, deadline
+                                                - time.perf_counter())))
+            except subprocess.TimeoutExpired:
+                codes.append(None)
+                break
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    return codes
+
+
+def dp_nccl_probe_main(workdir):
+    """Two NCCL ranks on one card: the group must refuse to start."""
+    from lidbox_tpu_torch import parallel
+    try:
+        parallel.initialize_distributed(device="cuda:0", timeout=60)
+    except Exception as e:  # the refusal this probe looks for
+        print(f"NCCL_REFUSED {type(e).__name__}: {str(e)[:300]}")
+        return 0
+    print("NCCL_STARTED")
+    parallel.shutdown_distributed()
+    return 0
+
+
+def phase_data_parallel(root, rng, logmel, device="cuda"):
+    """Phase 11: (a) both models mesh-less and the x-vector on a 1-rank
+    mesh of this process (NCCL on the card), whose step losses and
+    validation must equal the mesh-less ones bit for bit; (b) 2 ranks on
+    the one card over gloo, each feeding [16, 48000]: their step losses
+    within DP_RTOL of (a)'s mesh-less run, parameters and batch statistics
+    bit-equal across ranks, one kernel launch per step and validation
+    batch on each rank, each rank's batch held to the plain version, and
+    serve.Classifier(mesh=) within SERVE_ATOL of the mesh-less scores;
+    (c) an uneven feed raises on both ranks. Returns (launches, the
+    kernel's worst error on the ranks' batches).
+
+    ``device="cpu"`` rehearses it on the plain version over gloo (set
+    DP_BATCH and DP_SECONDS small first); the NCCL mesh, the launch
+    counts, the kernel check and the timing need the card."""
+    from lidbox_tpu_torch import parallel
+    from lidbox_tpu_torch.features import io
+    on_card = device == "cuda"
+    train = class_sines(rng, DP_STEPS, DP_BATCH, DP_SECONDS)
+    val = class_sines(rng, 1, DP_BATCH, DP_SECONDS)
+    workdir = os.path.join(root, "dp")
+    os.makedirs(workdir)
+    np.savez(os.path.join(workdir, "dp_data.npz"),
+             train_x=np.stack([x for x, _ in train]),
+             train_y=np.stack([y for _, y in train]),
+             val_x=np.stack([x for x, _ in val]),
+             val_y=np.stack([y for _, y in val]))
+    paths = []
+    for i, sig in enumerate(noisy_sines(rng, DP_WAVS, 3.0, RATE)):
+        paths.append(os.path.join(workdir, f"dp{i}.wav"))
+        io.write_mono_wav(paths[-1], sig, RATE)
+    print(f"data parallel: seed {SEED + 5}, {DP_STEPS} steps of "
+          f"[{DP_BATCH}, {int(RATE * DP_SECONDS)}] + 1 validation batch")
+
+    # (a) mesh-less, then a 1-rank mesh in this process
+    ref, launches = {}, 0
+    for key in DP_KEYS:
+        ref[key] = dp_fit(root, key, f"dp0_{key}", train, val, None, device)
+        launches += ref[key][2]
+        check(ref[key][2] == DP_STEPS + 1 or not on_card,
+              f"{key}: {ref[key][2]} kernel launches, not {DP_STEPS + 1}")
+    mesh = parallel.get_mesh(device=device)
+    check(mesh.size == 1, f"a {mesh.size}-rank group in this process")
+    losses1, logs1, launches1, wrapper1 = dp_fit(
+        root, "xvector", "dp1_xvector", train, val, mesh, device)
+    launches += launches1
+    losses0, logs0 = ref["xvector"][:2]
+    check(losses1 == losses0 and logs1["val_loss"] == logs0["val_loss"]
+          and logs1["val_C_avg"] == logs0["val_C_avg"],
+          f"1-rank mesh: step losses {losses1}, val {logs1} != mesh-less "
+          f"{losses0}, {logs0}")
+    print(f"data parallel (a): 1-rank {mesh.backend} mesh step losses "
+          f"{losses1} == mesh-less {losses0}; val_loss "
+          f"{logs1['val_loss']!r} == {logs0['val_loss']!r}")
+    timing = {}
+    if on_card:
+        numel = sum(p.numel() for p in wrapper1.trainer.state.params.values())
+        timing["allreduce_1"] = dp_allreduce_ms(mesh, numel)
+        x, y = train[0]
+        timing["step_meshless"] = dp_step_ms(ref["xvector"][3], x, y)
+        timing["step_mesh1"] = dp_step_ms(wrapper1, x, y)
+        timing["crnn_meshless"] = dp_step_ms(ref["crnn"][3], x, y)
+        print(f"data parallel timing (a): NCCL all-reduce of the "
+              f"{numel * 4 / 1e6:.2f} MB gradient bucket at 1 rank "
+              f"{timing['allreduce_1']:.4f} ms; x-vector fused train step "
+              f"[{DP_BATCH}, {int(RATE * DP_SECONDS)}] mesh-less "
+              f"{timing['step_meshless']:.4f} ms, 1-rank mesh "
+              f"{timing['step_mesh1']:.4f} ms; crnn mesh-less "
+              f"{timing['crnn_meshless']:.4f} ms (CUDA events, medians)")
+    scores0 = dp_classifier(None, device).scores(
+        paths, ids=[f"dp{i}" for i in range(DP_WAVS)])["prediction"]
+    parallel.shutdown_distributed()
+
+    # (b) two ranks on the card over gloo, and (c) an uneven feed
+    if on_card:
+        torch.cuda.empty_cache()  # the card's memory for the ranks
+    t0 = time.perf_counter()
+    codes = dp_wait(dp_start_ranks(workdir, device), DP_RANK_TIMEOUT_S)
+    if codes != [0] * DP_RANKS:
+        for r in range(DP_RANKS):
+            with open(os.path.join(workdir, f"dp-rank{r}.log")) as f:
+                print(f"--- rank {r} ---\n" + f.read()[-4000:])
+        check(False, f"data parallel ranks exited {codes}")
+    ranks = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(workdir, f"dp_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    print(f"data parallel (b): {DP_RANKS} ranks on one card over gloo in "
+          f"{time.perf_counter() - t0:.1f} s")
+    err = 0.0
+    for key in DP_KEYS:
+        losses0, logs0 = ref[key][:2]
+        for out in ranks:
+            ours = out[key]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(ours["losses"],
+                                                          losses0))
+            check(len(ours["losses"]) == DP_STEPS and rel <= DP_RTOL,
+                  f"{key} rank {out['rank']}: step losses {ours['losses']} "
+                  f"vs one process {losses0} (rel {rel})")
+            vrel = abs(ours["val_loss"] - logs0["val_loss"]) / abs(
+                logs0["val_loss"])
+            check(vrel <= DP_RTOL, f"{key}: val_loss {ours['val_loss']} vs "
+                                   f"{logs0['val_loss']}")
+            check(len(set(ours["params"])) == 1 and len(set(ours["stats"]))
+                  == 1, f"{key}: replicas differ: parameter digests "
+                        f"{ours['params']}, statistics {ours['stats']}")
+            check(ours["launches"] == DP_STEPS + 1 or not on_card,
+                  f"{key} rank {out['rank']}: {ours['launches']} kernel "
+                  f"launches, not {DP_STEPS + 1}")
+            launches += ours["launches"]
+        rel = max(abs(a - b) / abs(b) for out in ranks
+                  for a, b in zip(out[key]["losses"] + [out[key]["val_loss"]],
+                                  losses0 + [logs0["val_loss"]]))
+        print(f"data parallel (b) {key}: max rel diff {rel:.3e} from one "
+              f"process (rtol {DP_RTOL}); step losses rank 0 "
+              f"{ranks[0][key]['losses']} rank 1 {ranks[1][key]['losses']} "
+              f"vs one process {losses0} (rtol {DP_RTOL}); val_loss "
+              f"{ranks[0][key]['val_loss']!r} vs {logs0['val_loss']!r}; "
+              f"parameters bit-equal across ranks, "
+              f"{ranks[0][key]['num_stats']} batch statistics bit-equal; "
+              f"kernel launches per rank "
+              f"{[out[key]['launches'] for out in ranks]}")
+    for out in ranks:
+        s_err = np.abs(np.asarray(out["scores"]) - scores0).max()
+        check(s_err <= SERVE_ATOL, f"rank {out['rank']}: Classifier(mesh=) "
+                                   f"scores {s_err} from the mesh-less ones")
+        check(out["serve_launches"] == 1 or not on_card,
+              f"serving launched the kernel {out['serve_launches']} times")
+        launches += out["serve_launches"]
+        check("uneven multi-process training feed" in out["uneven"]
+              and "after 2 batches" in out["uneven"],
+              f"rank {out['rank']}: uneven feed gave {out['uneven']!r}")
+        if on_card:
+            err = max(err, out["kernel_err"])
+    print(f"data parallel (b): Classifier(mesh=) scores within "
+          f"{max(np.abs(np.asarray(o['scores']) - scores0).max() for o in ranks):.3e}"
+          f" of the mesh-less ones (tolerance {SERVE_ATOL}); (c) an uneven "
+          f"feed raised on both ranks: {ranks[0]['uneven'][:80]!r}")
+    if on_card:
+        errs = ", ".join(f"{o['kernel_err']:.3e}" for o in ranks)
+        print(f"data parallel (b): each rank's [{DP_BATCH // DP_RANKS}, "
+              f"{int(RATE * DP_SECONDS)}] training batch, fused_logmel vs "
+              f"logmel_plain float32 max abs err {errs} (atol {F32_ATOL} + "
+              f"rtol {F32_RTOL})")
+        print(f"data parallel timing (b): gloo all-reduce of the gradient "
+              f"bucket at 2 ranks, ms per rank: "
+              + "; ".join(f"{k} {[round(o['allreduce_ms'][k], 4) for o in ranks]}"
+                          for k in ranks[0]["allreduce_ms"])
+              + "; guard "
+              f"allgather {[round(o['guard_ms'], 4) for o in ranks]} ms per "
+              f"step; fused train step [{DP_BATCH // DP_RANKS}, "
+              f"{int(RATE * DP_SECONDS)}] per rank: x-vector "
+              f"{[round(o['xvector']['step_ms'], 4) for o in ranks]} ms, "
+              f"crnn {[round(o['crnn']['step_ms'], 4) for o in ranks]} ms "
+              "(CUDA events, medians)")
+        codes = dp_wait(dp_start_ranks(workdir, device, backend_probe=True),
+                        90)
+        seen = []
+        for r in range(DP_RANKS):
+            with open(os.path.join(workdir, f"dp-nccl-probe{r}.log")) as f:
+                seen += [l.strip() for l in f if l.startswith("NCCL_")]
+        print(f"data parallel: 2 NCCL ranks on one card: exit codes {codes}, "
+              f"{seen[:2]}")
+    return launches, err
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1866,7 +2307,7 @@ def main():
             aug_launches, aug_err, aug_batch, aug_wrapper = \
                 phase_augmented_train(root, np.random.default_rng(SEED + 2),
                                       logmel)
-            pipe_launches, pipe_err, _, pipe_data = phase_pipeline(
+            pipe_launches, pipe_err, pipe_timing, pipe_data = phase_pipeline(
                 root, np.random.default_rng(SEED + 3), logmel)
             cli_launches, cli_err, _ = phase_cli(root, logmel, pipe_data)
         finally:
@@ -1879,6 +2320,18 @@ def main():
         phase_train_step_timing(
             wrapper, train_batch, timing[(*train_x.shape, "highest")][0])
         phase_augmented_step_timing(aug_wrapper, aug_batch)
+        torch.backends.cudnn.deterministic = True
+        try:
+            dp_launches, dp_err = phase_data_parallel(
+                root, np.random.default_rng(SEED + 5), logmel)
+        finally:
+            torch.backends.cudnn.deterministic = False
+    if pipe_timing is not None:
+        ms, plain_ms, bound_ms, bound_by, gemm_ms = pipe_timing
+        print(f"fused_logmel [{PIPE_GROUP}, {2 * RATE}] 64 mel 20-7000 Hz "
+              f"(phase 6, repeated): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"dft_gemm_ms {gemm_ms:.4f}")
     largest = max((k for k in timing if k[2] == "highest"),
                   key=lambda k: k[0] * k[1])
     ms, plain_ms, bound_ms, bound_by = timing[largest]
@@ -1886,7 +2339,7 @@ def main():
           f"{serve_launches} serving + {train_launches} training + "
           f"{aug_launches} augmented training + {pipe_launches} pipeline "
           f"(fit and embedding extraction) + {cli_launches} CLI + "
-          f"{zoo_launches} model zoo")
+          f"{zoo_launches} model zoo + {dp_launches} data parallel")
 
     print(json.dumps({"kernels": [{
         "name": "fused_logmel",
@@ -1894,9 +2347,10 @@ def main():
         "source": "lidbox_tpu_torch/csrc/logmel.cu",
         "replaces": "lidbox_tpu/ops/logmel.py:154",
         "launches": (serve_launches + train_launches + aug_launches
-                     + pipe_launches + cli_launches + zoo_launches),
+                     + pipe_launches + cli_launches + zoo_launches
+                     + dp_launches),
         "max_abs_err": max(geometry_err, path_err, aug_err, pipe_err,
-                           cli_err, zoo_err),
+                           cli_err, zoo_err, dp_err),
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
@@ -1911,4 +2365,8 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:
+        sys.exit(dp_rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--dp-nccl-probe"]:
+        sys.exit(dp_nccl_probe_main(sys.argv[2]))
     sys.exit(main())

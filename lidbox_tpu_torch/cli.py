@@ -11,14 +11,21 @@ contract):
     python -m lidbox_tpu_torch utils --validate-config config.json
 
 Every command but ``utils`` runs on ``--device`` (default ``cuda``) and
-fails without CUDA unless ``--device cpu`` is given. Configs are JSON, or
-YAML when the ``yaml`` package imports. Metadata comes from a
-``metadata`` section: either ``csv: <path>`` (columns: id, path, label,
-split[, duration]) or ``common_voice: {corpus_dir, langs}``. The best
-checkpoint of the experiment cache may be this package's or the JAX
-package's. Not ported yet, and raising: ``--data-parallel`` and
-``export --platforms`` (ROADMAP queue 1, item 12) and resuming from an
-Orbax checkpoint directory (item 6).
+fails without CUDA unless ``--device cpu`` is given.
+``--data-parallel`` (``train``, ``evaluate``, ``extract-embeddings``,
+``classify``) runs the command over a ``parallel.get_mesh()``: launch it
+once per card with the JAX package's variables (``COORDINATOR_ADDRESS``,
+``NUM_PROCESSES``, ``PROCESS_ID``); without them it is a 1-rank mesh on
+the one card. Every rank reads the whole corpus and feeds its rows of
+each global batch (``parallel.local_batches``), so the run gives the
+mesh-less numbers of the same batch size; rank 0 alone writes the
+command's output. Configs are JSON, or YAML when the ``yaml`` package
+imports. Metadata comes from a ``metadata`` section: either ``csv:
+<path>`` (columns: id, path, label, split[, duration]) or
+``common_voice: {corpus_dir, langs}``. The best checkpoint of the
+experiment cache may be this package's or the JAX package's. Not ported
+yet, and raising: ``export --platforms`` (ROADMAP queue 1, item 11) and
+resuming from an Orbax checkpoint directory (item 6).
 """
 import argparse
 import csv
@@ -147,9 +154,30 @@ def build_split_dataset(split, meta, labels, config, device="cuda"):
                       device=device)
 
 
+def _mesh(args):
+    """The command's mesh: every rank of the group under
+    ``--data-parallel`` (``parallel.get_mesh``), else None."""
+    if not getattr(args, "data_parallel", False):
+        return None
+    from lidbox_tpu_torch import parallel
+    return parallel.get_mesh(device=args.device)
+
+
+def _writes(mesh):
+    """True on the rank that writes a command's output (rank 0 of a mesh,
+    or the one process)."""
+    return mesh is None or mesh.rank == 0
+
+
+def _local(batches, mesh):
+    """This rank's rows of each global batch under a mesh."""
+    if mesh is None:
+        return batches
+    from lidbox_tpu_torch import parallel
+    return parallel.local_batches(batches, mesh)
+
+
 def cmd_train(args):
-    if args.data_parallel:
-        _not_ported("--data-parallel", 12)
     config = load_config(args.config)
     meta, labels = load_metadata(config)
     from lidbox_tpu_torch.models.model_utils import ModelWrapper
@@ -163,7 +191,8 @@ def cmd_train(args):
                                    args.device)
     val_ds = build_split_dataset(val_split, meta, labels, config, args.device)
 
-    wrapper = ModelWrapper.from_config(config, device=args.device)
+    mesh = _mesh(args)
+    wrapper = ModelWrapper.from_config(config, mesh=mesh, device=args.device)
     if getattr(args, "resume", False):
         # resume from the LATEST checkpoint (greatest epoch; this package's
         # or the JAX package's); epoch numbering continues from the
@@ -196,19 +225,21 @@ def cmd_train(args):
                                                     frame_mask=True)
                                if val_split != train_split else
                                signal_batches_from_dataset(val_ds, batch_size))
+        val_feature_batches = _local(val_feature_batches, mesh)
         kwargs = ({"val_feature_batches": val_feature_batches}
                   if val_split != train_split else
                   {"val_signal_batches": val_feature_batches})
         history = wrapper.fit_fused(
-            signal_batches_from_dataset(train_ds, batch_size), epochs=epochs,
+            _local(signal_batches_from_dataset(train_ds, batch_size), mesh),
+            epochs=epochs,
             sample_rate=config.get("features", {}).get("sample_rate"),
             **kwargs)
         logger.info("Training done, final fused epoch: %s",
                     history[-1] if history else None)
         return 0
     history = wrapper.fit(
-        batches_from_dataset(train_ds, batch_size),
-        batches_from_dataset(val_ds, batch_size),
+        _local(batches_from_dataset(train_ds, batch_size), mesh),
+        _local(batches_from_dataset(val_ds, batch_size), mesh),
         epochs=epochs)
     logger.info("Training done, final: %s", history[-1] if history else {})
     return 0
@@ -244,27 +275,34 @@ def cmd_evaluate(args):
             if s == test_split]
     test_meta = {"id": [meta_with_targets["id"][i] for i in rows],
                  "target": meta_with_targets["target"][rows]}
+    mesh = _mesh(args)
     report = util.evaluate_testset_with_model(
         wrapper.model, test_ds, test_meta, label2target,
-        score_fn=wrapper.score_fn)
+        score_fn=wrapper.score_fn, mesh=mesh)
+    if not _writes(mesh):
+        return 0
     print(json.dumps({k: (v.tolist() if isinstance(v, np.ndarray) else v)
                       for k, v in report.items()}, indent=2))
     return 0
 
 
 def cmd_extract_embeddings(args):
-    if args.data_parallel:
-        _not_ported("--data-parallel", 12)
     config = load_config(args.config)
     meta, labels = load_metadata(config)
     if "embeddings" not in config:
         logger.error("config has no 'embeddings' section")
         return 1
+    mesh = _mesh(args)
+    if mesh is not None:
+        # declarative: the extract_embeddings step builds the mesh
+        config["embeddings"]["data_parallel"] = True
     ds = build_split_dataset(args.split, meta, labels, config, args.device)
     ids, embeddings = [], []
     for x in ds:
         ids.append(str(x["id"]))
         embeddings.append(np.asarray(x["embedding"]))
+    if not _writes(mesh):
+        return 0
     np.savez(args.output, ids=np.asarray(ids),
              embeddings=np.stack(embeddings))
     logger.info("Wrote %d embeddings to %s", len(ids), args.output)
@@ -295,22 +333,27 @@ def cmd_classify(args):
     """Classify audio files from the shell: best checkpoint -> language
     scores per utterance (CSV on stdout or --output). The reference had no
     serving path at all; classification lived in notebooks
-    (reference: lidbox/util.py:23-57)."""
-    if args.data_parallel:
-        _not_ported("--data-parallel", 12)
+    (reference: lidbox/util.py:23-57). Under ``--data-parallel`` the
+    batch size is rounded up to a multiple of the mesh size."""
     config = load_config(args.config)
     _, labels = load_metadata(config)
     from lidbox_tpu_torch import serve
 
     wrapper = _wrapper_with_best_checkpoint(config, args.device)
+    mesh = _mesh(args)
+    batch_size = args.batch_size
+    if mesh is not None:
+        batch_size = -(-batch_size // mesh.size) * mesh.size
     clf = serve.Classifier(
         wrapper.model, labels,
         feature_config=config.get("features"),
         chunk_length_ms=args.chunk_length_ms,
         chunk_step_ms=args.chunk_step_ms,
-        batch_size=args.batch_size, score_fn=wrapper.score_fn,
+        batch_size=batch_size, mesh=mesh, score_fn=wrapper.score_fn,
         stage_dtype=args.stage_dtype, device=args.device)
     out = clf.classify(args.audio_files)
+    if not _writes(mesh):
+        return 0
     text = table_to_csv(out)
     if args.output:
         with open(args.output, "w", encoding="utf-8") as f:
@@ -330,7 +373,7 @@ def cmd_export(args):
     (the reference's deployment analogue was the hand-run tfjs-converter,
     reference: lidbox/models/xvector_stats_pooling.js)."""
     if args.platforms:
-        _not_ported("--platforms (lowering for several backends)", 12)
+        _not_ported("--platforms (lowering for several backends)", 11)
     config = load_config(args.config)
     from lidbox_tpu_torch import export as export_mod
 
@@ -381,12 +424,16 @@ def create_argparser():
                         "experiment cache (this package's or the JAX "
                         "package's)")
     p.add_argument("--data-parallel", action="store_true",
-                   help="shard batches over all visible devices (not "
-                        "ported yet)")
+                   help="train data-parallel over the process group's "
+                        "ranks, one card each (a 1-rank mesh without "
+                        "COORDINATOR_ADDRESS)")
     p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("evaluate", help="evaluate the best checkpoint")
     p.add_argument("config")
+    p.add_argument("--data-parallel", action="store_true",
+                   help="predict data-parallel over the process group's "
+                        "ranks")
     p.set_defaults(fn=cmd_evaluate)
 
     p = sub.add_parser("extract-embeddings", help="dump embeddings to npz")
@@ -394,7 +441,8 @@ def create_argparser():
     p.add_argument("output")
     p.add_argument("--split", default="test")
     p.add_argument("--data-parallel", action="store_true",
-                   help="extract over all visible devices (not ported yet)")
+                   help="extract data-parallel over the process group's "
+                        "ranks")
     p.set_defaults(fn=cmd_extract_embeddings)
 
     p = sub.add_parser("classify",
@@ -412,8 +460,8 @@ def create_argparser():
                         "bfloat16): half the host->device bytes; scores "
                         "differ only by input rounding")
     p.add_argument("--data-parallel", action="store_true",
-                   help="shard inference batches over all visible devices "
-                        "(not ported yet)")
+                   help="run inference batches data-parallel over the "
+                        "process group's ranks")
     p.set_defaults(fn=cmd_classify)
 
     p = sub.add_parser("export",

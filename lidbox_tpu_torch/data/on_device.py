@@ -24,7 +24,9 @@ Feed options: int16/bfloat16 staging with the targets packed into the int16
 waveform stack, grouped dispatch (``steps_per_dispatch``), and cached replay
 of the staged corpus from the device (``cache_staged`` with
 ``cache_shuffle`` False, True or "rows"), guarded by the device's memory.
-Meshes raise (ROADMAP queue 1, item 12).
+Under a ``parallel.Mesh`` on the trainer every rank stages and featurizes
+its own rows (the kernel runs on each rank's slice), and the draws are the
+global batch's (``parallel.draw_rows``).
 """
 import dataclasses
 import glob
@@ -35,7 +37,7 @@ import numpy as np
 import torch
 
 import lidbox_tpu_torch.features as F
-from lidbox_tpu_torch import RANDOM_SEED, get_device, get_logger
+from lidbox_tpu_torch import RANDOM_SEED, get_device, get_logger, parallel
 from lidbox_tpu_torch.features import audio
 from lidbox_tpu_torch.features import io as audio_io
 from lidbox_tpu_torch.train.loop import (_signature_runs_contiguous,
@@ -337,9 +339,10 @@ def make_augmented_feature_fn(sample_rate, feature_config, augment: AugmentConfi
     SpecAugment, under ``torch.no_grad``.
 
     The random values come from ``generator`` (draw_augmentation, then
-    draw_spec_augment once the features' shape is known) unless ``draws``
-    gives them: the dict draw_augmentation returns, with the SpecAugment
-    tuple under "spec". ``on_stage(name)`` is called after each stage that
+    draw_spec_augment once the features' shape is known; inside
+    ``parallel.data_parallel`` this rank's rows of the global batch's
+    draws) unless ``draws`` gives them: the dict draw_augmentation
+    returns, with the SpecAugment tuple under "spec". ``on_stage(name)`` is called after each stage that
     ran ("draw", "vad", "speed", "noise", "fir", "features", "specaug"), for
     timing.
     ``noise_lengths`` is unused: the bank's rows are tiled full width."""
@@ -367,8 +370,9 @@ def make_augmented_feature_fn(sample_rate, feature_config, augment: AugmentConfi
             lengths = torch.full((B,), T, dtype=torch.int32,
                                  device=signals.device)
         if draws is None:
-            draws = draw_augmentation(generator, augment, B, T, noise_bank,
-                                      signals.device)
+            draws = parallel.draw_rows(
+                lambda rows: draw_augmentation(generator, augment, rows, T,
+                                               noise_bank, signals.device), B)
         done("draw")
         gate = draws.get("gate")
 
@@ -411,8 +415,10 @@ def make_augmented_feature_fn(sample_rate, feature_config, augment: AugmentConfi
         if specaug:
             spec = draws.get("spec")
             if spec is None:
-                spec = draw_spec_augment(generator, augment, feats.shape,
-                                         feats.device)
+                spec = parallel.draw_rows(
+                    lambda rows: draw_spec_augment(
+                        generator, augment, (rows,) + feats.shape[1:],
+                        feats.device), B)
             feats = gated(spec_augment(feats, *spec), feats)
             done("specaug")
         if with_mask:
@@ -492,7 +498,8 @@ def make_fused_train_step(trainer, feature_fn):
     The augmentation draws from a generator seeded from
     (trainer.seed, state.step) alone. ``targets=None`` selects the packed
     staging layout: ``signals`` is int16 [B + 1, T] with the targets in row
-    B's first B slots."""
+    B's first B slots. Under the trainer's mesh the step runs inside
+    ``parallel.data_parallel``: the draws are the global batch's."""
     def step(state, signals, targets, generator=None, example_mask=None):
         if targets is None:  # packed layout: the last row carries targets
             b = signals.shape[0] - 1
@@ -500,7 +507,8 @@ def make_fused_train_step(trainer, feature_fn):
             signals = signals[:-1]
         augment_gen = keyed_generator(signals.device, trainer.seed,
                                       state.step, 7)
-        feats = feature_fn(augment_gen, signals_to_float(signals))
+        with parallel.data_parallel(trainer.mesh):
+            feats = feature_fn(augment_gen, signals_to_float(signals))
         batch = {"target": targets}
         if isinstance(feats, tuple):  # length-tracking fn: (feats, mask)
             batch["input"], batch["input_mask"] = feats
@@ -519,15 +527,18 @@ def make_fused_replay_step(trainer, feature_fn):
     state.step.
 
     step(state, signals_all [K, B(+1), T], targets_all ([K, B] or None for
-    the packed layout), generator, order [K]) -> (state, losses [K])."""
+    the packed layout), generator, order [K], masks_all=None ([K, B]
+    example masks)) -> (state, losses [K])."""
     single = make_fused_train_step(trainer, feature_fn)
 
-    def replay(state, signals_all, targets_all, generator, order):
+    def replay(state, signals_all, targets_all, generator, order,
+               masks_all=None):
         losses = []
         for i in np.asarray(order).tolist():
             state, loss = single(state, signals_all[i],
                                  None if targets_all is None
-                                 else targets_all[i], generator)
+                                 else targets_all[i], generator,
+                                 None if masks_all is None else masks_all[i])
             losses.append(loss)
         return state, torch.stack(losses)
     return replay
@@ -538,13 +549,14 @@ def make_fused_multi_step(trainer, feature_fn):
     staged batches that crossed to the device as one transfer; per-step
     numerics identical to K single steps.
 
-    step(state, signals_k, targets_k, generator=None) -> (state, losses [K]);
-    ``targets_k=None`` selects the packed layout ([K, B + 1, T])."""
+    step(state, signals_k, targets_k, generator=None, masks_k=None) ->
+    (state, losses [K]); ``targets_k=None`` selects the packed layout
+    ([K, B + 1, T])."""
     replay = make_fused_replay_step(trainer, feature_fn)
 
-    def multi(state, signals_k, targets_k, generator=None):
+    def multi(state, signals_k, targets_k, generator=None, masks_k=None):
         return replay(state, signals_k, targets_k, generator,
-                      np.arange(signals_k.shape[0]))
+                      np.arange(signals_k.shape[0]), masks_k)
     return multi
 
 
@@ -555,30 +567,38 @@ def make_fused_replay_rows_step(trainer, feature_fn):
     reference re-shuffled elements every epoch,
     lidbox/data/steps.py:997-999). Each step gathers its B rows on the
     device from the stack seen as [K * rows, T] (no permuted copy); the
-    only transfer is the [K, B] index.
+    only transfer is the [K, B] index. Under a mesh the stack is the global
+    one and ``idx`` this rank's columns of the global index.
 
     step(state, signals_all [K, B(+1), T], targets_all ([K, B] or None for
-    the packed layout), generator, idx [K, B]) -> (state, losses [K])."""
+    the packed layout), generator, idx [K, b], masks_all=None) -> (state,
+    losses [K])."""
     single = make_fused_train_step(trainer, feature_fn)
 
-    def replay_rows(state, signals_all, targets_all, generator, idx):
+    def replay_rows(state, signals_all, targets_all, generator, idx,
+                    masks_all=None):
         idx = np.asarray(idx, np.int64)
-        K, B = idx.shape
-        rows_per_batch = signals_all.shape[1]
-        sig_flat = signals_all.reshape((-1,) + tuple(signals_all.shape[2:]))
+        K = idx.shape[0]
         if targets_all is None:  # packed: row B of each batch = targets
+            B = signals_all.shape[1] - 1
             tgt_flat = signals_all[:, B, :B].reshape(K * B).to(torch.int64)
         else:
+            B = targets_all.shape[1]
             tgt_flat = targets_all.reshape(K * B)
+        rows_per_batch = signals_all.shape[1]
+        sig_flat = signals_all.reshape((-1,) + tuple(signals_all.shape[2:]))
+        mask_flat = None if masks_all is None else masks_all.reshape(K * B)
         # row r of the corpus is row r % B of batch r // B of the stack
         sig_rows = to_device((idx // B) * rows_per_batch + idx % B,
                              signals_all.device)
         tgt_rows = to_device(idx, signals_all.device)
         losses = []
         for k in range(K):
-            state, loss = single(state, sig_flat.index_select(0, sig_rows[k]),
-                                 tgt_flat.index_select(0, tgt_rows[k]),
-                                 generator)
+            state, loss = single(
+                state, sig_flat.index_select(0, sig_rows[k]),
+                tgt_flat.index_select(0, tgt_rows[k]), generator,
+                None if mask_flat is None
+                else mask_flat.index_select(0, tgt_rows[k]))
             losses.append(loss)
         return state, torch.stack(losses)
     return replay_rows
@@ -586,53 +606,86 @@ def make_fused_replay_rows_step(trainer, feature_fn):
 
 def _consolidate_signal_cache(entries, spd, preserve_order=False):
     """Merge fit_signals' epoch-1 cache entries ((n, samples), (signals,
-    targets)), single batches at spd == 1 or stacked groups at spd > 1
-    (targets None = the packed int16 layout), into per-shape device stacks
-    for whole-epoch replay: a list of {signals, targets, n, samples, steps}.
-    None under ``preserve_order=True`` (the cache_shuffle=False contract)
-    when the shape signatures interleave: stack-major replay would reorder
-    the epoch-1 trajectory, so the caller keeps per-entry replay."""
+    targets[, mask])), single batches at spd == 1 or stacked groups at
+    spd > 1 (targets None = the packed int16 layout, mask None = no
+    example mask), into per-shape device stacks for whole-epoch replay: a
+    list of {signals, targets, masks, n, samples, steps}. None under
+    ``preserve_order=True`` (the cache_shuffle=False contract) when the
+    shape signatures interleave: stack-major replay would reorder the
+    epoch-1 trajectory, so the caller keeps per-entry replay."""
+    entries = [(count, (sig, tgt, mask[0] if mask else None))
+               for count, (sig, tgt, *mask) in entries]
     keys = []
-    for _, (sig, tgt) in entries:
+    for _, (sig, tgt, mask) in entries:
         inner = sig.shape[1:] if spd > 1 else sig.shape
-        keys.append((tuple(inner), str(sig.dtype), tgt is None))
+        keys.append((tuple(inner), str(sig.dtype), tgt is None,
+                     mask is None))
     if preserve_order and not _signature_runs_contiguous(keys):
         return None
     order, groups = [], {}
-    for ((n, samples), (sig, tgt)), key in zip(entries, keys):
+    for ((n, samples), (sig, tgt, mask)), key in zip(entries, keys):
         if key not in groups:
-            groups[key] = {"sigs": [], "tgts": [], "n": 0, "samples": 0,
-                           "steps": 0}
+            groups[key] = {"sigs": [], "tgts": [], "masks": [], "n": 0,
+                           "samples": 0, "steps": 0}
             order.append(key)
         g = groups[key]
         g["sigs"].append(sig)
         if tgt is not None:
             g["tgts"].append(tgt)
+        if mask is not None:
+            g["masks"].append(mask)
         g["n"] += int(n)
         g["samples"] += int(samples)
         g["steps"] += sig.shape[0] if spd > 1 else 1
     cat = torch.cat if spd > 1 else torch.stack
     return [{"signals": cat(g["sigs"]),
              "targets": cat(g["tgts"]) if g["tgts"] else None,
+             "masks": cat(g["masks"]) if g["masks"] else None,
              "n": g["n"], "samples": g["samples"], "steps": g["steps"]}
             for g in (groups[k] for k in order)]
 
 
-def _featurize_val(val_feats, val_batches, device):
-    """The validation signal batches as feature batch dicts, kept on the
-    device. Batch i draws from its own generator, keyed (0, i) as the JAX
-    package keys it fold_in(PRNGKey(0), i): an augmenting fn gives each
-    batch its own draws, the same on every call."""
+def _gather_signal_stacks(groups, mesh):
+    """cache_shuffle="rows" under a mesh: every rank's stacks become the
+    global ones ([K, ranks x b, T] signals, [K, ranks x b] targets and
+    masks, the packed layout unpacked), so a replayed batch can take rows
+    other ranks cached, as the JAX package's flattened global cache does.
+    Each rank then holds the whole corpus: ranks x its own cache."""
+    def gather(x):
+        return parallel.all_gather_rows(x.transpose(0, 1),
+                                        mesh).transpose(0, 1)
+    for g in groups:
+        sig, tgt = g["signals"], g["targets"]
+        if tgt is None:  # packed: row b carries the targets
+            b = sig.shape[1] - 1
+            sig, tgt = sig[:, :b], sig[:, b, :b].to(torch.int64)
+        g["signals"], g["targets"] = gather(sig), gather(tgt)
+        if g["masks"] is not None:
+            g["masks"] = gather(g["masks"])
+    return groups
+
+
+def _featurize_val(val_feats, val_batches, device, mesh=None):
+    """The validation signal batches ((signals, targets) or (signals,
+    targets, example_mask)) as feature batch dicts, kept on the device.
+    Batch i draws from its own generator, keyed (0, i) as the JAX package
+    keys it fold_in(PRNGKey(0), i): an augmenting fn gives each batch its
+    own draws, the same on every call (the global batch's under a
+    mesh)."""
     eval_batches = []
     vit = val_batches() if callable(val_batches) else val_batches
-    for i, (signals, targets) in enumerate(vit):
-        out = val_feats(keyed_generator(device, 0, i),
-                        to_device(signals, device))
+    for i, (signals, targets, *mask) in enumerate(vit):
+        with parallel.data_parallel(mesh):
+            out = val_feats(keyed_generator(device, 0, i),
+                            to_device(signals, device))
         batch = {"target": to_device(np.asarray(targets, np.int64), device)}
         if isinstance(out, tuple):
             batch["input"], batch["input_mask"] = out
         else:
             batch["input"] = out
+        if mask and mask[0] is not None:
+            batch["example_mask"] = to_device(np.asarray(mask[0], bool),
+                                              device)
         eval_batches.append(batch)
     return eval_batches
 
@@ -646,12 +699,13 @@ def fit_signals(trainer, feature_fn, signal_batches, epochs=1, verbose=True,
     on it (make_fused_train_step), with no per-step host readback.
 
     ``signal_batches``: callable or re-iterable collection of
-    (signals [B, T], targets [B]) numpy pairs; with ``epochs > 1`` a
-    one-shot generator raises after epoch 1 instead of silently training
-    on nothing. Validation after every epoch comes from either
-    ``val_batches`` (signal pairs, featurized once per fit through
-    ``val_feature_fn``, default ``feature_fn``; pass a clean fn for
-    standard validation) or ``val_feature_batches`` (already-featurized
+    (signals [B, T], targets [B]) numpy pairs, or (signals, targets,
+    example_mask [B]) triples whose False rows are padding; with
+    ``epochs > 1`` a one-shot generator raises after epoch 1 instead of
+    silently training on nothing. Validation after every epoch comes from
+    either ``val_batches`` (signal pairs or triples, featurized once per
+    fit through ``val_feature_fn``, default ``feature_fn``; pass a clean fn
+    for standard validation) or ``val_feature_batches`` (already-featurized
     dict batches). Epoch numbering resumes from ``trainer.initial_epoch``
     and ``epochs`` is the absolute target, mirroring Trainer.fit. Returns
     per-epoch dicts with ``loss`` (+ ``val_loss``/metrics) when
@@ -675,12 +729,20 @@ def fit_signals(trainer, feature_fn, signal_batches, epochs=1, verbose=True,
     held to the device's memory budget (Trainer.cache_bytes_limit): when
     twice its bytes (consolidation holds originals and stacks at once)
     would exceed it, the cache is released with a warning and every epoch
-    streams."""
+    streams.
+
+    Under the trainer's mesh each rank feeds its own rows of every global
+    batch (``parallel.local_slice``), the staged feeds pass the feed-parity
+    guard, every step is the global batch's (``Trainer._loss_and_grads``,
+    ``parallel.data_parallel``), and cache_shuffle="rows" replays from the
+    global cache, gathered onto every rank after epoch 1."""
     step = make_fused_train_step(trainer, feature_fn)
     spd = max(1, int(steps_per_dispatch))
     multi = make_fused_multi_step(trainer, feature_fn) if spd > 1 else None
     if cache_staged is None:
         cache_staged = trainer.cache_staged
+    # every rank caches the global corpus for a mesh's rows replay
+    rows_factor = trainer._rows_factor(cache_shuffle)
     staged_cache = None   # per-entry replay (interleaved shapes, no shuffle)
     replay_groups = None  # consolidated per-shape stacks after epoch 1
     replay = None
@@ -693,7 +755,7 @@ def fit_signals(trainer, feature_fn, signal_batches, epochs=1, verbose=True,
         cache_state["bytes"] += _tree_device_nbytes(entry)
         if cache_state["budget"] is None:
             cache_state["budget"] = trainer._cache_budget()
-        if 2.0 * cache_state["bytes"] > cache_state["budget"]:
+        if (1.0 + rows_factor) * cache_state["bytes"] > cache_state["budget"]:
             logger.warning(
                 "cache_staged: staged signal corpus (%.0f MB so far, ~2x "
                 "transient during consolidation) exceeds the device memory "
@@ -716,26 +778,32 @@ def fit_signals(trainer, feature_fn, signal_batches, epochs=1, verbose=True,
         def val_feats(generator, signals):
             return vfn(generator, signals_to_float(signals))
 
-    def _stage(signals, targets):
-        """(signals, targets) on the device; targets None when packed."""
+    def _stage(signals, targets, mask=None):
+        """(signals, targets, mask) on the device; targets None when
+        packed, mask None without one."""
         signals = stage_signals(signals, trainer.stage_dtype)
         targets = np.asarray(targets, np.int64)
+        mask = None if mask is None else to_device(np.asarray(mask, bool),
+                                                   trainer.device)
         packed = pack_targets_int16(signals, targets)
         if packed is not None:
-            return to_device(packed, trainer.device), None
+            return to_device(packed, trainer.device), None, mask
         return (to_device(signals, trainer.device),
-                to_device(targets, trainer.device))
+                to_device(targets, trainer.device), mask)
 
     def _grouped(batches):
         """Consecutive same-shape batches in groups of up to spd."""
         it = batches() if callable(batches) else batches
         buf = []
-        for sig, tgt in it:
-            sig = np.asarray(sig)
-            if buf and sig.shape != buf[0][0].shape:
+        for sig, tgt, *mask in it:
+            item = (np.asarray(sig), np.asarray(tgt),
+                    np.asarray(mask[0]) if mask and mask[0] is not None
+                    else None)
+            if buf and (item[0].shape != buf[0][0].shape
+                        or (item[2] is None) != (buf[0][2] is None)):
                 yield buf
                 buf = []
-            buf.append((sig, np.asarray(tgt)))
+            buf.append(item)
             if len(buf) == spd:
                 yield buf
                 buf = []
@@ -743,8 +811,10 @@ def fit_signals(trainer, feature_fn, signal_batches, epochs=1, verbose=True,
             yield buf
 
     def _stage_group(group):
-        return _stage(np.stack([s for s, _ in group]),
-                      np.stack([t for _, t in group]))
+        masks = [m for _, _, m in group]
+        return _stage(np.stack([s for s, _, _ in group]),
+                      np.stack([t for _, t, _ in group]),
+                      None if masks[0] is None else np.stack(masks))
 
     # audio-seconds throughput (RTF): samples / sample_rate, with the rate
     # taken from the feature fn (make_augmented_feature_fn tags it)
@@ -774,13 +844,14 @@ def fit_signals(trainer, feature_fn, signal_batches, epochs=1, verbose=True,
                     K = g["steps"]
                     B = (g["targets"].shape[1] if g["targets"] is not None
                          else g["signals"].shape[1] - 1)
-                    order = rng_epoch.permutation(K * B).reshape(K, B)
+                    order = trainer._local_columns(
+                        rng_epoch.permutation(K * B).reshape(K, B))
                 else:
                     order = (rng_epoch.permutation(g["steps"])
                              if cache_shuffle else np.arange(g["steps"]))
                 trainer.state, loss_k = replay(
                     trainer.state, g["signals"], g["targets"],
-                    trainer.generator, order)
+                    trainer.generator, order, g["masks"])
                 losses.append(loss_k)
                 meter.update(g["n"], g["samples"] / sr if sr else 0.0)
         elif staged_cache is not None:
@@ -792,10 +863,10 @@ def fit_signals(trainer, feature_fn, signal_batches, epochs=1, verbose=True,
                 order = np.random.default_rng(
                     RANDOM_SEED + epoch).permutation(len(staged_cache))
                 entries = [staged_cache[i] for i in order]
-            for (n, samples), (signals, targets) in entries:
+            for (n, samples), (signals, targets, mask) in entries:
                 run = multi if spd > 1 else step
                 trainer.state, loss = run(trainer.state, signals, targets,
-                                          trainer.generator)
+                                          trainer.generator, mask)
                 losses.append(loss)
                 meter.update(n, samples / sr if sr else 0.0)
         else:
@@ -803,8 +874,8 @@ def fit_signals(trainer, feature_fn, signal_batches, epochs=1, verbose=True,
                 staged = trainer._staged(
                     lambda: _grouped(signal_batches),
                     count_fn=lambda g: (
-                        sum(int(np.shape(t)[0]) for _, t in g),
-                        sum(int(np.prod(np.shape(s))) for s, _ in g)),
+                        sum(int(np.shape(t)[0]) for _, t, _ in g),
+                        sum(int(np.prod(np.shape(s))) for s, _, _ in g)),
                     put=_stage_group)
             else:
                 staged = trainer._staged(
@@ -812,18 +883,21 @@ def fit_signals(trainer, feature_fn, signal_batches, epochs=1, verbose=True,
                     count_fn=lambda b: (int(np.shape(b[1])[0]),
                                         int(np.prod(np.shape(b[0])))),
                     put=lambda b: _stage(*b))
+            staged = trainer._feed_parity_guard(staged)
             collecting = [] if cache_staged else None
             try:
-                for (n, samples), (signals, targets) in staged:
+                for (n, samples), (signals, targets, mask) in staged:
                     if collecting is not None:
-                        collecting.append(((n, samples), (signals, targets)))
-                        if not _cache_admit((signals, targets)):
+                        collecting.append(((n, samples),
+                                           (signals, targets, mask)))
+                        if not _cache_admit((signals, targets, mask)):
                             collecting = None
                             cache_staged = False
                             val_staged = False
                     run = multi if spd > 1 else step
                     trainer.state, loss = run(trainer.state, signals,
-                                              targets, trainer.generator)
+                                              targets, trainer.generator,
+                                              mask)
                     losses.append(loss)
                     meter.update(n, samples / sr if sr else 0.0)
             finally:
@@ -833,6 +907,9 @@ def fit_signals(trainer, feature_fn, signal_batches, epochs=1, verbose=True,
             # cache_shuffle=False met interleaved shape signatures)
             replay_groups = _consolidate_signal_cache(
                 collecting, spd, preserve_order=not cache_shuffle)
+            if replay_groups is not None and rows_factor > 1:
+                replay_groups = _gather_signal_stacks(replay_groups,
+                                                      trainer.mesh)
             # the stacks are the cache once consolidation succeeds: keeping
             # the per-entry tensors too would hold ~2x the corpus
             staged_cache = collecting if replay_groups is None else None
@@ -871,12 +948,13 @@ def fit_signals(trainer, feature_fn, signal_batches, epochs=1, verbose=True,
                 # keyed by its index, so every epoch would get the same
                 if eval_cache is None:
                     eval_cache = _featurize_val(val_feats, val_batches,
-                                                trainer.device)
+                                                trainer.device, trainer.mesh)
                 eval_batches = eval_cache
             if cache_staged and val_staged is not False:
                 # stage the validation set once into per-shape stacks;
                 # later epochs evaluate the device-resident copy
-                entries = list(trainer._staged(eval_batches))
+                entries = list(trainer._feed_parity_guard(
+                    trainer._staged(eval_batches), "validation"))
                 vbytes = sum(_tree_device_nbytes(b) for _, b in entries)
                 if cache_state["budget"] is None:
                     cache_state["budget"] = trainer._cache_budget()

@@ -26,7 +26,7 @@ import time
 import numpy as np
 
 import lidbox_tpu_torch
-from lidbox_tpu_torch import RANDOM_SEED, get_device, get_logger
+from lidbox_tpu_torch import RANDOM_SEED, get_device, get_logger, parallel
 from lidbox_tpu_torch.data.dataset import Dataset, _stack_elements
 from lidbox_tpu_torch.data.device_pipeline import DeviceFeatureExtractor
 from lidbox_tpu_torch.features import io as audio_io
@@ -641,28 +641,55 @@ def append_predictions(ds, predictions):
 _PARALLEL_KEYS = ("mesh", "data_parallel", "devices")
 
 
+def _resolve_embedding_mesh(config, device):
+    """The mesh of data-parallel extraction from a config section:
+    ``"data_parallel": true`` spans every rank of the process group,
+    ``"devices": N`` its first N ranks; a live ``"mesh"`` entry (a
+    ``parallel.Mesh``) wins. None without any."""
+    mesh = config.get("mesh")
+    if mesh is not None:
+        return parallel.as_mesh(mesh)
+    if config.get("data_parallel") or config.get("devices"):
+        num = config.get("devices")
+        return parallel.get_mesh(num_devices=int(num) if num else None,
+                                 device=device)
+    return None
+
+
 def extract_embeddings(ds, config, device="cuda"):
     """Extract embeddings to ``embedding`` from ``input`` with trained
     extractors restored from checkpoints, on ``device``
     (reference: lidbox/data/steps.py:674-705); embeddings from multiple
-    extractors are concatenated. Data-parallel extraction (``mesh``,
-    ``data_parallel``, ``devices``) is not ported yet (ROADMAP queue 1,
-    item 12) and raises."""
+    extractors are concatenated.
+
+    Data-parallel extraction is declared with ``"data_parallel": true``
+    (every rank of the process group) or ``"devices": N`` (its first N
+    ranks), or given a live ``"mesh"``; an extractor that names any of
+    these keys overrides the section's. Every rank runs the same pipeline
+    and returns every element's embedding: the ranks of the mesh each
+    embed their rows of a batch and gather the rest, and ranks outside an
+    N-rank sub-mesh run no forward and receive the embeddings from rank 0
+    (``util.make_batch_predict_fn``). Under a mesh the extractor calls run
+    one at a time (``num_parallel_calls`` is 1): each is a collective."""
     from lidbox_tpu_torch.models.model_utils import ModelWrapper
 
-    for section in [config] + list(config["extractors"]):
-        asked = [k for k in _PARALLEL_KEYS if section.get(k)]
-        if asked:
-            raise NotImplementedError(
-                f"data-parallel embedding extraction ({asked}) is not ported "
-                "yet (ROADMAP queue 1, item 12)")
+    mesh = _resolve_embedding_mesh(config, device)
+
+    def _extractor_mesh(e):
+        # an extractor that mentions parallelism at all overrides the
+        # section default, turning it off too (data_parallel: false)
+        if any(k in e for k in _PARALLEL_KEYS):
+            return _resolve_embedding_mesh(e, device)
+        return mesh
+
     batch_size = config.get("batch_size", 32)
+    meshes = [_extractor_mesh(e) for e in config["extractors"]]
     extractors = [ModelWrapper.from_config_as_embedding_extractor_fn(
                       dict(e, batch_size=e.get("batch_size", batch_size),
                            stage_dtype=e.get("stage_dtype",
                                              config.get("stage_dtype"))),
-                      device=device)
-                  for e in config["extractors"]]
+                      mesh=m, device=device)
+                  for e, m in zip(config["extractors"], meshes)]
 
     def _append(batch):
         inputs = np.stack(list(batch["input"]))
@@ -670,8 +697,10 @@ def extract_embeddings(ds, config, device="cuda"):
         return dict(batch, embedding=np.concatenate(embeddings, axis=1))
 
     # num_parallel_calls > 1 keeps several extractor calls in flight
-    # (ordered), so batch i+1's transfer can overlap batch i's readback
-    parallel_calls = int(config.get("num_parallel_calls", 1))
+    # (ordered), so batch i+1's transfer can overlap batch i's readback;
+    # collectives must run in one order on every rank
+    parallel_calls = (1 if any(m is not None for m in meshes)
+                      else int(config.get("num_parallel_calls", 1)))
     ds = ds.batch(batch_size).prefetch(2).map(
         _append, num_parallel_calls=parallel_calls)
     if not config.get("no_unbatch", False):

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from lidbox_tpu_torch import get_device
+from lidbox_tpu_torch import get_device, parallel
 
 from . import mel_ops
 
@@ -102,11 +102,12 @@ def _masked_rms(x, mask, axis=-1, keepdims=False):
 def power_to_db(S, amin=1e-10, top_db=80.0):
     """Power/amplitude to decibel with a dynamic-range floor, with the
     reference's 20*log10 and *global* max over the whole batched tensor
-    (reference: lidbox/features/audio.py:167-174)."""
+    (reference: lidbox/features/audio.py:167-174): inside
+    ``parallel.data_parallel`` the global batch's."""
     amin = torch.tensor(amin, dtype=S.dtype, device=S.device)
     db = 20.0 * (log10(torch.maximum(amin, S))
-                 - log10(torch.maximum(amin, S.max())))
-    return torch.maximum(db, db.max() - top_db)
+                 - log10(torch.maximum(amin, parallel.global_max(S))))
+    return torch.maximum(db, parallel.global_max(db) - top_db)
 
 
 def num_frames(num_samples, frame_length, frame_step):

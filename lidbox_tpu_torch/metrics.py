@@ -10,7 +10,8 @@ The metric state is a dict of fixed-shape float32 counter tensors that
 lives on the device of the scores; ``update`` is built from one-hot
 products instead of the reference's scatter_nd_add, so a whole evaluation
 accumulates on the card and is read back once. States of independent
-shards merge with ``merge_states``.
+shards merge with ``merge_states``; the ranks of a data-parallel mesh sum
+theirs with ``psum_state``.
 """
 import dataclasses
 import functools
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from lidbox_tpu_torch import parallel
 from lidbox_tpu_torch.features import divide_no_nan as _divide_no_nan
 
 
@@ -131,10 +133,16 @@ class AverageDetectionCost:
         return {k: sum(s[k] for s in states) for k in states[0]}
 
     @staticmethod
-    def psum_state(state, axis_name):
-        raise NotImplementedError(
-            "psum_state (an all_reduce of the counters over "
-            "torch.distributed) is not ported yet (ROADMAP queue 1, item 12)")
+    def psum_state(state, mesh):
+        """All-reduce (sum) the counter state over a ``parallel.Mesh``'s
+        ranks, in one bucketed call; ``mesh`` may also be the data axis's
+        name, for the mesh over every rank of the running group."""
+        if isinstance(mesh, str):
+            if mesh != parallel.DATA_AXIS:
+                raise ValueError(f"unknown mesh axis {mesh!r} (the mesh has "
+                                 f"one axis, {parallel.DATA_AXIS!r})")
+            mesh = parallel.get_mesh()
+        return parallel.all_reduce_tree(dict(state), mesh)
 
 
 class SparseAverageDetectionCost(AverageDetectionCost):

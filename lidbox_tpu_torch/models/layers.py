@@ -12,7 +12,9 @@ transpose.
 
 Stochastic layers (dropout, Gaussian noise) draw from the
 ``torch.Generator`` their forward is given, as ``SpatialDropout1D`` does;
-the JAX package's ``rngs`` streams cannot be matched draw for draw.
+the JAX package's ``rngs`` streams cannot be matched draw for draw. Under
+``parallel.data_parallel`` they draw for the global batch and keep this
+rank's rows (``parallel.draw_rows``).
 """
 import contextlib
 import math
@@ -22,6 +24,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.nn.utils.rnn import (PackedSequence, pack_padded_sequence,
                                 pad_packed_sequence)
+
+from lidbox_tpu_torch import parallel
 
 TIME_AXIS = 1
 STDDEV_SQRT_MIN_CLIP = 1e-10
@@ -122,9 +126,14 @@ def dropout(x, rate, generator=None, broadcast_dims=()):
         return x
     keep = 1.0 - rate
     shape = [1 if d in broadcast_dims else n for d, n in enumerate(x.shape)]
-    probs = torch.full(shape, keep, dtype=torch.float32, device=x.device)
-    mask = torch.bernoulli(probs, generator=generator).to(x.dtype)
-    return x * mask / keep
+
+    def draw(rows):
+        probs = torch.full([rows] + shape[1:], keep, dtype=torch.float32,
+                           device=x.device)
+        return torch.bernoulli(probs, generator=generator)
+    mask = draw(1) if 0 in broadcast_dims else parallel.draw_rows(
+        draw, shape[0])
+    return x * mask.to(x.dtype) / keep
 
 
 class GaussianNoise(nn.Module):
@@ -139,8 +148,10 @@ class GaussianNoise(nn.Module):
     def forward(self, x, generator=None):
         if not self.training or self.stddev == 0:
             return x
-        noise = torch.randn(x.shape, generator=generator, device=x.device,
-                            dtype=torch.float32)
+        noise = parallel.draw_rows(
+            lambda rows: torch.randn((rows,) + tuple(x.shape[1:]),
+                                     generator=generator, device=x.device,
+                                     dtype=torch.float32), x.shape[0])
         return x + self.stddev * noise.to(x.dtype)
 
 
@@ -156,7 +167,12 @@ class BatchNorm(nn.Module):
     value, but in torch's float32 reductions it cancels badly (crnn's
     3-step trajectory at 40 frames left rtol 1e-4 of the JAX package's and
     of a float64 run); the two-pass form stays with both. Padded rows of a
-    masked batch count, as in the JAX package. It never writes its buffers: inside ``collect_batch_stats``
+    masked batch count, as in the JAX package. Inside
+    ``parallel.data_parallel`` the statistics are the global batch's: the
+    sums and the count, then the squared deviations, are all-reduced over
+    the mesh (gradients flow through both), as GSPMD computes them, so the
+    running statistics come out equal on every rank. It never writes its
+    buffers: inside ``collect_batch_stats``
     it hands the new running statistics (the momentum average of the old
     ones and the batch's) to the collector, which is how the trainer gets
     them back as the new state (Flax's ``mutable=["batch_stats"]``).
@@ -178,8 +194,18 @@ class BatchNorm(nn.Module):
         if self.training:
             dims = [d for d in range(x.dim()) if d != axis]
             xf = x.float()
-            mean = xf.mean(dim=dims)
-            var = torch.square(xf - mean.reshape(shape)).mean(dim=dims)
+            mesh = parallel.active_mesh()
+            if mesh is None:
+                mean = xf.mean(dim=dims)
+                var = torch.square(xf - mean.reshape(shape)).mean(dim=dims)
+            else:  # the global batch's statistics, differentiably
+                count = xf.new_tensor([xf.numel() / xf.shape[axis]])
+                sums = parallel.all_reduce_sum(
+                    torch.cat([xf.sum(dim=dims), count]), mesh)
+                mean = sums[:-1] / sums[-1]
+                var = parallel.all_reduce_sum(
+                    torch.square(xf - mean.reshape(shape)).sum(dim=dims),
+                    mesh) / sums[-1]
             if self.collector is not None:
                 self.collector[self] = (
                     BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean,

@@ -9,7 +9,8 @@ Cache layout parity: ``<cache_directory>/<model key>/<experiment name>``
 (reference: keras_utils.py:19-24), checkpoints under ``checkpoints/`` with
 metric-bearing filenames.
 
-Not ported yet: ``mesh`` (ROADMAP queue 1, item 12); it raises.
+With ``mesh=`` (a ``parallel.Mesh``) training and embedding extraction
+run data-parallel over its ranks.
 """
 import os
 
@@ -17,7 +18,7 @@ import numpy as np
 import torch
 
 import lidbox_tpu_torch.models as model_registry
-from lidbox_tpu_torch import get_logger
+from lidbox_tpu_torch import get_logger, parallel
 from lidbox_tpu_torch.losses import (AngularProximity, cross_entropy_with_logits,
                                      get_loss, nll_loss, nll_loss_from_probs)
 from lidbox_tpu_torch.metrics import (AverageDetectionCost,
@@ -178,10 +179,9 @@ class ModelWrapper:
     @classmethod
     def from_config(cls, config, mesh=None, device="cuda"):
         """(reference: keras_utils.py:124-149). The model, the trainer and
-        every step live on ``device``; "cuda" raises without CUDA."""
-        if mesh is not None:
-            raise NotImplementedError("mesh is not ported yet (ROADMAP "
-                                      "queue 1, item 12)")
+        every step live on ``device``; "cuda" raises without CUDA. With a
+        ``parallel.Mesh`` the trainer is data-parallel over its ranks
+        (``Trainer``), ``device`` being this rank's card."""
         experiment = config["experiment"]
         cache_dir = experiment_cache_from_config(config)
         os.makedirs(cache_dir, exist_ok=True)
@@ -237,7 +237,7 @@ class ModelWrapper:
                           tensorboard=any(
                               c["cls"] == "TensorBoard"
                               for c in experiment.get("callbacks", [])),
-                          device=device)
+                          mesh=mesh, device=device)
         wrapper = cls(model, model_key, trainer)
         wrapper.steps_per_dispatch = int(feed.get("steps_per_dispatch", 1))
         wrapper.cache_shuffle = feed.get("cache_shuffle", True)
@@ -252,11 +252,13 @@ class ModelWrapper:
         return an ``inputs [B, T, F] -> embeddings [B, D]`` numpy function
         running on ``device`` (reference: keras_utils.py:151-174). The
         config's ``stage_dtype`` applies (``util.make_batch_predict_fn``).
-        ``mesh`` (data-parallel extraction) is not ported yet (ROADMAP
-        queue 1, item 12) and raises."""
-        if mesh is not None:
-            raise NotImplementedError("mesh is not ported yet (ROADMAP "
-                                      "queue 1, item 12)")
+
+        With a ``parallel.Mesh`` extraction is data-parallel: every rank
+        is handed the same batch, the config's ``batch_size`` (default 32)
+        is rounded up to a multiple of the mesh size, each rank embeds its
+        rows, and every rank returns the whole batch's embeddings
+        (``util.make_batch_predict_fn``)."""
+        mesh = parallel.as_mesh(mesh)
         cache_dir = experiment_cache_from_config({"experiment": {
             "cache_directory": config["cache_directory"],
             "model": config["model"],
@@ -281,8 +283,12 @@ class ModelWrapper:
         extractor = model_registry.as_embedding_extractor(model_key, model)
 
         from lidbox_tpu_torch.util import make_batch_predict_fn
+        batch_size = int(config.get("batch_size", 32))
+        if mesh is not None:
+            batch_size = -(-batch_size // mesh.size) * mesh.size
         predict_fn = make_batch_predict_fn(
-            extractor, apply_kwargs={"output": "embedding"},
+            extractor, batch_size=batch_size, mesh=mesh,
+            apply_kwargs={"output": "embedding"},
             stage_dtype=config.get("stage_dtype"))
         return lambda x: predict_fn(np.asarray(x))
 

@@ -10,7 +10,7 @@ import numpy as np
 import torch
 
 import lidbox_tpu_torch.util as util
-from lidbox_tpu_torch import get_device
+from lidbox_tpu_torch import get_device, parallel
 from lidbox_tpu_torch.data import steps as steps_mod
 from lidbox_tpu_torch.data.dataset import Dataset
 from lidbox_tpu_torch.data.device_pipeline import DeviceFeatureExtractor
@@ -50,8 +50,11 @@ class Classifier:
             score_fn: raw outputs -> [B, len(labels)] scores, for headless
                 language-vector models (pass AngularProximity.predict);
                 log-probability heads leave it None.
-            mesh: not ported yet (ROADMAP queue 1, item 12); passing one
-                raises.
+            mesh: a ``parallel.Mesh``: every rank serves the same files,
+                extracts their features on its card, runs the forward of
+                its rows of each batch (``batch_size`` must divide over
+                the mesh) and returns the whole table
+                (``util.make_batch_predict_fn``).
         """
         self.device = _check_device(model, device)
         self.model = model
@@ -122,7 +125,10 @@ class StreamingClassifier:
     features and forward in one call on the device, and the per-chunk
     scores are merged by running mean — the offline chunk-merge semantics
     (reference: lidbox/util.py:41-57), so a stream scored online equals the
-    same audio scored offline with the same chunking.
+    same audio scored offline with the same chunking. With a
+    ``parallel.Mesh`` every rank is fed the same stream and each chunk's
+    forward runs data-parallel (a batch of one row padded to the mesh
+    size), every rank holding the scores.
 
     Usage::
 
@@ -134,9 +140,13 @@ class StreamingClassifier:
 
     def __init__(self, model, labels, feature_config=None, sample_rate=16000,
                  chunk_seconds=2.0, hop_seconds=1.0, score_fn=None,
-                 device="cuda"):
+                 mesh=None, device="cuda"):
         self.score_fn = score_fn  # outputs -> [B, N] (language vectors)
         self.device = _check_device(model, device)
+        self._mesh_predict = None
+        if parallel.as_mesh(mesh) is not None:
+            self._mesh_predict = util.make_batch_predict_fn(
+                model, batch_size=mesh.size, mesh=mesh, score_fn=score_fn)
         self.model = model
         self.labels = list(labels)
         self.sample_rate = int(sample_rate)
@@ -159,6 +169,8 @@ class StreamingClassifier:
         feats = self.extractor.extract(x, self.sample_rate)
         if self.extractor.validate_finite:
             self.extractor.to_host(feats)
+        if self._mesh_predict is not None:
+            return self._mesh_predict(feats.cpu().numpy())[0]
         out = self.model.apply(feats)
         if self.score_fn is not None:
             out = self.score_fn(out)

@@ -26,8 +26,18 @@ on the host (``stage_dtype``), grouped K to a transfer
 Dropout draws from a ``torch.Generator`` the Trainer owns. The module is
 put in training mode for a train step only, and back in eval mode after.
 
-Not ported yet, and raising (ROADMAP queue 1): ``mesh`` and
-``param_sharding`` (item 12), ``remat`` (item 6).
+With a ``mesh`` (``parallel.get_mesh``) each rank feeds its own rows of
+every global batch (``parallel.local_slice`` splits a global feed) and the
+steps reproduce the mesh-less step on the concatenated batch: the loss is
+the global example-mask mean, the gradients one bucketed all-reduce,
+BatchNorm takes the global batch's statistics and every draw is the global
+batch's (``parallel.data_parallel``). The state is replicated from rank 0
+at creation and at restore, the feed-parity guard makes uneven feeds raise
+on every rank, metric states are summed over the ranks, and rank 0 alone
+writes checkpoints and the metrics log.
+
+Not ported yet, and raising (ROADMAP queue 1): ``param_sharding`` (item
+12, tensor parallelism), ``remat`` (item 6).
 """
 import dataclasses
 import queue
@@ -38,7 +48,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-from lidbox_tpu_torch import RANDOM_SEED, get_device, get_logger
+from lidbox_tpu_torch import RANDOM_SEED, get_device, get_logger, parallel
 from lidbox_tpu_torch.data.dataset import padded_batch
 from lidbox_tpu_torch.models.model_api import functional_forward
 from lidbox_tpu_torch.train import checkpoint as ckpt_lib
@@ -121,8 +131,12 @@ class ModelCheckpoint(Callback):
             self.best = value
         # filename metric: val_loss when present, else the train loss
         fname_val = logs.get("val_loss", logs.get("loss", 0.0))
-        ckpt_lib.save_checkpoint(self.checkpoints_dir, trainer.state,
-                                 epoch=epoch, val_loss=fname_val)
+        mesh = getattr(trainer, "mesh", None)
+        if mesh is None or mesh.rank == 0:  # one writer of the replicas
+            ckpt_lib.save_checkpoint(self.checkpoints_dir, trainer.state,
+                                     epoch=epoch, val_loss=fname_val)
+        if mesh is not None:
+            parallel.barrier(mesh)  # every rank may read it from here on
 
 
 class EarlyStopping(Callback):
@@ -277,7 +291,10 @@ class Trainer:
             upcast on the device.
         cache_staged: keep the staged batches on the device after epoch 1
             (fit's default), held to ``cache_bytes_limit`` bytes (None:
-            90% of the device's memory less what is in use; inf on the CPU).
+            90% of the device's memory less what is in use; inf on the CPU;
+            under a mesh the least over its ranks).
+        mesh: a ``parallel.Mesh`` for data parallelism (None: one device);
+            this rank must be a member, and ``device`` its card.
         tensorboard: mirror the epoch records of the ``log_dir`` metrics
             log to TensorBoard (``observability.MetricsLogger``).
         device: the model's device; default "cuda", which raises without
@@ -290,11 +307,16 @@ class Trainer:
                  param_sharding=None, prefetch=4, stage_dtype=None,
                  score_fn=None, cache_staged=False, cache_bytes_limit=None,
                  tensorboard=False, device="cuda"):
-        for name, value in (("mesh", mesh),
-                            ("param_sharding", param_sharding)):
-            if value is not None:
-                _not_ported(name, 12)
+        if param_sharding is not None:
+            raise NotImplementedError(
+                "param_sharding is not ported yet (ROADMAP queue 1, item 12, "
+                "tensor parallelism)")
         self.device = get_device(device)
+        if parallel.as_mesh(mesh) is not None:
+            if not mesh.is_member:
+                raise ValueError(f"this rank is not a member of {mesh}")
+            parallel.check_device(mesh, self.device)
+        self.mesh = mesh
         if model.device != self.device:
             raise ValueError(f"the model lives on {model.device}, the "
                              f"trainer on {self.device}")
@@ -318,8 +340,9 @@ class Trainer:
         self.seed = RANDOM_SEED if rng is None else int(rng)
         self.generator = torch.Generator(device=self.device).manual_seed(
             self.seed)
-        self.metrics_logger = (MetricsLogger(log_dir, tensorboard=tensorboard)
-                               if log_dir else None)
+        self.metrics_logger = (
+            MetricsLogger(log_dir, tensorboard=tensorboard)
+            if log_dir and (mesh is None or mesh.rank == 0) else None)
         self.state = None
 
     # -- state --------------------------------------------------------------
@@ -331,17 +354,27 @@ class Trainer:
         params = {k: p.detach().clone() for k, p in module.named_parameters()}
         batch_stats = {k: b.detach().clone()
                        for k, b in module.named_buffers()}
-        self.state = TrainState(step=0, params=params,
-                                batch_stats=batch_stats,
-                                opt_state=self.optimizer.init(params))
+        self.state = self._replicated(TrainState(
+            step=0, params=params, batch_stats=batch_stats,
+            opt_state=self.optimizer.init(params)))
         return self.state
+
+    def _replicated(self, state):
+        """Under a mesh, ``state`` as rank 0 holds it, on every rank."""
+        if self.mesh is None:
+            return state
+        return state.replace(**{k: parallel.put_replicated(
+            getattr(state, k), self.mesh)
+            for k in ("params", "batch_stats", "opt_state")})
 
     def restore(self, checkpoint_path):
         """Resume from a checkpoint; sets initial_epoch from the filename
-        (reference: keras_utils.py:187-189, 202)."""
+        (reference: keras_utils.py:187-189, 202). Every rank of a mesh
+        reads the file, and the state is replicated from rank 0."""
         if self.state is None:
             self.create_state()
-        self.state = ckpt_lib.restore_checkpoint(checkpoint_path, self.state)
+        self.state = self._replicated(
+            ckpt_lib.restore_checkpoint(checkpoint_path, self.state))
         self.initial_epoch = ckpt_lib.initial_epoch_from_path(checkpoint_path)
         self.sync_model_variables()
         return self.state
@@ -395,22 +428,45 @@ class Trainer:
             return torch.sum(losses * m) / torch.clamp(torch.sum(m), min=1.0)
         return torch.mean(losses)
 
+    def _global_mean(self, losses, batch):
+        """(the global batch's example-mask mean loss, this rank's part of
+        it): the rank's loss sum and example count are all-reduced in one
+        call, and the rank's part, its sum over the global count, is what
+        its backward differentiates."""
+        if "example_mask" in batch:
+            m = batch["example_mask"].to(losses.dtype)
+            local, count = torch.sum(losses * m), torch.sum(m)
+        else:
+            local = torch.sum(losses)
+            count = losses.new_tensor(float(losses.shape[0]))
+        total, count = parallel.all_reduce_tree(
+            torch.stack([local.detach(), count]), self.mesh)
+        count = torch.clamp(count, min=1.0)
+        return total / count, local / count
+
     def _loss_and_grads(self, state, batch, generator=None):
         """Forward and backward of one batch: (loss as a 0-dim device
         tensor, the example-mask mean; grads in params' order; new batch
-        stats)."""
+        stats). Under a mesh the loss is the global batch's and the
+        gradients are summed over the ranks in one bucketed all-reduce."""
         params = {k: v.detach().requires_grad_(True)
                   for k, v in state.params.items()}
-        with torch.enable_grad():
+        with torch.enable_grad(), parallel.data_parallel(self.mesh):
             outputs, new_bs = self._apply(params, state.batch_stats, batch,
                                           train=True, generator=generator)
-            loss = self._masked_mean(
-                self.loss_fn(batch["target"], outputs), batch)
-            grads = torch.autograd.grad(loss, list(params.values()),
+            losses = self.loss_fn(batch["target"], outputs)
+            if parallel.mesh_spans_processes(self.mesh):
+                loss, objective = self._global_mean(losses, batch)
+            else:
+                objective = self._masked_mean(losses, batch)
+                loss = objective.detach()
+            grads = torch.autograd.grad(objective, list(params.values()),
                                         allow_unused=True)
         grads = {k: torch.zeros_like(p) if g is None else g
                  for (k, p), g in zip(state.params.items(), grads)}
-        return loss.detach(), grads, new_bs
+        if self.mesh is not None:
+            grads = parallel.all_reduce_tree(grads, self.mesh)
+        return loss, grads, new_bs
 
     def _apply_gradients(self, state, grads, new_bs):
         """The optimizer update: a new state one step on."""
@@ -593,16 +649,102 @@ class Trainer:
                 order.append(s)
             by_sig[s]["batches"].append(batch)
             by_sig[s]["ns"].extend(list(n) if grouped else [n])
-        join = torch.cat if grouped else torch.stack
-        return [{"stack": {k: join([b[k] for b in e["batches"]])
-                           for k in e["batches"][0]},
+        return [{"stack": parallel.stack_on_mesh(e["batches"], self.mesh,
+                                                 concat=grouped),
                  "ns": np.asarray(e["ns"], np.int64)}
                 for e in (by_sig[s] for s in order)]
 
     def _cache_budget(self):
         """The cache_staged memory budget of this trainer's device
-        (_cache_budget_bytes)."""
-        return _cache_budget_bytes(self.cache_bytes_limit, self.device)
+        (_cache_budget_bytes); under a mesh the least over its ranks, so
+        every rank takes the same cache-or-stream decision (the steps that
+        follow it are collectives)."""
+        budget = _cache_budget_bytes(self.cache_bytes_limit, self.device)
+        if parallel.mesh_spans_processes(self.mesh):
+            budget = float(parallel.host_allgather(
+                np.float64(budget), self.mesh).min())
+        return budget
+
+    def _rows_factor(self, cache_shuffle):
+        """How many times its own rows a rank caches: the mesh size for
+        cache_shuffle="rows" under a mesh (every rank replays from the
+        global cache), else 1."""
+        if cache_shuffle == "rows" and parallel.mesh_spans_processes(
+                self.mesh):
+            return self.mesh.size
+        return 1
+
+    def _gather_stacks(self, groups):
+        """cache_shuffle="rows" under a mesh: each per-shape stack [K, b,
+        ...] becomes the global one [K, ranks x b, ...] on every rank, so a
+        replayed batch can take rows that other ranks cached, as the JAX
+        package's flattened global cache does."""
+        for g in groups:
+            g["stack"] = {k: parallel.all_gather_rows(
+                v.transpose(0, 1), self.mesh).transpose(0, 1)
+                for k, v in g["stack"].items()}
+        return groups
+
+    def _local_columns(self, idx):
+        """This rank's columns of a [K, global rows] replay index."""
+        if not parallel.mesh_spans_processes(self.mesh):
+            return idx
+        b = idx.shape[1] // self.mesh.size
+        return idx[:, self.mesh.rank * b:(self.mesh.rank + 1) * b]
+
+    def _feed_parity_guard(self, source, what="training"):
+        """Fail fast on uneven feeds under a mesh: every step is a
+        collective, so a rank whose loader yields an extra batch would
+        block forever against ranks that left the loop. Before each step
+        the ranks allgather (has a batch, digest of its structure, shapes
+        and dtypes) over the CPU group; a mismatch raises the same error on
+        every rank instead of hanging. Every rank must feed the same number
+        of structurally identical batches (``parallel.local_slice`` pads a
+        ragged global batch for that). Outside a multi-rank mesh the source
+        passes through."""
+        if not parallel.mesh_spans_processes(self.mesh):
+            yield from source
+            return
+        it = iter(source)
+        step = 0
+        try:
+            while True:
+                try:
+                    item = next(it)
+                    have = 1
+                except StopIteration:
+                    item, have = None, 0
+                pair = parallel.host_allgather(np.int64(
+                    [have, parallel.structure_digest(item) if have else 0]),
+                    self.mesh)
+                flags, digests = pair[:, 0], pair[:, 1]
+                if flags.min() != flags.max():
+                    exhausted = [str(i) for i, f in enumerate(flags) if not f]
+                    feeding = [str(i) for i, f in enumerate(flags) if f]
+                    raise RuntimeError(
+                        f"uneven multi-process {what} feed: after {step} "
+                        f"batches, rank(s) {', '.join(exhausted)} ran out "
+                        f"while rank(s) {', '.join(feeding)} still have "
+                        "batches. Every rank must yield the same number of "
+                        "batches per epoch: pad or truncate the local "
+                        "corpora to a common batch count (without this "
+                        "check the extra step would hang in a collective).")
+                if have and digests.min() != digests.max():
+                    raise RuntimeError(
+                        f"divergent multi-process {what} feed: at batch "
+                        f"{step} the staged batch's structure or tensor "
+                        "shapes and dtypes differ across ranks (digests "
+                        f"{digests.tolist()}). Every rank must stage "
+                        "structurally identical batches: a padding mask on "
+                        "one rank but not another, or unequal local batch "
+                        "sizes, would hang the collective step.")
+                if not have:
+                    return
+                yield item
+                step += 1
+        finally:
+            if hasattr(it, "close"):
+                it.close()
 
     def _staged(self, batches, count_fn=None, put=None):
         """Iterate ``batches`` with up to ``self.prefetch`` staged batches
@@ -737,7 +879,8 @@ class Trainer:
                                 {k: v[0] for k, v in g["stack"].items()})
                             idx = rng_epoch.permutation(K * B).reshape(K, B)
                             self.state, loss_k = self._replay_rows_train_step(
-                                self.state, g["stack"], self.generator, idx)
+                                self.state, g["stack"], self.generator,
+                                self._local_columns(idx))
                         else:
                             order = (rng_epoch.permutation(K)
                                      if cache_shuffle else np.arange(K))
@@ -773,6 +916,7 @@ class Trainer:
                         put=self._put_group)
                 else:
                     source = self._staged(batches)
+                source = self._feed_parity_guard(source)
                 # a steps_per_epoch-truncated epoch never populates the cache
                 collecting = ([] if cache_staged and steps_per_epoch is None
                               else None)
@@ -790,7 +934,9 @@ class Trainer:
                                 cache_budget = self._cache_budget()
                             # consolidation holds originals and stacks at
                             # once, so the guard trips at 2x staged bytes
-                            if 2.0 * cached_bytes > cache_budget:
+                            # (1 + ranks x under a mesh's rows replay)
+                            if ((1.0 + self._rows_factor(cache_shuffle))
+                                    * cached_bytes > cache_budget):
                                 logger.warning(
                                     "cache_staged: staged corpus (%.0f MB "
                                     "so far, ~2x transient during "
@@ -830,6 +976,8 @@ class Trainer:
                 staged_cache = (self._consolidate_cache(
                     collecting, grouped=spd > 1,
                     preserve_order=not cache_shuffle) or collecting)
+                if self._rows_factor(cache_shuffle) > 1:
+                    staged_cache = self._gather_stacks(staged_cache)
             train_loss = (float(torch.cat([l.reshape(-1) for l in losses])
                                 .mean()) if losses else float("nan"))
             logs = {"loss": train_loss, **meter.rates(),
@@ -837,7 +985,8 @@ class Trainer:
             if validation_batches is not None:
                 if cache_staged and val_staged is not False:
                     if val_staged is None:
-                        entries = list(self._staged(validation_batches))
+                        entries = list(self._feed_parity_guard(
+                            self._staged(validation_batches), "validation"))
                         vbytes = sum(_tree_device_nbytes(b)
                                      for _, b in entries)
                         if cache_budget is None:
@@ -878,7 +1027,8 @@ class Trainer:
         unless ``staged=True``, in which case they are (n, batch) pairs
         already on the device or _consolidate_cache stacks (the
         cache_staged path, _replay_eval_step). Loss sums, counts and metric
-        states accumulate on the device and are read back once."""
+        states accumulate on the device and are read back once; under a
+        mesh they are summed over the ranks first (``psum_state``)."""
         if self.state is None:
             self.create_state()
         metric_states = {name: m.init_state(self.device)
@@ -890,7 +1040,8 @@ class Trainer:
             source = [(g["ns"], g["stack"]) for g in it]
             run = self._replay_eval_step
         else:
-            source = it if staged else self._staged(it)
+            source = self._feed_parity_guard(
+                it if staged else self._staged(it), "validation")
         try:
             for _, batch in source:
                 loss_sum, n, metric_states = run(self.state, batch,
@@ -900,6 +1051,15 @@ class Trainer:
         finally:
             if hasattr(source, "close"):
                 source.close()  # release staging on any exit path
+        if self.mesh is not None and total is not None:
+            sums = parallel.all_reduce_tree(torch.stack([
+                torch.as_tensor(v, dtype=torch.float32,
+                                device=self.device).reshape(())
+                for v in (total, count)]), self.mesh)
+            total, count = sums[0], sums[1]
+            metric_states = {name: metric.psum_state(metric_states[name],
+                                                     self.mesh)
+                             for name, metric in self.metrics.items()}
         results = {name: metric.result(metric_states[name])
                    for name, metric in self.metrics.items()}
         values = [float("nan") if total is None else total,
@@ -916,17 +1076,21 @@ class Trainer:
     def predict(self, batches):
         """Model outputs for every batch, concatenated on the host. Each
         batch's readback lags one forward behind, so the next forward is
-        queued before the host waits."""
+        queued before the host waits. Under a mesh every rank returns the
+        global batches' outputs (the ranks' rows in rank order)."""
         if self.state is None:
             self.create_state()
         outs = []
         prev = None
-        source = self._staged(batches)
+        source = self._feed_parity_guard(self._staged(batches), "predict")
         try:
             for n, batch in source:
                 out, _ = self._apply(self.state.params,
                                      self.state.batch_stats, batch,
                                      train=False)
+                if self.mesh is not None:
+                    out = parallel.all_gather_rows(out[:n], self.mesh)
+                    n = out.shape[0]
                 if prev is not None:
                     outs.append(prev[1][:prev[0]].cpu().numpy())
                 prev = (n, out)

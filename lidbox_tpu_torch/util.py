@@ -13,6 +13,7 @@ import collections
 import numpy as np
 import torch
 
+from lidbox_tpu_torch import parallel
 from lidbox_tpu_torch.data.dataset import padded_batch
 from lidbox_tpu_torch.metrics import SparseAverageDetectionCost
 from lidbox_tpu_torch.metrics import equal_error_rate as metrics_eer
@@ -56,12 +57,20 @@ def make_batch_predict_fn(model, batch_size=32, mesh=None, compute_dtype=None,
     Classifier) sees scores. ``stage_dtype`` (a floating type, e.g.
     ``"bfloat16"``) rounds float inputs to it on the host before the
     transfer (half the bytes) and upcasts them on the device: outputs
-    differ from the float32 feed only by that input rounding. The JAX
-    package's ``mesh`` (ROADMAP queue 1, item 12) is not ported yet and
-    raises."""
-    if mesh is not None:
-        raise NotImplementedError("mesh is not ported yet (ROADMAP queue 1, "
-                                  "item 12)")
+    differ from the float32 feed only by that input rounding.
+
+    With a ``parallel.Mesh`` inference is data-parallel: every rank calls
+    the function with the same inputs (in lockstep: each call is a
+    collective), every batch is zero-padded to ``batch_size`` (a multiple
+    of the mesh size; larger inputs run in ``batch_size`` chunks), each
+    rank runs the forward of its rows, and the rows are gathered back, so
+    every rank returns the whole batch's outputs. Ranks outside a sub-mesh
+    (``get_mesh(num_devices=N)`` below the group's size) run no forward
+    and receive the outputs from rank 0."""
+    mesh = parallel.as_mesh(mesh)
+    if mesh is not None and batch_size % mesh.size:
+        raise ValueError(f"batch_size {batch_size} must divide over the "
+                         f"{mesh.size}-rank mesh")
     compute_dtype = _torch_dtype(compute_dtype)
     stage = _torch_dtype(stage_dtype)
     if stage is not None and not stage.is_floating_point:
@@ -73,7 +82,7 @@ def make_batch_predict_fn(model, batch_size=32, mesh=None, compute_dtype=None,
         kwargs["compute_dtype"] = compute_dtype
 
     @torch.inference_mode()
-    def predict_fn(inputs, mask=None):
+    def forward(inputs, mask=None):
         x = torch.as_tensor(np.asarray(inputs))
         if stage is not None and x.is_floating_point():
             x = x.to(stage)  # on the host: the transfer carries stage bytes
@@ -86,12 +95,40 @@ def make_batch_predict_fn(model, batch_size=32, mesh=None, compute_dtype=None,
         out = model.apply(x, mask=mask, **kwargs)
         if score_fn is not None:
             out = score_fn(out)
-        return out.float().cpu().numpy()
+        return out.float()
+
+    if mesh is None:
+        return lambda inputs, mask=None: forward(inputs, mask).cpu().numpy()
+
+    @torch.inference_mode()
+    def predict_fn(inputs, mask=None):
+        inputs = np.asarray(inputs)
+        n = inputs.shape[0]
+        if n > batch_size:  # chunk oversized batches
+            return np.concatenate(
+                [predict_fn(inputs[i:i + batch_size],
+                            None if mask is None else mask[i:i + batch_size])
+                 for i in range(0, n, batch_size)])
+        out = None
+        if mesh.is_member:
+            pad = batch_size - n
+            inputs = np.pad(inputs, [(0, pad)] + [(0, 0)] * (inputs.ndim - 1))
+            if mask is not None:
+                # pad rows get an all-True mask: their (discarded) forwards
+                # stay finite instead of pooling over zero valid frames
+                mask = np.pad(np.asarray(mask, bool), [(0, pad), (0, 0)],
+                              constant_values=True)
+            m = batch_size // mesh.size
+            rows = slice(mesh.rank * m, (mesh.rank + 1) * m)
+            out = parallel.all_gather_rows(
+                forward(inputs[rows], None if mask is None else mask[rows]),
+                mesh)
+        return parallel.share_with_world(out, mesh)[:n].cpu().numpy()
     return predict_fn
 
 
 def predict_with_model(model, ds, predict_fn=None, batch_size=32,
-                       pad_buckets=None, score_fn=None):
+                       pad_buckets=None, mesh=None, score_fn=None):
     """Map a model over all elements of ds (dict elements with ``input``)
     in batches of ``batch_size``; returns the ``{"id", "prediction"}``
     table (reference: util.py:23-38).
@@ -102,10 +139,14 @@ def predict_with_model(model, ds, predict_fn=None, batch_size=32,
     the elements (a ``signal`` of another length) may differ in shape,
     where the JAX package's padded batch raises on them. ``score_fn`` maps
     the outputs to class scores (``make_batch_predict_fn``; applied to a
-    custom ``predict_fn``'s outputs too)."""
+    custom ``predict_fn``'s outputs too). With a ``mesh`` every rank maps
+    the same dataset and each batch's forward is data-parallel
+    (``make_batch_predict_fn``); every rank returns the whole table."""
     if predict_fn is None:
+        if mesh is not None:
+            batch_size = -(-batch_size // mesh.size) * mesh.size
         predict_fn = make_batch_predict_fn(model, batch_size=batch_size,
-                                           score_fn=score_fn)
+                                           mesh=mesh, score_fn=score_fn)
     elif score_fn is not None:
         base_fn = predict_fn
 
@@ -276,7 +317,7 @@ def classification_report(true_sparse, pred_dense, label2target,
 
 
 def evaluate_testset_with_model(model, test_ds, test_meta, lang2target,
-                                score_fn=None):
+                                score_fn=None, mesh=None):
     """predict + join on metadata + report (reference: util.py:108-119).
 
     ``test_meta`` is a table with ``"id"`` and ``"target"`` columns.
@@ -285,8 +326,10 @@ def evaluate_testset_with_model(model, test_ds, test_meta, lang2target,
     utterance level by averaging before the join; a join whose id sets
     differ raises. ``score_fn`` maps the raw model outputs to [B, N] class
     scores first (required for language-vector models: pass the
-    AngularProximity loss's ``predict``)."""
-    utt2pred = predict_with_model(model, test_ds, score_fn=score_fn)
+    AngularProximity loss's ``predict``). With a ``mesh`` the predictions
+    are data-parallel (``predict_with_model``)."""
+    utt2pred = predict_with_model(model, test_ds, score_fn=score_fn,
+                                  mesh=mesh)
     meta_ids = {str(i) for i in test_meta["id"]}
     pred_ids = utt2pred["id"]
     if (pred_ids and not set(pred_ids) <= meta_ids

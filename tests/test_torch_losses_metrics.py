@@ -18,6 +18,7 @@ import lidbox_tpu.losses as jlosses
 import lidbox_tpu.metrics as jmetrics
 import lidbox_tpu_torch.losses as tlosses
 import lidbox_tpu_torch.metrics as tmetrics
+from lidbox_tpu_torch import parallel
 
 torch.set_num_threads(2)
 
@@ -162,8 +163,16 @@ def test_cavg_merge_states_equal_jax():
                                       np.asarray(jmerged[k]), err_msg=k)
     np.testing.assert_allclose(float(tm.result(tmerged)),
                                float(jm.result(jmerged)), rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.psum_state(tmerged, "data")
+    # psum_state runs (a 1-rank mesh here: the sum is the state itself;
+    # two ranks in tests/test_torch_parallel.py)
+    mesh = parallel.get_mesh(device="cpu")
+    for axis in (mesh, "data"):
+        summed = tm.psum_state(tmerged, axis)
+        for k in tmerged:
+            np.testing.assert_array_equal(summed[k].numpy(),
+                                          mesh.size * tmerged[k].numpy())
+    with pytest.raises(ValueError, match="axis"):
+        tm.psum_state(tmerged, "model")
     with pytest.raises(ValueError):
         tmetrics.AverageDetectionCost(1, THRESHOLDS)
 

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 
 import lidbox_tpu.models as jmodels
 import lidbox_tpu_torch.models as tmodels
+from lidbox_tpu_torch import parallel
 from lidbox_tpu_torch.models import layers, model_api
 
 torch.set_num_threads(2)
@@ -151,7 +152,12 @@ def test_registry_and_unported_options():
     from lidbox_tpu_torch.util import make_batch_predict_fn
     served = make_batch_predict_fn(model, compute_dtype=torch.bfloat16)(x.numpy())
     np.testing.assert_array_equal(served, y16.numpy())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a 1-rank mesh pads every batch to batch_size and returns its rows
+    mesh = parallel.get_mesh(device="cpu")
+    on_mesh = make_batch_predict_fn(model, batch_size=8 * mesh.size,
+                                    mesh=mesh)(x.numpy())
+    np.testing.assert_allclose(on_mesh, y32.numpy(), atol=1e-5, rtol=1e-5)
+    with pytest.raises(TypeError):
         make_batch_predict_fn(model, mesh=object())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):

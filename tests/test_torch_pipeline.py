@@ -35,6 +35,7 @@ import lidbox_tpu.util as jutil
 import lidbox_tpu_torch.data.steps as tsteps
 import lidbox_tpu_torch.models as tmodels
 import lidbox_tpu_torch.util as tutil
+from lidbox_tpu_torch import parallel
 from lidbox_tpu import testutil
 from lidbox_tpu.data import pipelines as jpipelines
 from lidbox_tpu.data.dataset import Dataset as JDataset
@@ -633,14 +634,22 @@ def test_embedding_extractor_matches_jax(checkpoints):
         dict(config("jax"), stage_dtype="bfloat16"))(x))
     np.testing.assert_allclose(staged, ref_staged, atol=EMBED_ATOL, rtol=0)
     assert not np.array_equal(staged, ours)  # the feed was rounded
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # data-parallel extraction runs (a 1-rank mesh here; two ranks in
+    # tests/test_torch_parallel.py), its batch padded to a mesh multiple
+    mesh = parallel.get_mesh(device="cpu")
+    on_mesh = TWrapper.from_config_as_embedding_extractor_fn(
+        config("port"), mesh=mesh, device="cpu")(x)
+    np.testing.assert_allclose(on_mesh, ref, atol=EMBED_ATOL, rtol=0)
+    with pytest.raises(TypeError):
         TWrapper.from_config_as_embedding_extractor_fn(config("port"),
                                                        mesh=object(),
                                                        device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsteps.extract_embeddings(TDataset.from_elements([]), {
-            "extractors": [config("port")], "data_parallel": True},
-            device="cpu")
+    ds = tsteps.extract_embeddings(TDataset.from_elements(
+        [{"id": str(i), "input": row} for i, row in enumerate(x)]), {
+        "extractors": [config("port")], "data_parallel": True,
+        "batch_size": 4}, device="cpu")
+    np.testing.assert_allclose(np.stack([e["embedding"] for e in ds]), ref,
+                               atol=EMBED_ATOL, rtol=0)
     with pytest.raises(FileNotFoundError):
         TWrapper.from_config_as_embedding_extractor_fn(
             dict(config("port"), experiment_name="none"), device="cpu")
@@ -667,7 +676,11 @@ def test_batch_predict_dtype_flags_match(checkpoints, flag):
             np.testing.assert_allclose(ours, ref, atol=EMBED_ATOL, rtol=0)
     with pytest.raises(ValueError, match="stage_dtype must be floating"):
         tutil.make_batch_predict_fn(tm, stage_dtype="int16")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    mesh = parallel.get_mesh(device="cpu")  # a 1-rank mesh runs
+    np.testing.assert_allclose(tutil.make_batch_predict_fn(
+        tm, batch_size=8 * mesh.size, mesh=mesh)(x, mask), ref32,
+        atol=EMBED_ATOL, rtol=0)
+    with pytest.raises(TypeError):
         tutil.make_batch_predict_fn(tm, mesh=object())
     # score_fn (ported with the language-vector models) maps the outputs
     # on the device before the readback, as the JAX package's does

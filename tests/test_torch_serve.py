@@ -15,6 +15,8 @@ import lidbox_tpu.models as jmodels
 import lidbox_tpu.serve as jserve
 import lidbox_tpu_torch.models as tmodels
 import lidbox_tpu_torch.serve as tserve
+from lidbox_tpu import parallel as jparallel
+from lidbox_tpu_torch import parallel
 from lidbox_tpu import testutil
 from lidbox_tpu_torch.features import io as tio
 
@@ -114,11 +116,21 @@ def test_streaming_equals_offline_chunking_and_jax(pair):
     assert ours.scores() is None and ours._buffer.size == 0
 
 
-def test_devices_and_unported_options(pair):
-    _, tm = pair
+def test_devices_and_unported_options(pair, audio_fixtures):
+    jm, tm = pair
     tserve.Classifier(tm, LABELS, device="cpu", stage_dtype="bfloat16",
                       compute_dtype="bfloat16")  # ported: the serving flags
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the mesh is ported: a 1-rank one here (two ranks in
+    # tests/test_torch_parallel.py) against the JAX package's 2-device mesh
+    paths, ids = _inputs(audio_fixtures)
+    ours = tserve.Classifier(tm, LABELS, feature_config=FC, batch_size=4,
+                             device="cpu",
+                             mesh=parallel.get_mesh(device="cpu"))
+    ref = jserve.Classifier(jm, LABELS, feature_config=FC, batch_size=4,
+                            mesh=jparallel.get_mesh(num_devices=2))
+    _assert_same(ours.classify(paths[:2], ids[:2]),
+                 ref.classify(paths[:2], ids[:2]))
+    with pytest.raises(TypeError):
         tserve.Classifier(tm, LABELS, device="cpu", mesh=object())
     # score_fn is ported (language-vector models; their serving parity is
     # in tests/test_torch_zoo_train.py): both entry points take it

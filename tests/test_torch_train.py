@@ -44,6 +44,7 @@ from lidbox_tpu.train import loop as jloop
 from lidbox_tpu.train import optimizers as jopt
 from lidbox_tpu_torch import losses as tlosses
 from lidbox_tpu_torch import metrics as tmetrics
+from lidbox_tpu_torch import parallel
 from lidbox_tpu_torch.data import on_device
 from lidbox_tpu_torch.features import io as tio
 from lidbox_tpu_torch.models import layers
@@ -424,10 +425,12 @@ def test_fit_fused_entry_points(fused_runs, tmp_path):
     "embedding_extractor", "orbax"])
 def test_left_options_raise(tmp_path, what):
     """The options a later slice ports raise NotImplementedError naming
-    ROADMAP (mesh, the embedding extractor's mesh, Orbax), bad augmentation
-    configs raise ValueError; the augmentation stages and the feed options
-    this slice ported run (their numerics are in tests/test_torch_augment.py
-    and tests/test_torch_feed.py)."""
+    ROADMAP (Orbax), bad augmentation configs raise ValueError; the
+    augmentation stages, the feed options and the mesh (a 1-rank one here,
+    the mesh of the embedding extractor too) run, and a ``mesh`` that is
+    not a ``parallel.Mesh`` raises TypeError (their numerics are in
+    tests/test_torch_augment.py, tests/test_torch_feed.py and
+    tests/test_torch_parallel*.py)."""
     cfg = fused_config(tmp_path)
     noise = tmp_path / "n.wav"
     tio.write_mono_wav(str(noise), np.full(RATE, 0.1, np.float32), RATE)
@@ -461,17 +464,38 @@ def test_left_options_raise(tmp_path, what):
         assert len(h) == 2 and np.isfinite(h).all()
         assert wrapper.trainer.state.step == 4
         return
+    if what in ("mesh", "embedding_extractor"):
+        mesh = parallel.get_mesh(device="cpu")
+        with pytest.raises(TypeError):
+            ModelWrapper.from_config(cfg, mesh=object(), device="cpu")
+        wrapper = ModelWrapper.from_config(cfg, mesh=mesh, device="cpu")
+        assert wrapper.trainer.mesh is mesh
+        h = wrapper.fit_fused(lambda: noisy_sines(1, seed=8), verbose=False,
+                              val_signal_batches=lambda: noisy_sines(1, 9))
+        assert np.isfinite(h[0]["loss"]) and wrapper.trainer.state.step == 1
+        if what == "mesh":
+            return
+        extractor = {"cache_directory": str(tmp_path),
+                     "model": {"key": "xvector"}, "experiment_name": "fused",
+                     "input_shape": [T, 64], "output_shape": [N_CLASSES],
+                     "best_checkpoint": {"monitor": "val_loss", "mode": "min"}}
+        x = np.random.default_rng(3).normal(0, 1, (5, T, 64)).astype(
+            np.float32)
+        ours = ModelWrapper.from_config_as_embedding_extractor_fn(
+            extractor, mesh=mesh, device="cpu")(x)
+        ref = ModelWrapper.from_config_as_embedding_extractor_fn(
+            extractor, device="cpu")(x)
+        assert ours.shape == (5, 512)  # the mesh pads to its batch of 32
+        np.testing.assert_allclose(ours, ref, atol=1e-5, rtol=0)
+        with pytest.raises(TypeError):
+            ModelWrapper.from_config_as_embedding_extractor_fn(
+                extractor, mesh=object(), device="cpu")
+        return
     if what == "orbax":
         cfg["experiment"]["callbacks"][0]["kwargs"]["backend"] = "orbax"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if what == "mesh":
-            ModelWrapper.from_config(cfg, mesh=object(), device="cpu")
-        elif what == "embedding_extractor":  # ported, but not its mesh
-            ModelWrapper.from_config_as_embedding_extractor_fn(
-                {}, mesh=object(), device="cpu")
-        else:
-            ModelWrapper.from_config(cfg, device="cpu").fit_fused(
-                lambda: noisy_sines(1, seed=8))
+        ModelWrapper.from_config(cfg, device="cpu").fit_fused(
+            lambda: noisy_sines(1, seed=8))
 
 
 class _ClaimsCuda(torch.Tensor):
