@@ -130,7 +130,25 @@ Phases, each of which fails the run:
    SERVE_ATOL of the mesh-less scores, the gloo all-reduce, the feed
    guard and the step timed; (c) an uneven feed raises on both ranks. A
    rank that fails, or outlives its time limit, fails the run;
-12. the kernel table as one JSON line (after phase 6's [64, 32000] kernel
+12. tensor parallelism (``parallel.get_mesh_2d`` +
+   ``parallel.column_parallel_rule``): the full-width x-vector through
+   ``fit_fused`` (Adam 1e-4), 3 steps of [32, 48000] and 1 validation
+   batch (a stream of its own, seed 1240). (a) In this process: mesh-less
+   and on a 1 x 1 NCCL mesh with the rule, step losses and validation
+   equal; one process on signals one ulp away, the comparison's floor;
+   ``remat`` with channel dropout 0.5 against the plain step (rtol 1e-6);
+   the ``bf16_3x`` / ``bf16_6x`` log-Mel of a training batch against
+   float64 (the JAX package's 1.5e-3 budget), timed, and their pallas
+   request on the matmul path. (b) Two ranks of this script
+   (``--tp-rank``) share the card over gloo as data 1 x model 2, each on
+   the whole batch: step losses and validation within rtol 1e-3 of (a)'s
+   mesh-less run, synced weights and features bit-equal across the
+   ranks, half of each split weight on a rank, one kernel launch per step
+   and validation batch on each rank, each rank's batch held to the plain
+   version; the step, and in one instrumented step the model group's
+   gathers and all-reduces with their bytes, timed. A rank that fails,
+   or outlives its time limit, fails the run;
+13. the kernel table as one JSON line (after phase 6's [64, 32000] kernel
    line again), the card line, and the result line.
 
 Every comparison of the kernel with its plain version holds float32 within
@@ -1881,14 +1899,21 @@ def dp_config(root, key, name):
 
 def dp_fit(root, key, name, train, val, mesh=None, device="cuda"):
     """fit_fused of ``key`` (weights from SEED) for one epoch of ``train``
-    with ``val`` validating: (step losses, epoch logs, the kernel's launches
-    over the fit, the wrapper). Under a mesh of several ranks each rank
-    feeds its rows of every batch (``parallel.local_batches``)."""
-    from lidbox_tpu_torch import parallel
+    with ``val`` validating (``fit_wrapper``)."""
     from lidbox_tpu_torch.models.model_utils import ModelWrapper
+    return fit_wrapper(ModelWrapper.from_config(dp_config(root, key, name),
+                                                mesh=mesh, device=device),
+                       train, val, mesh, device)
+
+
+def fit_wrapper(wrapper, train, val, mesh, device):
+    """fit_fused of ``wrapper`` (weights from SEED) for one epoch of
+    ``train`` with ``val`` validating: (step losses, epoch logs, the
+    kernel's launches over the fit, the wrapper). Under a mesh of several
+    ranks each rank feeds its rows of every batch
+    (``parallel.local_batches``)."""
+    from lidbox_tpu_torch import parallel
     from lidbox_tpu_torch.ops import logmel
-    wrapper = ModelWrapper.from_config(dp_config(root, key, name), mesh=mesh,
-                                       device=device)
     wrapper.model.init(torch.Generator().manual_seed(SEED))
     trainer = wrapper.trainer
     losses = []
@@ -2057,17 +2082,17 @@ def dp_rank_main(workdir):
     return 0
 
 
-def dp_start_ranks(workdir, device, backend_probe=False):
-    """Start DP_RANKS copies of this script as the ranks of a group that
+def dp_start_ranks(workdir, device, flag="--dp-rank", ranks=DP_RANKS):
+    """Start ``ranks`` copies of this script with ``flag`` (``--dp-rank``,
+    ``--dp-nccl-probe``, ``--tp-rank``) as the ranks of a group that
     rendezvous through a file under ``workdir``."""
     env = dict(os.environ, LIDBOX_SMOKE_DEVICE=device,
                PYTHONPATH=os.path.dirname(os.path.abspath(__file__)),
                COORDINATOR_ADDRESS="file://" + os.path.join(
-                   workdir, "nccl_store" if backend_probe else "store"),
-               NUM_PROCESSES=str(DP_RANKS))
-    flag = "--dp-nccl-probe" if backend_probe else "--dp-rank"
+                   workdir, f"{flag[2:]}_store"),
+               NUM_PROCESSES=str(ranks))
     procs = []
-    for rank in range(DP_RANKS):
+    for rank in range(ranks):
         log = open(os.path.join(workdir, f"{flag[2:]}{rank}.log"), "w")
         procs.append((subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), flag, workdir],
@@ -2266,8 +2291,8 @@ def phase_data_parallel(root, rng, logmel, device="cuda"):
               f"{[round(o['xvector']['step_ms'], 4) for o in ranks]} ms, "
               f"crnn {[round(o['crnn']['step_ms'], 4) for o in ranks]} ms "
               "(CUDA events, medians)")
-        codes = dp_wait(dp_start_ranks(workdir, device, backend_probe=True),
-                        90)
+        codes = dp_wait(dp_start_ranks(workdir, device,
+                                       flag="--dp-nccl-probe"), 90)
         seen = []
         for r in range(DP_RANKS):
             with open(os.path.join(workdir, f"dp-nccl-probe{r}.log")) as f:
@@ -2276,6 +2301,336 @@ def phase_data_parallel(root, rng, logmel, device="cuda"):
               f"{seen[:2]}")
     return launches, err
 
+
+
+# Tensor parallelism (phase 12): the full-width x-vector through fit_fused,
+# 3 steps of [32, 48000] and 1 validation batch (a stream of its own, seed
+# 1240), over a 2-D (data, model) mesh with the column-parallel rule:
+# mesh-less, on a 1 x 1 NCCL mesh in this process and on 1 x 2 over gloo
+# (two ranks of this script sharing the card), with remat and the DSP split
+# modes beside it.
+TP_STEPS, TP_BATCH, TP_SECONDS = 3, TRAIN_BATCH, TRAIN_SECONDS
+TP_RANKS = 2
+TP_RTOL = 1e-3
+# Adam at 1e-4 (epsilon 1e-4, dp_config's): at 1e-3 the x-vector's first
+# steps on this stream overshoot (the loss rises at step 2), and one
+# process's validation after 3 steps moved by 2.3e-5 under a one-ulp
+# change of its features on the CPU, 1.3e-6 at 1e-4: at 1e-3 the
+# comparison reads the trajectory's amplification of float32 rounding,
+# not the mesh (on an H100 at 1e-3 the 2-rank validation read 1.2e-3 from
+# one process, its step losses 1.6e-6).
+TP_LEARNING_RATE = 1e-4
+REMAT_RTOL = 1e-6
+# the JAX package's budget for its split modes: a log-Mel error of about
+# 1.5e-3 against float64 (lidbox_tpu/features/audio.py:199-210)
+SPLIT_BUDGET = 1.5e-3
+TP_COLLECTIVE_TIMEOUT_S, TP_RANK_TIMEOUT_S = 120, 300
+
+
+def tp_fit(root, name, train, val, mesh=None, device="cuda", remat=False,
+           dropout=0.0):
+    """fit_wrapper's run of the x-vector (channel dropout ``dropout``, Adam
+    at TP_LEARNING_RATE) with ``remat``; on a 2-D ``mesh`` its Trainer
+    splits the parameters with ``parallel.column_parallel_rule``: (step
+    losses, epoch logs, the kernel's launches over the fit, the
+    wrapper)."""
+    from lidbox_tpu_torch import parallel
+    from lidbox_tpu_torch.models.model_utils import ModelWrapper
+    from lidbox_tpu_torch.train.loop import Trainer
+    config = dp_config(root, "xvector", name)
+    config["experiment"]["model"]["kwargs"] = {
+        "channel_dropout_rate": dropout}
+    config["experiment"]["optimizer"]["kwargs"]["learning_rate"] = \
+        TP_LEARNING_RATE
+    wrapper = ModelWrapper.from_config(config, device=device)
+    t = wrapper.trainer
+    if mesh is not None:
+        wrapper.trainer = Trainer(
+            t.model, t.optimizer, t.loss_fn, metrics=t.metrics, mesh=mesh,
+            param_sharding=parallel.column_parallel_rule(mesh),
+            device=device)
+    wrapper.trainer.remat = remat
+    return fit_wrapper(wrapper, train, val, mesh, device)
+
+
+def tp_collectives(wrapper, signals, targets):
+    """One fused train step with every model-group collective timed on
+    CUDA events: (gather ms, gathered MB, all-reduce ms, all-reduced MB).
+    Each collective is synchronized alone, so the step itself is slower
+    than a plain one."""
+    import torch.distributed as dist
+    from lidbox_tpu_torch import parallel
+    gather, reduce = parallel.all_gather_rows, dist.all_reduce
+    spent = {"gather": [0.0, 0], "reduce": [0.0, 0]}
+
+    def timed(kind, fn, nbytes):
+        def run(x, *args, **kw):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = fn(x, *args, **kw)
+            end.record()
+            end.synchronize()
+            spent[kind][0] += start.elapsed_time(end)
+            spent[kind][1] += nbytes(x, out)
+            return out
+        return run
+
+    parallel.all_gather_rows = timed(
+        "gather", gather, lambda x, out: out.numel() * out.element_size())
+    dist.all_reduce = timed(
+        "reduce", reduce, lambda x, out: x.numel() * x.element_size())
+    try:
+        dp_step_ms(wrapper, signals, targets, steps=1, warmup=0)
+    finally:
+        parallel.all_gather_rows, dist.all_reduce = gather, reduce
+    return (spent["gather"][0], spent["gather"][1] / 1e6,
+            spent["reduce"][0], spent["reduce"][1] / 1e6)
+
+
+def tp_rank_main(workdir):
+    """One rank of phase 12b (``chip_smoke.py --tp-rank DIR``): the
+    x-vector through fit_fused on a 1 x 2 (data, model) mesh over gloo,
+    digests of its synced weights and of its first batch's features, that
+    batch held to the plain version, and the step and its collectives
+    timed. Writes tp_rank<r>.json to DIR."""
+    from lidbox_tpu_torch import parallel
+    from lidbox_tpu_torch.ops import logmel
+    device = os.environ["LIDBOX_SMOKE_DEVICE"]
+    on_card = device == "cuda"
+    if on_card:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+    parallel.initialize_distributed(backend="gloo",
+                                    device="cuda:0" if on_card else "cpu",
+                                    timeout=TP_COLLECTIVE_TIMEOUT_S)
+    mesh = parallel.get_mesh_2d(data_size=1, model_size=TP_RANKS)
+    data = np.load(os.path.join(workdir, "tp_data.npz"))
+    train = list(zip(data["train_x"], data["train_y"]))
+    val = list(zip(data["val_x"], data["val_y"]))
+    losses, logs, launches, wrapper = tp_fit(workdir, "tp2", train, val,
+                                             mesh, device)
+    trainer = wrapper.trainer
+    x = torch.as_tensor(parallel.local_slice(train[0], mesh)[0],
+                        device=trainer.device)
+    feats = logmel.fused_logmel(x, RATE, **KERNEL_KW)
+    out = {"rank": mesh.rank, "coords": [mesh.data_index, mesh.model_index],
+           "losses": losses, "val_loss": logs["val_loss"],
+           "val_C_avg": logs["val_C_avg"], "launches": launches,
+           "split": sorted(trainer.param_specs),
+           "shards": {k: list(trainer.state.params[k].shape)
+                      for k in trainer.param_specs},
+           "weights": parallel.host_allgather(np.int64(dp_digest(
+               wrapper.model.module.state_dict())), mesh)[:, 0].tolist(),
+           "features": parallel.host_allgather(np.int64(dp_digest(
+               {"f": feats})), mesh)[:, 0].tolist()}
+    if on_card:
+        y = parallel.local_slice(train[0], mesh)[1]
+        out["kernel_err"] = compare(logmel, f"tp rank {mesh.rank} batch", x,
+                                    RATE, KERNEL_KW)
+        out["step_ms"] = dp_step_ms(wrapper, x.cpu().numpy(), y, steps=5,
+                                    warmup=2)
+        out["collectives"] = tp_collectives(wrapper, x.cpu().numpy(), y)
+    with open(os.path.join(workdir, f"tp_rank{mesh.rank}.json"), "w") as f:
+        json.dump(out, f)
+    parallel.shutdown_distributed()
+    return 0
+
+
+def tp_gather_mb(batch, samples):
+    """The activations the x-vector's column-parallel layers gather per
+    forward, from its shapes: frame layers of 512, 512, 512, 512 and 1500
+    channels over the frames each leaves (strides 1, 2, 3, 1, 1), then
+    segment1 and segment2 (512 each), float32, in MB."""
+    frames = 1 + (samples - 400) // 160
+    f2 = -(-frames // 2)
+    f3 = -(-f2 // 3)
+    per_row = (512 * frames + 512 * f2 + 512 * f3 * 2 + 1500 * f3
+               + 512 * 2)
+    return 4 * batch * per_row / 1e6
+
+
+def phase_tensor_parallel(root, rng, logmel, device="cuda"):
+    """Phase 12: (a) the x-vector mesh-less and on a 1 x 1 NCCL mesh with
+    the column-parallel rule in this process: equal step losses and
+    validation; with remat (channel dropout 0.5) against the plain step
+    (REMAT_RTOL); the split DSP modes' log-Mel of a training batch against
+    float64 (SPLIT_BUDGET) and their pallas request on the matmul path;
+    (b) 2 ranks on the card over gloo as data 1 x model 2, each on the
+    whole batch: step losses and validation within TP_RTOL of (a)'s
+    mesh-less run, the synced weights and the first batch's features
+    bit-equal across the ranks, one kernel launch per step and validation
+    batch on each rank, each rank's batch held to the plain version, and
+    the step and its model-group collectives timed. Returns (launches,
+    the kernel's worst error on the ranks' batches).
+
+    ``device="cpu"`` rehearses it on the plain version over gloo (set
+    TP_BATCH and TP_SECONDS small first); the NCCL mesh, the launch
+    counts, the kernel check and the timing need the card."""
+    from lidbox_tpu_torch import features, parallel
+    on_card = device == "cuda"
+    train = class_sines(rng, TP_STEPS, TP_BATCH, TP_SECONDS)
+    val = class_sines(rng, 1, TP_BATCH, TP_SECONDS)
+    workdir = os.path.join(root, "tp")
+    os.makedirs(workdir)
+    np.savez(os.path.join(workdir, "tp_data.npz"),
+             train_x=np.stack([x for x, _ in train]),
+             train_y=np.stack([y for _, y in train]),
+             val_x=np.stack([x for x, _ in val]),
+             val_y=np.stack([y for _, y in val]))
+    samples = int(RATE * TP_SECONDS)
+    print(f"tensor parallel: seed {SEED + 6}, {TP_STEPS} steps of "
+          f"[{TP_BATCH}, {samples}] + 1 validation batch")
+
+    # (a) mesh-less, a 1 x 1 mesh, remat, the split modes
+    losses0, logs0, launches, wrapper0 = tp_fit(root, "tp0", train, val,
+                                                None, device)
+    check(launches == TP_STEPS + 1 or not on_card,
+          f"mesh-less: {launches} kernel launches, not {TP_STEPS + 1}")
+    # the comparison's floor: one process on signals one ulp away
+    nudged = [(x * np.float32(1 + 2 ** -23), y) for x, y in train]
+    losses_u, logs_u, n, _ = tp_fit(root, "tp_ulp", nudged, val, None,
+                                    device)
+    launches += n
+    floor = max(abs(a - b) / abs(b) for a, b in zip(
+        losses_u + [logs_u["val_loss"]], losses0 + [logs0["val_loss"]]))
+    mesh = parallel.get_mesh_2d(data_size=1, model_size=1, device=device)
+    losses1, logs1, n, wrapper1 = tp_fit(root, "tp1", train, val, mesh,
+                                         device)
+    launches += n
+    check(losses1 == losses0 and logs1["val_loss"] == logs0["val_loss"],
+          f"1 x 1 mesh: step losses {losses1}, val {logs1['val_loss']} != "
+          f"mesh-less {losses0}, {logs0['val_loss']}")
+    print(f"tensor parallel (a): 1 x 1 {mesh.backend} mesh with the "
+          f"column-parallel rule ({len(wrapper1.trainer.param_specs)} "
+          f"parameters split) step losses {losses1} == mesh-less {losses0}; "
+          f"val_loss {logs1['val_loss']!r} == {logs0['val_loss']!r}")
+    remat = {}
+    for on in (False, True):
+        remat[on] = tp_fit(root, f"tp_remat{int(on)}", train, val, None,
+                           device, remat=on, dropout=0.5)
+        launches += remat[on][2]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(remat[True][0],
+                                                  remat[False][0]))
+    check(rel <= REMAT_RTOL, f"remat step losses {remat[True][0]} vs plain "
+                             f"{remat[False][0]} (rel {rel})")
+    print(f"tensor parallel (a): remat with channel dropout 0.5, step "
+          f"losses {remat[True][0]} vs plain {remat[False][0]}: max rel "
+          f"diff {rel:.3e} (rtol {REMAT_RTOL})")
+    x = torch.as_tensor(train[0][0], device=device)
+    exact = logmel_f64(logmel, x, RATE, KERNEL_KW) if on_card else None
+    split = {}
+    for mode in ("highest", "bf16_3x", "bf16_6x"):
+        kw = dict(feature_type="logmelspectrogram", precision=mode,
+                  melspectrogram=KERNEL_KW)
+        out = features.extract_features(x, RATE, stft_method="matmul", **kw)
+        if mode != "highest":
+            before = logmel.fused_logmel.launches
+            routed = features.extract_features(x, RATE, stft_method="pallas",
+                                               **kw)
+            check(logmel.fused_logmel.launches == before
+                  and torch.equal(routed, out),
+                  f"{mode}: the pallas request did not take the matmul path")
+        if on_card:
+            err = (out.double() - exact).abs().max().item()
+            check(mode == "highest" or err <= SPLIT_BUDGET,
+                  f"{mode}: log-Mel {err} from float64 (budget "
+                  f"{SPLIT_BUDGET})")
+            split[mode] = (err, cuda_ms(lambda: features.extract_features(
+                x, RATE, stft_method="matmul", **kw), reps=3, iters=5))
+        else:
+            split[mode] = (float("nan"), float("nan"))
+    print("tensor parallel (a): DSP modes on the matmul path at "
+          f"[{TP_BATCH}, {samples}], max abs log-Mel error vs float64 "
+          f"(budget {SPLIT_BUDGET} for the split modes) and ms (CUDA "
+          "events): " + "; ".join(f"{m} {e:.3e} {t:.4f} ms"
+                                  for m, (e, t) in split.items())
+          + "; a pallas request in a split mode takes the matmul path")
+    timing = {}
+    if on_card:
+        x, y = train[0]
+        timing["meshless"] = dp_step_ms(wrapper0, x, y)
+        timing["mesh11"] = dp_step_ms(wrapper1, x, y)
+        timing["remat"] = dp_step_ms(remat[True][3], x, y)
+        timing["plain_dropout"] = dp_step_ms(remat[False][3], x, y)
+        print(f"tensor parallel timing (a): fused train step [{TP_BATCH}, "
+              f"{samples}] model 1: mesh-less {timing['meshless']:.4f} ms, "
+              f"1 x 1 mesh {timing['mesh11']:.4f} ms; with channel dropout "
+              f"plain {timing['plain_dropout']:.4f} ms, remat "
+              f"{timing['remat']:.4f} ms (CUDA events, medians)")
+    parallel.shutdown_distributed()
+
+    # (b) 1 x 2 over gloo, two ranks on the card
+    if on_card:
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    codes = dp_wait(dp_start_ranks(workdir, device, flag="--tp-rank",
+                                   ranks=TP_RANKS), TP_RANK_TIMEOUT_S)
+    if codes != [0] * TP_RANKS:
+        for r in range(TP_RANKS):
+            with open(os.path.join(workdir, f"tp-rank{r}.log")) as f:
+                print(f"--- rank {r} ---\n" + f.read()[-4000:])
+        check(False, f"tensor parallel ranks exited {codes}")
+    ranks = []
+    for r in range(TP_RANKS):
+        with open(os.path.join(workdir, f"tp_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    print(f"tensor parallel (b): {TP_RANKS} ranks on one card over gloo "
+          f"in {time.perf_counter() - t0:.1f} s")
+    err = 0.0
+    for out in ranks:
+        rel = max(abs(a - b) / abs(b) for a, b in zip(
+            out["losses"] + [out["val_loss"]], losses0 + [logs0["val_loss"]]))
+        check(len(out["losses"]) == TP_STEPS and rel <= TP_RTOL,
+              f"rank {out['rank']}: step losses {out['losses']}, val "
+              f"{out['val_loss']} vs one process {losses0}, "
+              f"{logs0['val_loss']} (rel {rel})")
+        check(len(set(out["weights"])) == 1 and len(set(out["features"]))
+              == 1, f"rank {out['rank']}: ranks differ: weights "
+                    f"{out['weights']}, features {out['features']}")
+        check(out["split"] and all(s[0] * TP_RANKS == dict(
+            wrapper0.model.module.named_parameters())[k].shape[0]
+            for k, s in out["shards"].items()),
+            f"rank {out['rank']}: shards {out['shards']}")
+        check(out["launches"] == TP_STEPS + 1 or not on_card,
+              f"rank {out['rank']}: {out['launches']} kernel launches, not "
+              f"{TP_STEPS + 1}")
+        launches += out["launches"]
+        if on_card:
+            err = max(err, out["kernel_err"])
+    rel = max(abs(a - b) / abs(b) for out in ranks for a, b in zip(
+        out["losses"] + [out["val_loss"]], losses0 + [logs0["val_loss"]]))
+    print(f"tensor parallel (b): 1 x {TP_RANKS} mesh, "
+          f"{len(ranks[0]['split'])} parameters split (half of each on a "
+          f"rank); max rel diff {rel:.3e} from one process (rtol "
+          f"{TP_RTOL}; one process on signals one ulp away: {floor:.3e}); "
+          f"step losses rank 0 {ranks[0]['losses']} rank 1 "
+          f"{ranks[1]['losses']} vs one process {losses0}; val_loss "
+          f"{ranks[0]['val_loss']!r} vs {logs0['val_loss']!r}; synced "
+          f"weights and features bit-equal across ranks; kernel launches "
+          f"per rank {[o['launches'] for o in ranks]}")
+    if on_card:
+        gathered = tp_gather_mb(TP_BATCH, samples)
+        print(f"tensor parallel (b): each rank's [{TP_BATCH}, {samples}] "
+              f"batch, fused_logmel vs logmel_plain float32 max abs err "
+              + ", ".join(f"{o['kernel_err']:.3e}" for o in ranks)
+              + f" (atol {F32_ATOL} + rtol {F32_RTOL})")
+        print(f"tensor parallel timing (b): fused train step [{TP_BATCH}, "
+              f"{samples}] model 2: "
+              f"{[round(o['step_ms'], 4) for o in ranks]} ms per rank "
+              f"(model 1 mesh-less {timing['meshless']:.4f} ms); one "
+              "instrumented step, model-group collectives on CUDA events: "
+              "gathers " + ", ".join(
+                  f"{o['collectives'][0]:.4f} ms / {o['collectives'][1]:.2f} "
+                  "MB" for o in ranks)
+              + "; all-reduces " + ", ".join(
+                  f"{o['collectives'][2]:.4f} ms / {o['collectives'][3]:.2f} "
+                  "MB" for o in ranks)
+              + f" per rank (the forward's gathers are {gathered:.2f} MB by "
+              "the x-vector's shapes; gloo carries them through host "
+              "memory, far from what NVLink between cards would give)")
+    return launches, err
 
 def main():
     if not torch.cuda.is_available():
@@ -2324,6 +2679,8 @@ def main():
         try:
             dp_launches, dp_err = phase_data_parallel(
                 root, np.random.default_rng(SEED + 5), logmel)
+            tp_launches, tp_err = phase_tensor_parallel(
+                root, np.random.default_rng(SEED + 6), logmel)
         finally:
             torch.backends.cudnn.deterministic = False
     if pipe_timing is not None:
@@ -2339,7 +2696,8 @@ def main():
           f"{serve_launches} serving + {train_launches} training + "
           f"{aug_launches} augmented training + {pipe_launches} pipeline "
           f"(fit and embedding extraction) + {cli_launches} CLI + "
-          f"{zoo_launches} model zoo + {dp_launches} data parallel")
+          f"{zoo_launches} model zoo + {dp_launches} data parallel + "
+          f"{tp_launches} tensor parallel")
 
     print(json.dumps({"kernels": [{
         "name": "fused_logmel",
@@ -2348,9 +2706,9 @@ def main():
         "replaces": "lidbox_tpu/ops/logmel.py:154",
         "launches": (serve_launches + train_launches + aug_launches
                      + pipe_launches + cli_launches + zoo_launches
-                     + dp_launches),
+                     + dp_launches + tp_launches),
         "max_abs_err": max(geometry_err, path_err, aug_err, pipe_err,
-                           cli_err, zoo_err, dp_err),
+                           cli_err, zoo_err, dp_err, tp_err),
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
@@ -2369,4 +2727,6 @@ if __name__ == "__main__":
         sys.exit(dp_rank_main(sys.argv[2]))
     if sys.argv[1:2] == ["--dp-nccl-probe"]:
         sys.exit(dp_nccl_probe_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--tp-rank"]:
+        sys.exit(tp_rank_main(sys.argv[2]))
     sys.exit(main())

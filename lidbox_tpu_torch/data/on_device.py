@@ -26,7 +26,9 @@ of the staged corpus from the device (``cache_staged`` with
 ``cache_shuffle`` False, True or "rows"), guarded by the device's memory.
 Under a ``parallel.Mesh`` on the trainer every rank stages and featurizes
 its own rows (the kernel runs on each rank's slice), and the draws are the
-global batch's (``parallel.draw_rows``).
+global batch's (``parallel.draw_rows``). On a 2-D (data, model) mesh the
+ranks of one data row stage the same rows and featurize them alike, as
+GSPMD replicates the features over the model axis.
 """
 import dataclasses
 import glob
@@ -646,11 +648,12 @@ def _consolidate_signal_cache(entries, spd, preserve_order=False):
 
 
 def _gather_signal_stacks(groups, mesh):
-    """cache_shuffle="rows" under a mesh: every rank's stacks become the
-    global ones ([K, ranks x b, T] signals, [K, ranks x b] targets and
-    masks, the packed layout unpacked), so a replayed batch can take rows
-    other ranks cached, as the JAX package's flattened global cache does.
-    Each rank then holds the whole corpus: ranks x its own cache."""
+    """cache_shuffle="rows" under a mesh (``mesh``: the trainer's data
+    mesh): every rank's stacks become the global ones ([K, ranks x b, T]
+    signals, [K, ranks x b] targets and masks, the packed layout
+    unpacked), so a replayed batch can take rows other ranks cached, as
+    the JAX package's flattened global cache does. Each rank then holds
+    the whole corpus: ranks x its own cache."""
     def gather(x):
         return parallel.all_gather_rows(x.transpose(0, 1),
                                         mesh).transpose(0, 1)
@@ -909,7 +912,7 @@ def fit_signals(trainer, feature_fn, signal_batches, epochs=1, verbose=True,
                 collecting, spd, preserve_order=not cache_shuffle)
             if replay_groups is not None and rows_factor > 1:
                 replay_groups = _gather_signal_stacks(replay_groups,
-                                                      trainer.mesh)
+                                                      trainer.data_mesh)
             # the stacks are the cache once consolidation succeeds: keeping
             # the per-entry tensors too would hold ~2x the corpus
             staged_cache = collecting if replay_groups is None else None

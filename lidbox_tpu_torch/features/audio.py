@@ -15,9 +15,15 @@ Precision modes of the matmul DSP path (``precision=``):
   False by default) or the 1e-4 budget does not hold.
 - ``"bf16"``: operands rounded to bfloat16, products accumulated in
   float32 (the rounding points of the JAX package's 1-pass mode).
-
-The JAX package's ``"bf16_3x"``/``"bf16_6x"`` split modes have no port
-yet (ROADMAP queue 1, "DSP precision split modes") and raise.
+- ``"bf16_3x"`` / ``"bf16_6x"``: XLA's ``BF16_BF16_F32_X3`` / ``_X6``
+  split products. Each operand is split into bfloat16 pieces, a = a1 + a2
+  (+ a3), and the products of the pieces that matter are summed in
+  float32, the smallest first: a1 b1 + a1 b2 + a2 b1 for 3x, those and
+  a1 b3 + a2 b2 + a3 b1 for 6x. The pieces are float32 tensors holding
+  bfloat16 values, so each piece product is exact in float32 (and in
+  TF32, whose 10-bit mantissa holds bfloat16's 8 bits) and accumulates in
+  float32. The JAX package's budget for 3x is a log-Mel error of about
+  1.5e-3 against float64 (``lidbox_tpu/features/audio.py:199-210``).
 """
 import functools
 
@@ -29,22 +35,44 @@ from lidbox_tpu_torch import get_device, parallel
 
 from . import mel_ops
 
-DSP_PRECISIONS = ("highest", "bf16")
+# precision mode -> (pieces per operand, (i, j) piece products summed,
+# smallest first)
+_SPLIT_PRODUCTS = {
+    "highest": (1, ((0, 0),)),
+    "bf16": (1, ((0, 0),)),
+    "bf16_3x": (2, ((1, 0), (0, 1), (0, 0))),
+    "bf16_6x": (3, ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))),
+}
+DSP_PRECISIONS = tuple(_SPLIT_PRODUCTS)
 
 
-def dsp_operand(x, precision):
-    """Round a matmul operand to the precision mode's input type; the
-    product itself always runs in float32."""
+def _bf16_pieces(x, n):
+    """x = sum of n float32 tensors holding bfloat16 values (the last one
+    holds what the bfloat16 pieces before it left)."""
+    pieces = []
+    for _ in range(n):
+        piece = x.to(torch.bfloat16).to(torch.float32)
+        pieces.append(piece)
+        x = x - piece
+    return pieces
+
+
+def dsp_matmul(a, b, precision):
+    """``a @ b`` in a DSP precision mode (module doc): "highest" as it
+    is, "bf16" on operands rounded to bfloat16, the split modes as sums of
+    bfloat16 piece products; every product accumulates in float32."""
+    if precision not in _SPLIT_PRODUCTS:
+        raise ValueError(f"unknown DSP precision {precision!r}; "
+                         f"valid: {DSP_PRECISIONS}")
     if precision == "highest":
-        return x
-    if precision == "bf16":
-        return x.to(torch.bfloat16).to(torch.float32)
-    if precision in ("bf16_3x", "bf16_6x"):
-        raise NotImplementedError(
-            f"precision={precision!r} is not ported yet (ROADMAP queue 1, "
-            "'DSP precision split modes'); use 'highest' or 'bf16'")
-    raise ValueError(f"unknown DSP precision {precision!r}; "
-                     f"valid: {DSP_PRECISIONS}")
+        return torch.matmul(a, b)
+    n, products = _SPLIT_PRODUCTS[precision]
+    a_pieces, b_pieces = _bf16_pieces(a, n), _bf16_pieces(b, n)
+    out = None
+    for i, j in products:
+        term = torch.matmul(a_pieces[i], b_pieces[j])
+        out = term if out is None else out + term
+    return out
 
 
 def dBFS_to_linear(level):
@@ -183,8 +211,7 @@ def stft(signals, frame_length, frame_step, fft_length=512, method="fft",
     if method == "matmul":
         basis = _basis_tensor(frame_length, fft_length, signals.device)
         frames = frames[..., :basis.shape[0]]
-        out = torch.matmul(dsp_operand(frames, precision),
-                           dsp_operand(basis, precision))
+        out = dsp_matmul(frames, basis, precision)
         return out[..., :num_bins], out[..., num_bins:]
     if method != "fft":
         raise ValueError(f"unknown stft method {method!r}")
@@ -224,8 +251,7 @@ def linear_to_mel(S, sample_rate, num_mel_bins=40, fmin=0.0, fmax=8000.0,
     (reference: lidbox/features/audio.py:247-261)."""
     weights = _mel_tensor(num_mel_bins, S.shape[-1], sample_rate,
                           float(fmin), float(fmax), S.device)
-    return torch.matmul(dsp_operand(S, precision),
-                        dsp_operand(weights, precision))
+    return dsp_matmul(S, weights, precision)
 
 
 def melspectrograms(S, sample_rate, num_mel_bins=40, fmin=0.0, fmax=8000.0):

@@ -7,7 +7,7 @@ lidbox_tpu.models.bi_gru.)
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import (BatchNorm, BidirectionalRNN, SpatialDropout1D,
+from .layers import (BatchNorm, BidirectionalRNN, Dense, SpatialDropout1D,
                      activation, mask_to_lengths)
 from .model_api import Model, as_embedding_extractor  # noqa: F401
 
@@ -23,11 +23,11 @@ class BiGRU(nn.Module):
         self.BGRU_2 = BidirectionalRNN(1024, 512, cell="gru",
                                        return_sequences=False)
         self.BGRU_2_bn = BatchNorm(1024)
-        self.fc_relu_1 = nn.Linear(1024, 1024)
+        self.fc_relu_1 = Dense(1024, 1024)
         self.fc_relu_1_bn = BatchNorm(1024)
-        self.fc_relu_2 = nn.Linear(1024, 1024)
+        self.fc_relu_2 = Dense(1024, 1024)
         self.fc_relu_2_bn = BatchNorm(1024)
-        self.output = nn.Linear(1024, num_outputs)
+        self.output = Dense(1024, num_outputs)
 
     def forward(self, x, mask=None, output="logits", generator=None):
         if self.channel_dropout is not None:

@@ -8,7 +8,7 @@ lidbox_tpu.models.clstm, whose parameter names this module keeps.)
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import (BatchNorm, Conv2d, FrameLayer, FrequencyAttention,
+from .layers import (BatchNorm, Conv2d, Dense, FrameLayer, FrequencyAttention,
                      GaussianNoise, GlobalMeanStddevPooling1D, LSTMLayer,
                      SpatialDropout1D, activation, subsample_frame_mask)
 from .model_api import Model, as_embedding_extractor  # noqa: F401
@@ -43,9 +43,9 @@ class CLSTM(nn.Module):
         if use_attention:
             self.freq_attention = FrequencyAttention(1500, d_f=60)
         self.stats_pooling = GlobalMeanStddevPooling1D()
-        self.segment1 = nn.Linear(3000, 512)
-        self.segment2 = nn.Linear(512, 512)
-        self.output = nn.Linear(512, num_outputs)
+        self.segment1 = Dense(3000, 512)
+        self.segment2 = Dense(512, 512)
+        self.output = Dense(512, num_outputs)
 
     def forward(self, x, mask=None, output="logits", generator=None):
         x = self.input_noise(x, generator=generator)

@@ -7,8 +7,8 @@ lidbox_tpu.models.cnn.)
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import (Conv1d, SpatialDropout1D, activation, global_avg_pool_1d,
-                     subsample_frame_mask)
+from .layers import (Conv1d, Dense, SpatialDropout1D, activation,
+                     global_avg_pool_1d, subsample_frame_mask)
 from .model_api import Model, as_embedding_extractor  # noqa: F401
 
 
@@ -24,9 +24,9 @@ class CNN(nn.Module):
         self.conv_2 = Conv1d(500, 500, 7, 2, padding)
         self.conv_3 = Conv1d(500, 500, 1, 1, padding)
         self.conv_4 = Conv1d(500, 3000, 1, 1, padding)
-        self.fc_1 = nn.Linear(3000, 1500)
-        self.fc_2 = nn.Linear(1500, 600)
-        self.output = nn.Linear(600, num_outputs)
+        self.fc_1 = Dense(3000, 1500)
+        self.fc_2 = Dense(1500, 600)
+        self.output = Dense(600, num_outputs)
 
     def forward(self, x, mask=None, output="logits", generator=None):
         if mask is not None and self.padding != "CAUSAL":

@@ -20,7 +20,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import (BatchNorm, Conv2d, SpatialDropout1D, activation,
+from .layers import (BatchNorm, Conv2d, Dense, SpatialDropout1D, activation,
                      global_avg_pool_1d, max_pool_same)
 from .model_api import Model, as_embedding_extractor  # noqa: F401
 
@@ -148,9 +148,9 @@ class ConvnetExtractor(nn.Module):
         trunk = TRUNKS[core]()
         self.add_module(core, trunk)
         freq = -(-input_dim // TOTAL_STRIDE)
-        self.embedding = nn.Linear(freq * trunk.out_channels, embedding_dim)
+        self.embedding = Dense(freq * trunk.out_channels, embedding_dim)
         self.embedding_bn = BatchNorm(embedding_dim)
-        self.output = nn.Linear(embedding_dim, num_outputs)
+        self.output = Dense(embedding_dim, num_outputs)
 
     def forward(self, x, mask=None, output="logits", generator=None):
         """``mask`` support is approximate for this model (unlike the

@@ -11,7 +11,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import (BatchNorm, BidirectionalRNN, Conv2d, activation,
+from .layers import (BatchNorm, BidirectionalRNN, Conv2d, Dense, activation,
                      mask_to_lengths)
 from .model_api import Model, as_embedding_extractor  # noqa: F401
 
@@ -40,7 +40,7 @@ class CRNN(nn.Module):
             raise ValueError("crnn needs at least 32 frequency bins")
         self.blstm = BidirectionalRNN(freq * in_ch, 256,
                                       return_sequences=False)
-        self.output = nn.Linear(512, num_outputs)
+        self.output = Dense(512, num_outputs)
 
     def forward(self, x, mask=None, output="logits", generator=None):
         img = x.transpose(1, 2)[:, None]

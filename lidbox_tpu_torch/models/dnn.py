@@ -5,18 +5,18 @@ counterpart lidbox_tpu.models.dnn).
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import global_avg_pool_1d
+from .layers import Dense, global_avg_pool_1d
 from .model_api import Model, as_embedding_extractor  # noqa: F401
 
 
 class DNN(nn.Module):
     def __init__(self, input_dim, num_outputs):
         super().__init__()
-        self.fc_1 = nn.Linear(input_dim, 200)
-        self.fc_2 = nn.Linear(200, 400)
-        self.fc_3 = nn.Linear(400, 600)
-        self.fc_4 = nn.Linear(600, 800)
-        self.output = nn.Linear(800, num_outputs)
+        self.fc_1 = Dense(input_dim, 200)
+        self.fc_2 = Dense(200, 400)
+        self.fc_3 = Dense(400, 600)
+        self.fc_4 = Dense(600, 800)
+        self.output = Dense(800, num_outputs)
 
     def forward(self, x, mask=None, output="logits", generator=None):
         x = F.relu(self.fc_1(x))

@@ -15,6 +15,15 @@ Stochastic layers (dropout, Gaussian noise) draw from the
 the JAX package's ``rngs`` streams cannot be matched draw for draw. Under
 ``parallel.data_parallel`` they draw for the global batch and keep this
 rank's rows (``parallel.draw_rows``).
+
+Tensor parallelism: a layer handed a weight that ``parallel.shard_params``
+split (fewer output features than the layer has; only inside
+``parallel.tensor_parallel``) computes its own output columns. ``Dense``,
+``Conv1d`` and non-grouped ``Conv2d`` run their product on this rank's
+rows of the weight and all-gather the output before the bias
+(``column_parallel``); grouped convolutions and the recurrent cells, whose
+product cannot split by output column in one call, all-gather the weight
+(``parallel.gather_weight``).
 """
 import contextlib
 import math
@@ -68,6 +77,48 @@ def subsample_frame_mask(mask, total_stride, num_frames):
     every ``total_stride``-th entry, cut to the output length (the JAX
     package proves it exhaustively, tests/test_models.py)."""
     return mask[:, ::total_stride][:, :num_frames]
+
+
+def column_parallel(x, weight, bias, product, channel_dim):
+    """``product(x, weight, bias)`` for a weight split over its output
+    features (axis 0): this rank's columns, from the replicated input and
+    this rank's slice of the replicated bias (both through
+    ``parallel.copy_to_model``, whose backward sums the ranks' parts), all
+    gathered along ``channel_dim`` of the output
+    (``parallel.gather_columns``)."""
+    mesh = parallel.model_group()
+    if bias is not None:
+        width = weight.shape[0]
+        bias = parallel.copy_to_model(bias, mesh).narrow(
+            0, mesh.rank * width, width)
+    return parallel.gather_columns(
+        product(parallel.copy_to_model(x, mesh), weight, bias), channel_dim,
+        mesh)
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` (weight [out, in]) that computes column-parallel when
+    its weight is split (module doc)."""
+
+    def forward(self, x):
+        if self.weight.shape[0] == self.out_features:
+            return super().forward(x)
+        return column_parallel(x, self.weight, self.bias, F.linear, -1)
+
+
+class _ColumnParallelConv:
+    """Column-parallel products for the Conv layers (module doc): the
+    output channels are axis 1 of the NC... output."""
+
+    def _conv_forward(self, x, weight, bias):
+        if weight.shape[0] == self.out_channels:
+            return super()._conv_forward(x, weight, bias)
+        if self.groups > 1:
+            return super()._conv_forward(x, parallel.gather_weight(weight),
+                                         bias)
+        return column_parallel(
+            x, weight, bias, super(_ColumnParallelConv, self)._conv_forward,
+            1)
 
 
 class FrameLayer(nn.Module):
@@ -161,8 +212,9 @@ class BatchNorm(nn.Module):
 
     Parameters ``scale`` / ``bias`` and running statistics ``mean`` /
     ``var`` (buffers) carry Flax's names. A training-mode forward
-    normalizes with the batch's statistics, reduced in float32 over every
-    axis but ``axis``: the mean and the biased variance, taken in two
+    normalizes with the batch's statistics, reduced in float32 (float64
+    for float64 inputs, as Flax promotes) over every axis but ``axis``:
+    the mean and the biased variance, taken in two
     passes as E[(x - E[x])^2]. Flax's one-pass E[x^2] - E[x]^2 is the same
     value, but in torch's float32 reductions it cancels badly (crnn's
     3-step trajectory at 40 frames left rtol 1e-4 of the JAX package's and
@@ -193,7 +245,7 @@ class BatchNorm(nn.Module):
         shape[axis] = -1
         if self.training:
             dims = [d for d in range(x.dim()) if d != axis]
-            xf = x.float()
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
             mesh = parallel.active_mesh()
             if mesh is None:
                 mean = xf.mean(dim=dims)
@@ -269,8 +321,8 @@ class FrequencyAttention(nn.Module):
             raise ValueError(f"channels ({channels}) must divide evenly into "
                              f"d_f={d_f} bins")
         self.d_f = d_f
-        self.Wf_1 = nn.Linear(channels, d_a, bias=False)
-        self.Wf_2 = nn.Linear(d_a, d_f, bias=False)
+        self.Wf_1 = Dense(channels, d_a, bias=False)
+        self.Wf_2 = Dense(d_a, d_f, bias=False)
 
     def forward(self, H):
         B, T, d_h = H.shape
@@ -291,7 +343,7 @@ class DenseBlock(nn.Module):
 
     def __init__(self, in_features, units, dropout_rate):
         super().__init__()
-        self.fc = nn.Linear(in_features, units)
+        self.fc = Dense(in_features, units)
         self.bn = BatchNorm(units)
         self.dropout_rate = dropout_rate
 
@@ -311,7 +363,7 @@ def same_padding(size, kernel, stride):
     return total // 2, total - total // 2
 
 
-class Conv1d(nn.Conv1d):
+class Conv1d(_ColumnParallelConv, nn.Conv1d):
     """A Flax ``nn.Conv`` over [B, T, C]: ``padding`` "SAME", "VALID" or
     "CAUSAL" (left pad k - 1)."""
 
@@ -331,7 +383,7 @@ class Conv1d(nn.Conv1d):
         return super().forward(x).transpose(1, 2)
 
 
-class Conv2d(nn.Conv2d):
+class Conv2d(_ColumnParallelConv, nn.Conv2d):
     """A Flax ``nn.Conv`` over an NCHW image, ``padding`` "SAME" (Flax's
     asymmetric split, ``same_padding``) or "VALID"; ``groups`` is Flax's
     ``feature_group_count``."""
@@ -382,7 +434,7 @@ class RNNCell(nn.Module):
     ``GRUCell``: ``ir/iz/in`` with bias, ``hr/hz`` without and ``hn`` with.
     ``flat_weights`` lays them out as cuDNN's (torch's ``nn.LSTM`` /
     ``nn.GRU``) single layer: gate order i, f, g, o and r, z, n, with the
-    biases Flax lacks held at zero. Flax's formulas are torch's, GRU's
+    biases Flax lacks held at zero, and split weights gathered whole. Flax's formulas are torch's, GRU's
     n = tanh(W_in x + b_in + r * (W_hn h + b_hn)) and h' = (1 - z) n + z h
     included. Initialization (Flax's defaults): lecun_normal input
     kernels, orthogonal hidden kernels, zero biases."""
@@ -411,11 +463,14 @@ class RNNCell(nn.Module):
     def flat_weights(self):
         def bias(layer):
             return (layer.bias if layer.bias is not None
-                    else torch.zeros_like(layer.weight[:, 0]))
+                    else layer.weight.new_zeros(self.units))
+        def weight(layer):
+            w = layer.weight
+            return w if w.shape[0] == self.units else parallel.gather_weight(w)
         ins = [getattr(self, f"i{g}") for g in self.gates]
         hids = [getattr(self, f"h{g}") for g in self.gates]
-        return [torch.cat([l.weight for l in ins]),
-                torch.cat([l.weight for l in hids]),
+        return [torch.cat([weight(l) for l in ins]),
+                torch.cat([weight(l) for l in hids]),
                 torch.cat([bias(l) for l in ins]),
                 torch.cat([bias(l) for l in hids])]
 

@@ -4,7 +4,7 @@ counterpart lidbox_tpu.models.lstm).
 """
 import torch.nn as nn
 
-from .layers import LSTMLayer, activation, mask_to_lengths
+from .layers import Dense, LSTMLayer, activation, mask_to_lengths
 from .model_api import Model, as_embedding_extractor  # noqa: F401
 
 
@@ -14,7 +14,7 @@ class LSTM(nn.Module):
         super().__init__()
         self.output_activation = output_activation
         self.lstm = LSTMLayer(input_dim, num_units, return_sequences=False)
-        self.output = nn.Linear(num_units, num_outputs)
+        self.output = Dense(num_units, num_outputs)
 
     def forward(self, x, mask=None, output="logits", generator=None):
         x = self.lstm(x, lengths=mask_to_lengths(mask))

@@ -7,7 +7,7 @@ lidbox_tpu.models.multilevel_attention.)
 import torch
 import torch.nn as nn
 
-from .layers import DenseBlock, activation
+from .layers import Dense, DenseBlock, activation
 from .model_api import Model, as_embedding_extractor  # noqa: F401
 
 
@@ -19,7 +19,7 @@ class Attention(nn.Module):
 
     def __init__(self, in_features, num_units):
         super().__init__()
-        self.fc = nn.Linear(in_features, num_units)
+        self.fc = Dense(in_features, num_units)
 
     def forward(self, x, mask=None):
         x = self.fc(x)
@@ -44,7 +44,7 @@ class MultilevelAttention(nn.Module):
             self.add_module(f"dense_block{level}", DenseBlock(in_dim, H, 0.4))
             self.add_module(f"attention{level}", Attention(H, num_outputs))
             in_dim = H
-        self.outputs = nn.Linear(L * num_outputs, num_outputs)
+        self.outputs = Dense(L * num_outputs, num_outputs)
 
     def forward(self, x, mask=None, output="logits", generator=None):
         attention_outputs = []

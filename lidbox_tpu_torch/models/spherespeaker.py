@@ -8,7 +8,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import (BatchNorm, BidirectionalRNN, activation,
+from .layers import (BatchNorm, BidirectionalRNN, Dense, activation,
                      global_avg_pool_1d, l2_normalize, mask_to_lengths)
 from .model_api import Model, as_embedding_extractor  # noqa: F401
 
@@ -22,9 +22,9 @@ class SphereSpeaker(nn.Module):
         self.blstm_2 = BidirectionalRNN(500, 250)
         self.blstm_3 = BidirectionalRNN(500, 250)
         self.blstm_bn = BatchNorm(1500)
-        self.fc_relu = nn.Linear(1500, embedding_dim)
+        self.fc_relu = Dense(1500, embedding_dim)
         self.pool_bn = BatchNorm(embedding_dim)
-        self.outputs = nn.Linear(embedding_dim, num_outputs)
+        self.outputs = Dense(embedding_dim, num_outputs)
 
     def forward(self, x, mask=None, output="logits", generator=None):
         lengths = mask_to_lengths(mask)

@@ -9,8 +9,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import (FrameLayer, GlobalMeanStddevPooling1D, SpatialDropout1D,
-                     subsample_frame_mask)
+from .layers import (Dense, FrameLayer, GlobalMeanStddevPooling1D,
+                     SpatialDropout1D, subsample_frame_mask)
 from .model_api import Model, as_embedding_extractor  # noqa: F401
 
 
@@ -26,9 +26,9 @@ class XVector(nn.Module):
         self.frame4 = FrameLayer(512, 512, 1, 1)
         self.frame5 = FrameLayer(512, 1500, 1, 1)
         self.stats_pooling = GlobalMeanStddevPooling1D()
-        self.segment1 = nn.Linear(3000, 512)
-        self.segment2 = nn.Linear(512, 512)
-        self.outputs = nn.Linear(512, num_outputs)
+        self.segment1 = Dense(3000, 512)
+        self.segment2 = Dense(512, 512)
+        self.outputs = Dense(512, num_outputs)
 
     def forward(self, x, mask=None, output="logits", generator=None):
         """``generator`` feeds the channel dropout in training mode."""

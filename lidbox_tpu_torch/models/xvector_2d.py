@@ -10,8 +10,9 @@ the frame mask pass the front-end unchanged.
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import (BatchNorm, Conv2d, FrameLayer, GlobalMeanStddevPooling1D,
-                     activation, subsample_frame_mask)
+from .layers import (BatchNorm, Conv2d, Dense, FrameLayer,
+                     GlobalMeanStddevPooling1D, activation,
+                     subsample_frame_mask)
 from .model_api import Model, as_embedding_extractor  # noqa: F401
 
 # (filters, freq kernel, freq stride) of the 2-D frame layers
@@ -57,9 +58,9 @@ class XVector2D(nn.Module):
         self.frame4 = FrameLayer(512, 512, 1, 1)
         self.frame5 = FrameLayer(512, 1500, 1, 1)
         self.stats_pooling = GlobalMeanStddevPooling1D()
-        self.segment1 = nn.Linear(3000, 512)
-        self.segment2 = nn.Linear(512, 512)
-        self.output = nn.Linear(512, num_outputs)
+        self.segment1 = Dense(3000, 512)
+        self.segment2 = Dense(512, 512)
+        self.output = Dense(512, num_outputs)
 
     def forward(self, x, mask=None, output="logits", generator=None):
         img = x[:, None]

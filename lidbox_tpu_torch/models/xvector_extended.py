@@ -7,7 +7,7 @@ module keeps.)
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import (FrameLayer, GlobalMeanStddevPooling1D, activation,
+from .layers import (Dense, FrameLayer, GlobalMeanStddevPooling1D, activation,
                      subsample_frame_mask)
 from .model_api import Model, as_embedding_extractor  # noqa: F401
 
@@ -27,9 +27,9 @@ class XVectorExtended(nn.Module):
             self.add_module(f"frame{i}", FrameLayer(in_dim, filters, k, s))
             in_dim = filters
         self.stats_pooling = GlobalMeanStddevPooling1D()
-        self.segment1 = nn.Linear(3000, 512)
-        self.segment2 = nn.Linear(512, 512)
-        self.output = nn.Linear(512, num_outputs)
+        self.segment1 = Dense(3000, 512)
+        self.segment2 = Dense(512, 512)
+        self.output = Dense(512, num_outputs)
 
     def forward(self, x, mask=None, output="logits", generator=None):
         for i in range(1, len(FRAMES) + 1):

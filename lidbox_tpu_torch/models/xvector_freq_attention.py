@@ -7,8 +7,9 @@ module keeps).
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import (FrameLayer, FrequencyAttention, GlobalMeanStddevPooling1D,
-                     activation, subsample_frame_mask)
+from .layers import (Dense, FrameLayer, FrequencyAttention,
+                     GlobalMeanStddevPooling1D, activation,
+                     subsample_frame_mask)
 from .model_api import Model, as_embedding_extractor  # noqa: F401
 
 
@@ -24,9 +25,9 @@ class XVectorFreqAttention(nn.Module):
         self.frame5 = FrameLayer(512, 1500, 1, 1)
         self.freq_attention = FrequencyAttention(1500, d_f=freq_attention_bins)
         self.stats_pooling = GlobalMeanStddevPooling1D()
-        self.segment1 = nn.Linear(3000, 512)
-        self.segment2 = nn.Linear(512, 512)
-        self.output = nn.Linear(512, num_outputs)
+        self.segment1 = Dense(3000, 512)
+        self.segment2 = Dense(512, 512)
+        self.output = Dense(512, num_outputs)
 
     def forward(self, x, mask=None, output="logits", generator=None):
         x = self.frame1(x)

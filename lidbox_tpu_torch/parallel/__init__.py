@@ -31,9 +31,19 @@ global batch.
   global batch from the step's generator, each rank keeping its rows
   (``draw_rows``), as GSPMD draws one mask over the global batch.
 
-Tensor parallelism (``get_mesh_2d``, ``column_parallel_rule``,
-``shard_params``) is not ported yet (ROADMAP queue 1, item 12, tensor
-parallelism) and raises.
+Tensor parallelism over a 2-D (data, model) mesh (``get_mesh_2d``): rank
+d * model_size + m holds model column m of data row d. The ranks of one
+data row feed the same rows of the global batch; a parameter sharding rule
+(``column_parallel_rule``) splits the output features of the wide kernels
+over the row's ranks (``shard_params``), and inside ``tensor_parallel``
+each rank computes its own output columns of a column-parallel layer from
+the replicated input (``copy_to_model``) and all-gathers the layer's
+output (``gather_columns``), as GSPMD partitions a column-sharded kernel.
+Layers whose product cannot split by output column in one call (cuDNN
+recurrent cells, grouped convolutions) all-gather their weights instead
+(``gather_weight``). Batch reductions (the loss, the gradients, BatchNorm
+statistics, metric counters) run over the data group of each model
+column, so each data row counts once.
 """
 import contextlib
 import datetime
@@ -50,6 +60,7 @@ from lidbox_tpu_torch import get_device, get_logger
 logger = get_logger("parallel")
 
 DATA_AXIS = "data"
+MODEL_AXIS = "model"
 
 # the process's device and host-side group, set when a group starts
 _STATE = {"device": None, "cpu_group": None, "meshes": {}}
@@ -57,23 +68,55 @@ _local = threading.local()
 
 
 class Mesh:
-    """A 1-D data-parallel mesh: the ranks ``ranks`` of the process group,
-    one device each. ``group`` runs the device collectives (NCCL, or gloo
-    for CPU tensors and for ranks sharing a card), ``cpu_group`` the
-    host-side agreements. ``rank`` is this process's index in the mesh,
-    None when it is not a member."""
+    """A mesh of the ranks ``ranks`` of the process group, one device
+    each. ``group`` runs the device collectives (NCCL, or gloo for CPU
+    tensors and for ranks sharing a card; None for one rank),
+    ``cpu_group`` the host-side agreements. ``rank`` is this process's
+    index in the mesh, None when it is not a member.
 
-    def __init__(self, ranks, device, group, cpu_group):
+    A 1-D mesh (``get_mesh``) has the axis ``data``. A 2-D mesh
+    (``get_mesh_2d``) has ``shape`` (data_size, model_size) over the
+    ranks in row-major order; its member holds ``data_mesh``, the 1-D
+    mesh of the ranks of its model column (where batch reductions run),
+    and ``model_mesh``, the 1-D mesh of the ranks of its data row (where
+    the tensor-parallel collectives run). A 1-D mesh is its own data mesh
+    and has no model mesh."""
+
+    def __init__(self, ranks, device, group, cpu_group, shape=None):
         self.ranks = tuple(int(r) for r in ranks)
         self.device = torch.device(device)
         self.group = group
         self.cpu_group = cpu_group
         me = dist.get_rank()
         self.rank = self.ranks.index(me) if me in self.ranks else None
+        self.axis_names = (DATA_AXIS,) if shape is None else (DATA_AXIS,
+                                                               MODEL_AXIS)
+        self.shape = (len(self.ranks), 1) if shape is None else tuple(shape)
+        self.data_mesh = self if shape is None else None
+        self.model_mesh = None
 
     @property
     def size(self):
         return len(self.ranks)
+
+    @property
+    def data_size(self):
+        return self.shape[0]
+
+    @property
+    def model_size(self):
+        return self.shape[1]
+
+    @property
+    def data_index(self):
+        """This rank's data row (which rows of the global batch it feeds)."""
+        return None if self.rank is None else self.rank // self.model_size
+
+    @property
+    def model_index(self):
+        """This rank's model column (which shard of each split parameter
+        it holds)."""
+        return None if self.rank is None else self.rank % self.model_size
 
     @property
     def is_member(self):
@@ -84,8 +127,8 @@ class Mesh:
         return dist.get_backend(self.group)
 
     def __repr__(self):
-        return (f"Mesh(ranks={list(self.ranks)}, device={self.device}, "
-                f"backend={self.backend})")
+        return (f"Mesh(ranks={list(self.ranks)}, shape={self.shape}, "
+                f"device={self.device}, backend={self.backend})")
 
 
 def _timeout(seconds):
@@ -201,6 +244,55 @@ def get_mesh(num_devices=None, device=None):
                          else dist.new_group(ranks, backend="gloo"))
         _STATE["meshes"][n] = Mesh(range(n), mine, group, cpu_group)
     return _STATE["meshes"][n]
+
+
+def _sub_mesh(ranks, whole):
+    """The 1-D mesh over ``ranks`` (a subset of the 2-D mesh ``whole``'s
+    ranks): ``whole``'s groups when they are the same ranks, no group for
+    one rank, else new groups. Every rank of the process group runs this
+    for every subset, in one order (``new_group`` is collective)."""
+    if tuple(ranks) == whole.ranks:
+        return Mesh(ranks, whole.device, whole.group, whole.cpu_group)
+    if len(ranks) == 1:
+        return Mesh(ranks, whole.device, None, None)
+    group = dist.new_group(ranks)
+    cpu_group = (group if dist.get_backend() == "gloo"
+                 else dist.new_group(ranks, backend="gloo"))
+    return Mesh(ranks, whole.device, group, cpu_group)
+
+
+def get_mesh_2d(data_size=None, model_size=1, device=None):
+    """The 2-D (data, model) mesh over the first data_size x model_size
+    ranks of the process group (``data_size`` defaults to the group's
+    size over ``model_size``), rank d * model_size + m at (d, m), as the
+    JAX package reshapes its devices. Batches split over ``data``;
+    parameters a sharding rule splits (``column_parallel_rule``) split
+    over ``model``. The group starts as for ``get_mesh``; meshes are cached
+    by shape, and every rank of the group must ask for the same ones in
+    the same order."""
+    whole = get_mesh(device=device)  # starts the group when needed
+    world = whole.size
+    model_size = int(model_size)
+    data_size = world // model_size if data_size is None else int(data_size)
+    if data_size < 1 or model_size < 1 or data_size * model_size > world:
+        raise ValueError(f"a ({data_size}, {model_size}) mesh in a group of "
+                         f"{world}")
+    key = (data_size, model_size)
+    if key not in _STATE["meshes"]:
+        flat = get_mesh(data_size * model_size)
+        mesh = Mesh(flat.ranks, flat.device, flat.group, flat.cpu_group,
+                    shape=key)
+        ranks = np.arange(data_size * model_size).reshape(key)
+        for column in ranks.T.tolist():
+            sub = _sub_mesh(column, mesh)
+            if sub.is_member:
+                mesh.data_mesh = sub
+        for row in ranks.tolist():
+            sub = _sub_mesh(row, mesh)
+            if sub.is_member:
+                mesh.model_mesh = sub
+        _STATE["meshes"][key] = mesh
+    return _STATE["meshes"][key]
 
 
 def mesh_spans_processes(mesh):
@@ -345,6 +437,106 @@ def all_gather_rows(x, mesh):
     return out
 
 
+class _GatherColumns(torch.autograd.Function):
+    """The model group's pieces of ``x`` concatenated along ``dim`` in
+    rank order; the backward keeps this rank's piece of the gradient
+    (every rank of the group computes the same gradient of the whole)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, mesh):
+        ctx.dim, ctx.rank, ctx.width = dim, mesh.rank, x.shape[dim]
+        whole = all_gather_rows(x.movedim(dim, 0).contiguous(), mesh)
+        return whole.movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.rank * ctx.width,
+                           ctx.width).contiguous(), None, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    """The identity; the backward sums the gradient over the model group
+    (each rank's gradient covers only the columns it computed)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def gather_columns(x, dim, mesh):
+    """Differentiable all-gather of ``x``'s ``dim`` over the 1-D ``mesh``
+    (a model group): forward, the whole; backward, this rank's slice."""
+    if mesh.size == 1:
+        return x
+    return _GatherColumns.apply(x, dim % x.dim(), mesh)
+
+
+def copy_to_model(x, mesh):
+    """``x``, the replicated input of a column-parallel product: forward,
+    the identity; backward, the gradient all-reduced over the 1-D ``mesh``
+    (a model group)."""
+    if mesh.size == 1:
+        return x
+    return _CopyToModel.apply(x, mesh.group)
+
+
+@contextlib.contextmanager
+def tensor_parallel(mesh, specs):
+    """Inside the block the layers of a model whose parameters ``shard_
+    params`` split (``specs``: name -> split axis) compute column-parallel
+    over ``mesh``'s model group (module doc). A mesh without a model axis
+    of more than one rank, or no split parameter, changes nothing."""
+    prev = getattr(_local, "tp", None)
+    model = None if mesh is None else mesh.model_mesh
+    _local.tp = ((model, dict(specs))
+                 if model is not None and model.size > 1 and specs else None)
+    try:
+        yield
+    finally:
+        _local.tp = prev
+
+
+def model_group():
+    """The model mesh of the innermost ``tensor_parallel`` block; outside
+    one it raises (a layer was given a split weight there)."""
+    tp = getattr(_local, "tp", None)
+    if tp is None:
+        raise RuntimeError("a split parameter outside parallel."
+                           "tensor_parallel: gather the shards first "
+                           "(Trainer.checkpoint_state)")
+    return tp[0]
+
+
+def gather_weight(w):
+    """A split weight (output features on axis 0, torch's layout) whole,
+    differentiably: for layers whose product cannot split by output
+    column in one call. Storage and optimizer state stay split."""
+    return gather_columns(w, 0, model_group())
+
+
+def sum_of_squares(tree):
+    """sum(t * t) over the tensors of a name -> tensor dict, as one 0-dim
+    tensor. Inside ``tensor_parallel`` the split tensors' part is summed
+    over the model group and the replicated tensors count once, so every
+    rank gets the global arrays' sum (what GSPMD computes)."""
+    tp = getattr(_local, "tp", None)
+    if tp is None:
+        return sum(torch.sum(t * t) for t in tree.values())
+    model, specs = tp
+    split = [t for k, t in tree.items() if k in specs]
+    whole = [t for k, t in tree.items() if k not in specs]
+    part = torch.stack([torch.sum(t * t) for t in split]).sum().reshape(1)
+    dist.all_reduce(part, group=model.group)
+    return part[0] + sum(torch.sum(t * t) for t in whole)
+
+
 def share_with_world(x, mesh):
     """``x`` (a float32 tensor the members of ``mesh`` all hold) on every
     rank of the group: ranks outside a sub-mesh pass None and receive it
@@ -395,9 +587,12 @@ def barrier(mesh):
 @contextlib.contextmanager
 def data_parallel(mesh):
     """Inside the block training-mode layers and draws see ``mesh``'s
-    global batch (module doc); a 1-rank mesh or None changes nothing."""
+    global batch (module doc), over its data group (a 2-D mesh's ranks of
+    one data row see the same rows); a mesh of one data row or None
+    changes nothing."""
     prev = getattr(_local, "mesh", None)
-    _local.mesh = mesh if mesh_spans_processes(mesh) else None
+    data = None if mesh is None else mesh.data_mesh
+    _local.mesh = data if mesh_spans_processes(data) else None
     try:
         yield
     finally:
@@ -405,7 +600,8 @@ def data_parallel(mesh):
 
 
 def active_mesh():
-    """The mesh of the innermost ``data_parallel`` block (None outside)."""
+    """The data mesh of the innermost ``data_parallel`` block (None
+    outside)."""
     return getattr(_local, "mesh", None)
 
 
@@ -471,14 +667,16 @@ def pad_batch_to(batch, batch_size):
 def local_slice(batch, mesh):
     """This rank's rows of a host global batch: a dict batch (``input``,
     ``target``, ...) or a ``(signals, targets)`` / ``(signals, targets,
-    example_mask)`` tuple. Rows are right-padded to a multiple of the mesh
-    size first, the padding marked in ``example_mask`` (the tuple's third
-    element), so every rank feeds one shape. This is how a single feed of
-    global batches (the command line's) becomes each rank's local feed."""
+    example_mask)`` tuple. Rows split over the mesh's data rows (the ranks
+    of one data row of a 2-D mesh take the same rows), right-padded to a
+    multiple of the data size first, the padding marked in
+    ``example_mask`` (the tuple's third element), so every rank feeds one
+    shape. This is how a single feed of global batches (the command
+    line's) becomes each rank's local feed."""
     is_dict = isinstance(batch, dict)
     leaves = list(batch.values()) if is_dict else list(batch)
     n = int(np.shape(leaves[0])[0])
-    size = mesh.size
+    size = mesh.data_size
     padded_n = -(-n // size) * size
     if is_dict:
         mask = batch.get("example_mask")
@@ -492,7 +690,7 @@ def local_slice(batch, mesh):
             np.pad(np.asarray(mask, bool), (0, padded_n - n)), valid)
         batch = dict(body, example_mask=mask) if is_dict else (*body, mask)
     m = padded_n // size
-    rows = slice(mesh.rank * m, (mesh.rank + 1) * m)
+    rows = slice(mesh.data_index * m, (mesh.data_index + 1) * m)
     if is_dict:
         return {k: np.asarray(v)[rows] for k, v in batch.items()}
     return type(batch)(np.asarray(v)[rows] for v in batch)
@@ -513,9 +711,9 @@ def shard_batch(batch, mesh):
     leading dims divide the mesh size: ``pad_batch_to`` first), on the
     mesh's device."""
     n = int(np.shape(next(iter(batch.values())))[0])
-    if n % mesh.size:
-        raise ValueError(f"{n} rows do not divide over a mesh of "
-                         f"{mesh.size}; pad_batch_to first")
+    if n % mesh.data_size:
+        raise ValueError(f"{n} rows do not divide over {mesh.data_size} "
+                         "data rows; pad_batch_to first")
     return global_batch_from_local(local_slice(batch, mesh), mesh)
 
 
@@ -542,18 +740,55 @@ def stack_on_mesh(trees, mesh, concat=False):
     return {k: join([t[k] for t in trees]) for k in trees[0]}
 
 
-def _not_ported(name):
-    raise NotImplementedError(f"{name} is not ported yet (ROADMAP queue 1, "
-                              "item 12, tensor parallelism)")
+def column_parallel_rule(mesh, min_last_dim=64):
+    """(name, parameter) -> the axis to split over ``mesh``'s model axis,
+    or None to replicate: the output features of weights of rank >= 2
+    (Dense, Conv, the recurrent cells' per-gate kernels), column-parallel,
+    when their count divides the model size and is at least
+    ``min_last_dim``; biases, BatchNorm scales and small heads stay
+    replicated. The JAX rule reads the last axis of a Flax kernel, which
+    holds the output features; a torch weight holds them on axis 0."""
+    model_size = mesh.model_size
+
+    def rule(name, leaf):
+        shape = tuple(leaf.shape)
+        if (model_size > 1 and len(shape) >= 2
+                and shape[0] % model_size == 0 and shape[0] >= min_last_dim):
+            return 0
+        return None
+    return rule
 
 
-def get_mesh_2d(*args, **kwargs):
-    _not_ported("get_mesh_2d")
+def shard_params(params, mesh, rule=None):
+    """(this rank's shards of ``params``, {name: split axis}): every
+    parameter the rule (default ``column_parallel_rule(mesh)``) splits is
+    cut into model_size equal pieces along its axis and the rank keeps
+    piece ``mesh.model_index``; the others are kept whole. ``params`` is
+    a name -> tensor dict, equal on every rank."""
+    if rule is None:
+        rule = column_parallel_rule(mesh)
+    shards, specs = {}, {}
+    for name, p in params.items():
+        axis = rule(name, p)
+        if axis is None:
+            shards[name] = p
+            continue
+        if p.shape[axis] % mesh.model_size:
+            raise ValueError(f"{name}: axis {axis} of {tuple(p.shape)} does "
+                             f"not split over {mesh.model_size} ranks")
+        shards[name] = shard(p, axis, mesh)
+        specs[name] = axis
+    return shards, specs
 
 
-def column_parallel_rule(*args, **kwargs):
-    _not_ported("column_parallel_rule")
+def shard(tensor, axis, mesh):
+    """This rank's piece of ``tensor`` cut in ``mesh.model_size`` equal
+    pieces along ``axis`` (a copy)."""
+    width = tensor.shape[axis] // mesh.model_size
+    return tensor.narrow(axis, mesh.model_index * width, width).clone()
 
 
-def shard_params(*args, **kwargs):
-    _not_ported("shard_params")
+def unshard(tensor, axis, mesh):
+    """The whole of a parameter ``shard_params`` split along ``axis``,
+    gathered over ``mesh``'s model group (no gradient)."""
+    return gather_columns(tensor.detach(), axis, mesh.model_mesh)

@@ -36,8 +36,18 @@ at creation and at restore, the feed-parity guard makes uneven feeds raise
 on every rank, metric states are summed over the ranks, and rank 0 alone
 writes checkpoints and the metrics log.
 
-Not ported yet, and raising (ROADMAP queue 1): ``param_sharding`` (item
-12, tensor parallelism), ``remat`` (item 6).
+With ``param_sharding`` (``parallel.column_parallel_rule``) over a 2-D
+mesh (``parallel.get_mesh_2d``) the state holds this rank's shards of the
+split parameters and of their optimizer moments (``parallel.shard_params``
+of the full, seeded state, so the trajectory is the mesh-less one), the
+forwards run column-parallel (``parallel.tensor_parallel``), the batch
+reductions run over the data group of the rank's model column, and
+checkpoints, ``sync_model_variables`` and ``restore`` go through the
+gathered full state (``checkpoint_state``), in the mesh-less format.
+
+``remat`` recomputes the forward during the backward
+(``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``), with
+the dropout generator rewound so the recompute draws the forward's masks.
 """
 import dataclasses
 import queue
@@ -47,6 +57,7 @@ from typing import Any, Sequence
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from lidbox_tpu_torch import RANDOM_SEED, get_device, get_logger, parallel
 from lidbox_tpu_torch.data.dataset import padded_batch
@@ -56,11 +67,6 @@ from lidbox_tpu_torch.train.observability import MetricsLogger, ThroughputMeter
 from lidbox_tpu_torch.train.optimizers import apply_updates
 
 logger = get_logger("train.loop")
-
-
-def _not_ported(name, item):
-    raise NotImplementedError(f"{name} is not ported yet (ROADMAP queue 1, "
-                              f"item {item})")
 
 
 @dataclasses.dataclass
@@ -102,7 +108,8 @@ class ModelCheckpoint(Callback):
     def __init__(self, checkpoints_dir, monitor="val_loss", mode="min",
                  save_best_only=False, backend="msgpack"):
         if backend == "orbax":
-            _not_ported("the Orbax checkpoint backend", 6)
+            raise NotImplementedError("the Orbax checkpoint backend is not "
+                                      "ported yet (ROADMAP queue 1, item 6)")
         if backend != "msgpack":
             raise ValueError(f"unknown checkpoint backend {backend!r} "
                              "(expected 'msgpack' or 'orbax')")
@@ -132,8 +139,9 @@ class ModelCheckpoint(Callback):
         # filename metric: val_loss when present, else the train loss
         fname_val = logs.get("val_loss", logs.get("loss", 0.0))
         mesh = getattr(trainer, "mesh", None)
+        state = trainer.checkpoint_state()  # a collective under sharding
         if mesh is None or mesh.rank == 0:  # one writer of the replicas
-            ckpt_lib.save_checkpoint(self.checkpoints_dir, trainer.state,
+            ckpt_lib.save_checkpoint(self.checkpoints_dir, state,
                                      epoch=epoch, val_loss=fname_val)
         if mesh is not None:
             parallel.barrier(mesh)  # every rank may read it from here on
@@ -257,6 +265,20 @@ def _leaf_signature(value):
     return value.shape, value.dtype.str
 
 
+def _map_moments(opt_state, names, fn):
+    """An optimizer state with ``fn(name, tensor)`` applied to every
+    per-parameter tensor: the lists of tensors in the params' order
+    (``names``) that ``train/optimizers.py`` states hold (Adam's ``mu`` and
+    ``nu``, ``trace``, ``sum_of_squares``); counts and empty states pass."""
+    if isinstance(opt_state, dict):
+        return {k: _map_moments(v, names, fn) for k, v in opt_state.items()}
+    if isinstance(opt_state, tuple):
+        return tuple(_map_moments(v, names, fn) for v in opt_state)
+    if isinstance(opt_state, list) and len(opt_state) == len(names):
+        return [fn(k, t) for k, t in zip(names, opt_state)]
+    return opt_state
+
+
 def to_device(value, device):
     """A numpy array or tensor on ``device``: host data bound for a CUDA
     device is pinned and copied with ``non_blocking`` on the current
@@ -295,6 +317,10 @@ class Trainer:
             under a mesh the least over its ranks).
         mesh: a ``parallel.Mesh`` for data parallelism (None: one device);
             this rank must be a member, and ``device`` its card.
+        param_sharding: a parameter sharding rule, (name, tensor) -> split
+            axis or None (``parallel.column_parallel_rule``), for tensor
+            parallelism over ``mesh``, which must be 2-D
+            (``parallel.get_mesh_2d``).
         tensorboard: mirror the epoch records of the ``log_dir`` metrics
             log to TensorBoard (``observability.MetricsLogger``).
         device: the model's device; default "cuda", which raises without
@@ -307,16 +333,20 @@ class Trainer:
                  param_sharding=None, prefetch=4, stage_dtype=None,
                  score_fn=None, cache_staged=False, cache_bytes_limit=None,
                  tensorboard=False, device="cuda"):
-        if param_sharding is not None:
-            raise NotImplementedError(
-                "param_sharding is not ported yet (ROADMAP queue 1, item 12, "
-                "tensor parallelism)")
         self.device = get_device(device)
         if parallel.as_mesh(mesh) is not None:
             if not mesh.is_member:
                 raise ValueError(f"this rank is not a member of {mesh}")
             parallel.check_device(mesh, self.device)
+        if param_sharding is not None and (
+                mesh is None or parallel.MODEL_AXIS not in mesh.axis_names):
+            raise ValueError("param_sharding needs a 2-D (data, model) mesh "
+                             "(parallel.get_mesh_2d)")
         self.mesh = mesh
+        # where batch reductions run: the ranks of this rank's model column
+        self.data_mesh = None if mesh is None else mesh.data_mesh
+        self.param_sharding = param_sharding
+        self.param_specs = {}  # name -> split axis, set by create_state
         if model.device != self.device:
             raise ValueError(f"the model lives on {model.device}, the "
                              f"trainer on {self.device}")
@@ -349,46 +379,87 @@ class Trainer:
 
     def create_state(self):
         """A fresh TrainState from copies of the model's weights (so the
-        model stays servable while the state trains)."""
+        model stays servable while the state trains); under
+        ``param_sharding`` this rank's shards of it."""
         module = self.model.module
         params = {k: p.detach().clone() for k, p in module.named_parameters()}
         batch_stats = {k: b.detach().clone()
                        for k, b in module.named_buffers()}
-        self.state = self._replicated(TrainState(
+        self.state = self._placed(TrainState(
             step=0, params=params, batch_stats=batch_stats,
             opt_state=self.optimizer.init(params)))
         return self.state
 
-    def _replicated(self, state):
-        """Under a mesh, ``state`` as rank 0 holds it, on every rank."""
+    def _placed(self, state):
+        """A full state as this rank holds it: under a mesh replicated from
+        rank 0, then under ``param_sharding`` cut to this rank's shards of
+        the split parameters and of their optimizer moments (Adam's
+        moments of a shard are the shard's)."""
         if self.mesh is None:
             return state
-        return state.replace(**{k: parallel.put_replicated(
+        state = state.replace(**{k: parallel.put_replicated(
             getattr(state, k), self.mesh)
             for k in ("params", "batch_stats", "opt_state")})
+        if self.param_sharding is None:
+            return state
+        params, self.param_specs = parallel.shard_params(
+            state.params, self.mesh, self.param_sharding)
+        return state.replace(params=params, opt_state=_map_moments(
+            state.opt_state, list(params), self._shard))
+
+    def _shard(self, name, tensor):
+        """This rank's shard of a full tensor of split parameter ``name``
+        (or of its optimizer moment); other tensors pass."""
+        axis = self.param_specs.get(name)
+        return tensor if axis is None else parallel.shard(tensor, axis,
+                                                          self.mesh)
+
+    def _unshard(self, name, tensor):
+        """``_shard``'s inverse, gathered over the model group."""
+        axis = self.param_specs.get(name)
+        return tensor if axis is None else parallel.unshard(tensor, axis,
+                                                            self.mesh)
+
+    def checkpoint_state(self):
+        """The train state with every split parameter and optimizer moment
+        gathered whole: the mesh-less state, in the format a mesh-less
+        Trainer checkpoints. A collective over the model groups under
+        ``param_sharding`` (every rank calls it); the state itself
+        otherwise."""
+        state = self.state
+        if not self.param_specs:
+            return state
+        return state.replace(
+            params={k: self._unshard(k, v) for k, v in state.params.items()},
+            opt_state=_map_moments(state.opt_state, list(state.params),
+                                   self._unshard))
 
     def restore(self, checkpoint_path):
         """Resume from a checkpoint; sets initial_epoch from the filename
         (reference: keras_utils.py:187-189, 202). Every rank of a mesh
-        reads the file, and the state is replicated from rank 0."""
+        reads the file, the state is replicated from rank 0 and, under
+        ``param_sharding``, split again."""
         if self.state is None:
             self.create_state()
-        self.state = self._replicated(
-            ckpt_lib.restore_checkpoint(checkpoint_path, self.state))
+        self.state = self._placed(ckpt_lib.restore_checkpoint(
+            checkpoint_path, self.checkpoint_state()))
         self.initial_epoch = ckpt_lib.initial_epoch_from_path(checkpoint_path)
         self.sync_model_variables()
         return self.state
 
     def sync_model_variables(self):
         """Copy the current trained weights into the model's module, so the
-        model is directly servable after fit/restore."""
+        model is directly servable after fit/restore; split parameters are
+        gathered whole first (a collective under ``param_sharding``), so
+        every rank holds the same full weights."""
         if self.state is None:
             return
+        state = self.checkpoint_state()
         with torch.no_grad():
             for k, p in self.model.module.named_parameters():
-                p.copy_(self.state.params[k])
+                p.copy_(state.params[k])
             for k, b in self.model.module.named_buffers():
-                b.copy_(self.state.batch_stats[k])
+                b.copy_(state.batch_stats[k])
 
     def current_learning_rate(self):
         if self.lr_schedule is None:
@@ -407,19 +478,49 @@ class Trainer:
         float32 under ``compute_dtype`` too (the JAX package's
         ``mutable=["batch_stats"]``, lidbox_tpu/train/loop.py:507-538);
         in eval mode they come back as they were. The state's tensors are
-        never written."""
+        never written. Split parameters compute column-parallel
+        (``parallel.tensor_parallel``)."""
         kwargs = {"output": self.model.output}
         if "input_mask" in batch:
             kwargs["mask"] = batch["input_mask"]
-        if not train:
-            return functional_forward(self.model.module, params, batch_stats,
-                                      batch["input"],
-                                      compute_dtype=self.compute_dtype,
-                                      **kwargs), batch_stats
-        return functional_forward(self.model.module, params, batch_stats,
-                                  batch["input"],
-                                  compute_dtype=self.compute_dtype,
-                                  train=True, generator=generator, **kwargs)
+        with parallel.tensor_parallel(self.mesh, self.param_specs):
+            if not train:
+                return functional_forward(
+                    self.model.module, params, batch_stats, batch["input"],
+                    compute_dtype=self.compute_dtype, **kwargs), batch_stats
+            return functional_forward(
+                self.model.module, params, batch_stats, batch["input"],
+                compute_dtype=self.compute_dtype, train=True,
+                generator=generator, **kwargs)
+
+    def _remat_apply(self, params, batch_stats, batch, generator=None):
+        """The training-mode ``_apply`` under ``torch.utils.checkpoint``
+        (the JAX package's ``jax.checkpoint``): only its inputs are kept,
+        and the backward runs the forward again. ``preserve_rng_state``
+        covers torch's global generators only, so the recompute rewinds
+        ``generator`` to where the forward started (and leaves it where
+        the forward left it): it draws the forward's dropout masks and
+        noise. The scopes the forward reads are entered inside, since the
+        recompute may run on the autograd engine's device thread; the
+        batch statistics come from the first forward alone."""
+        start = None if generator is None else generator.get_state()
+        calls = []
+
+        def run(params):
+            resume = None
+            if calls and generator is not None:  # the recompute
+                resume = generator.get_state()
+                generator.set_state(start)
+            calls.append(1)
+            try:
+                with parallel.data_parallel(self.mesh):
+                    return self._apply(params, batch_stats, batch, train=True,
+                                       generator=generator)
+            finally:
+                if resume is not None:
+                    generator.set_state(resume)
+        return torch.utils.checkpoint.checkpoint(run, params,
+                                                 use_reentrant=False)
 
     @staticmethod
     def _masked_mean(losses, batch):
@@ -440,7 +541,7 @@ class Trainer:
             local = torch.sum(losses)
             count = losses.new_tensor(float(losses.shape[0]))
         total, count = parallel.all_reduce_tree(
-            torch.stack([local.detach(), count]), self.mesh)
+            torch.stack([local.detach(), count]), self.data_mesh)
         count = torch.clamp(count, min=1.0)
         return total / count, local / count
 
@@ -448,14 +549,21 @@ class Trainer:
         """Forward and backward of one batch: (loss as a 0-dim device
         tensor, the example-mask mean; grads in params' order; new batch
         stats). Under a mesh the loss is the global batch's and the
-        gradients are summed over the ranks in one bucketed all-reduce."""
+        gradients are summed over the data group in one bucketed
+        all-reduce. With ``remat`` the forward is recomputed in the
+        backward (``_remat_apply``)."""
         params = {k: v.detach().requires_grad_(True)
                   for k, v in state.params.items()}
         with torch.enable_grad(), parallel.data_parallel(self.mesh):
-            outputs, new_bs = self._apply(params, state.batch_stats, batch,
-                                          train=True, generator=generator)
+            if self.remat:
+                outputs, new_bs = self._remat_apply(params, state.batch_stats,
+                                                    batch, generator)
+            else:
+                outputs, new_bs = self._apply(params, state.batch_stats,
+                                              batch, train=True,
+                                              generator=generator)
             losses = self.loss_fn(batch["target"], outputs)
-            if parallel.mesh_spans_processes(self.mesh):
+            if parallel.mesh_spans_processes(self.data_mesh):
                 loss, objective = self._global_mean(losses, batch)
             else:
                 objective = self._masked_mean(losses, batch)
@@ -464,14 +572,17 @@ class Trainer:
                                         allow_unused=True)
         grads = {k: torch.zeros_like(p) if g is None else g
                  for (k, p), g in zip(state.params.items(), grads)}
-        if self.mesh is not None:
-            grads = parallel.all_reduce_tree(grads, self.mesh)
+        if self.data_mesh is not None:
+            grads = parallel.all_reduce_tree(grads, self.data_mesh)
         return loss, grads, new_bs
 
     def _apply_gradients(self, state, grads, new_bs):
-        """The optimizer update: a new state one step on."""
-        updates, new_opt_state = self.optimizer.update(
-            grads, state.opt_state, state.params)
+        """The optimizer update: a new state one step on (a global norm
+        over split gradients is the global arrays', ``parallel
+        .sum_of_squares``)."""
+        with parallel.tensor_parallel(self.mesh, self.param_specs):
+            updates, new_opt_state = self.optimizer.update(
+                grads, state.opt_state, state.params)
         return TrainState(step=state.step + 1,
                           params=apply_updates(state.params, updates),
                           batch_stats=new_bs, opt_state=new_opt_state)
@@ -666,12 +777,12 @@ class Trainer:
         return budget
 
     def _rows_factor(self, cache_shuffle):
-        """How many times its own rows a rank caches: the mesh size for
+        """How many times its own rows a rank caches: the data size for
         cache_shuffle="rows" under a mesh (every rank replays from the
         global cache), else 1."""
         if cache_shuffle == "rows" and parallel.mesh_spans_processes(
-                self.mesh):
-            return self.mesh.size
+                self.data_mesh):
+            return self.data_mesh.size
         return 1
 
     def _gather_stacks(self, groups):
@@ -681,16 +792,16 @@ class Trainer:
         package's flattened global cache does."""
         for g in groups:
             g["stack"] = {k: parallel.all_gather_rows(
-                v.transpose(0, 1), self.mesh).transpose(0, 1)
+                v.transpose(0, 1), self.data_mesh).transpose(0, 1)
                 for k, v in g["stack"].items()}
         return groups
 
     def _local_columns(self, idx):
         """This rank's columns of a [K, global rows] replay index."""
-        if not parallel.mesh_spans_processes(self.mesh):
+        if not parallel.mesh_spans_processes(self.data_mesh):
             return idx
-        b = idx.shape[1] // self.mesh.size
-        return idx[:, self.mesh.rank * b:(self.mesh.rank + 1) * b]
+        b = idx.shape[1] // self.data_mesh.size
+        return idx[:, self.data_mesh.rank * b:(self.data_mesh.rank + 1) * b]
 
     def _feed_parity_guard(self, source, what="training"):
         """Fail fast on uneven feeds under a mesh: every step is a
@@ -838,8 +949,6 @@ class Trainer:
         ``cache_bytes_limit`` (_cache_budget_bytes) and, when twice the
         corpus (the consolidation transient) would not fit, releases the
         cache with a warning and streams."""
-        if self.remat:
-            _not_ported("remat", 6)
         if self.state is None:
             self.create_state()
         # a fresh fit() trains anew even if a previous fit on this trainer
@@ -1028,7 +1137,7 @@ class Trainer:
         already on the device or _consolidate_cache stacks (the
         cache_staged path, _replay_eval_step). Loss sums, counts and metric
         states accumulate on the device and are read back once; under a
-        mesh they are summed over the ranks first (``psum_state``)."""
+        mesh they are summed over the data group first (``psum_state``)."""
         if self.state is None:
             self.create_state()
         metric_states = {name: m.init_state(self.device)
@@ -1055,10 +1164,10 @@ class Trainer:
             sums = parallel.all_reduce_tree(torch.stack([
                 torch.as_tensor(v, dtype=torch.float32,
                                 device=self.device).reshape(())
-                for v in (total, count)]), self.mesh)
+                for v in (total, count)]), self.data_mesh)
             total, count = sums[0], sums[1]
             metric_states = {name: metric.psum_state(metric_states[name],
-                                                     self.mesh)
+                                                     self.data_mesh)
                              for name, metric in self.metrics.items()}
         results = {name: metric.result(metric_states[name])
                    for name, metric in self.metrics.items()}
@@ -1089,7 +1198,7 @@ class Trainer:
                                      self.state.batch_stats, batch,
                                      train=False)
                 if self.mesh is not None:
-                    out = parallel.all_gather_rows(out[:n], self.mesh)
+                    out = parallel.all_gather_rows(out[:n], self.data_mesh)
                     n = out.shape[0]
                 if prev is not None:
                     outs.append(prev[1][:prev[0]].cpu().numpy())

@@ -32,6 +32,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from lidbox_tpu_torch import parallel
+
 
 class GradientTransformation(NamedTuple):
     init: Callable
@@ -189,10 +191,11 @@ def scale_by_learning_rate(learning_rate):
 def clip_by_global_norm(max_norm):
     """t / g_norm * max_norm for every t when the global norm reaches
     max_norm, t unchanged below it; decided on the device, without a
-    readback."""
+    readback. Under tensor parallelism the norm is the whole parameters'
+    (``parallel.sum_of_squares``)."""
     def update(updates, state, params=None):
         g = _lists(updates)
-        g_norm = torch.sqrt(sum(torch.sum(t * t) for t in g))
+        g_norm = torch.sqrt(parallel.sum_of_squares(updates))
         keep = g_norm < max_norm
         out = [torch.where(keep, t, t / g_norm * max_norm) for t in g]
         return _like(updates, out), state

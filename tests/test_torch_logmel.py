@@ -279,10 +279,20 @@ def test_unsupported_request_logs_and_takes_matmul(monkeypatch, caplog):
     assert "stft_method='pallas' unavailable for this request" in caplog.text
     ref = TF.extract_features(x, RATE, stft_method="matmul", **kw)
     np.testing.assert_array_equal(out.numpy(), ref.numpy())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TF.extract_features(x, RATE, stft_method="pallas",
-                            feature_type="logmelspectrogram",
-                            precision="bf16_3x")
+    # a split mode the kernel lacks takes the matmul path the same way
+    caplog.clear()
+    with caplog.at_level(logging.INFO, logger="lidbox_tpu_torch"):
+        out = TF.extract_features(x, RATE, stft_method="pallas",
+                                  feature_type="logmelspectrogram",
+                                  precision="bf16_3x")
+    assert "precision=bf16_3x" in caplog.text
+    ref = TF.extract_features(x, RATE, stft_method="matmul",
+                              feature_type="logmelspectrogram",
+                              precision="bf16_3x")
+    np.testing.assert_array_equal(out.numpy(), ref.numpy())
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="bf16_3x"):  # the kernel lacks it
+        logmel.fused_logmel(x, RATE, precision="bf16_3x")
 
 
 class _ClaimsCuda(torch.Tensor):

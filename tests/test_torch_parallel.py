@@ -5,8 +5,8 @@ JAX package's mesh, on the CPU.
 In this process (a 1-rank gloo group where a test needs one): the host
 helpers (``pad_batch_to``, ``local_slice``, ``shard_batch``,
 ``global_batch_from_local``, ``stack_on_mesh``, the structure digest), the
-launcher variables, and what still raises (tensor parallelism, a
-non-mesh ``mesh``).
+launcher variables, the 2-D mesh and the sharding rule on one rank, and a
+non-mesh ``mesh`` raising.
 
 Two ranks (subprocesses over gloo, ``torch_parallel_common``), held to:
 
@@ -271,11 +271,11 @@ def test_host_helpers():
     for k in batch:
         np.testing.assert_array_equal(padded[k], jpadded[k])
 
-    class Rank:  # local_slice reads only the mesh's size and rank
-        size = 2
+    class Rank:  # local_slice reads only the mesh's data size and index
+        data_size = 2
 
         def __init__(self, rank):
-            self.rank = rank
+            self.data_index = rank
     parts = [parallel.local_slice(batch, Rank(r)) for r in range(2)]
     assert [p["input"].shape for p in parts] == [(3, 2), (3, 2)]
     np.testing.assert_array_equal(
@@ -300,10 +300,18 @@ def test_launcher_variables_and_what_still_raises(monkeypatch):
         monkeypatch.delenv(name, raising=False)
     if not dist.is_initialized():
         assert parallel.initialize_distributed() is False
-    for fn in (parallel.get_mesh_2d, parallel.column_parallel_rule,
-               parallel.shard_params):
-        with pytest.raises(NotImplementedError, match="tensor parallelism"):
-            fn()
+    # the tensor-parallel entry points run: a 1 x 1 mesh of this process
+    # splits nothing (tests/test_torch_tensor_parallel.py splits over 2)
+    mesh = parallel.get_mesh_2d(data_size=1, model_size=1, device="cpu")
+    assert mesh.shape == (1, 1) and mesh.axis_names == ("data", "model")
+    assert mesh.data_mesh.size == 1 and mesh.model_mesh.size == 1
+    assert parallel.get_mesh_2d(1, 1) is mesh
+    params = {"w": torch.ones(64, 3), "b": torch.zeros(64)}
+    shards, specs = parallel.shard_params(
+        params, mesh, parallel.column_parallel_rule(mesh))
+    assert specs == {} and shards["w"] is params["w"]
+    with pytest.raises(ValueError):
+        parallel.get_mesh_2d(data_size=2, model_size=dist.get_world_size())
     with pytest.raises(TypeError):
         parallel.as_mesh(object())
     assert parallel.as_mesh(None) is None

@@ -422,15 +422,17 @@ def test_fit_fused_entry_points(fused_runs, tmp_path):
 @pytest.mark.parametrize("what", [
     "noise", "fir", "speed", "vad", "specaug", "snr_without_noise",
     "bad_prob", "steps_per_dispatch", "cache_staged", "mesh",
-    "embedding_extractor", "orbax"])
+    "embedding_extractor", "remat", "param_sharding", "orbax"])
 def test_left_options_raise(tmp_path, what):
     """The options a later slice ports raise NotImplementedError naming
     ROADMAP (Orbax), bad augmentation configs raise ValueError; the
-    augmentation stages, the feed options and the mesh (a 1-rank one here,
-    the mesh of the embedding extractor too) run, and a ``mesh`` that is
-    not a ``parallel.Mesh`` raises TypeError (their numerics are in
-    tests/test_torch_augment.py, tests/test_torch_feed.py and
-    tests/test_torch_parallel*.py)."""
+    augmentation stages, the feed options, the mesh (a 1-rank one here,
+    the mesh of the embedding extractor too), ``remat`` and
+    ``param_sharding`` (over a 1 x 1 mesh here) run, and a ``mesh`` that
+    is not a ``parallel.Mesh`` raises TypeError (their numerics are in
+    tests/test_torch_augment.py, tests/test_torch_feed.py,
+    tests/test_torch_parallel*.py, tests/test_torch_tensor_parallel.py and
+    tests/test_torch_remat_precision.py)."""
     cfg = fused_config(tmp_path)
     noise = tmp_path / "n.wav"
     tio.write_mono_wav(str(noise), np.full(RATE, 0.1, np.float32), RATE)
@@ -490,6 +492,24 @@ def test_left_options_raise(tmp_path, what):
         with pytest.raises(TypeError):
             ModelWrapper.from_config_as_embedding_extractor_fn(
                 extractor, mesh=object(), device="cpu")
+        return
+    if what in ("remat", "param_sharding"):
+        wrapper = ModelWrapper.from_config(cfg, device="cpu")
+        plain = wrapper.fit_fused(lambda: noisy_sines(1, seed=8),
+                                  verbose=False)
+        wrapper = ModelWrapper.from_config(cfg, device="cpu")
+        if what == "remat":
+            wrapper.trainer.remat = True
+        else:
+            mesh = parallel.get_mesh_2d(1, 1, device="cpu")
+            t = wrapper.trainer
+            wrapper.trainer = tloop.Trainer(
+                t.model, t.optimizer, t.loss_fn, metrics=t.metrics,
+                mesh=mesh, param_sharding=parallel.column_parallel_rule(mesh),
+                device="cpu")
+        h = wrapper.fit_fused(lambda: noisy_sines(1, seed=8), verbose=False)
+        np.testing.assert_allclose(h, plain, rtol=1e-6)
+        assert wrapper.trainer.state.step == 1
         return
     if what == "orbax":
         cfg["experiment"]["callbacks"][0]["kwargs"]["backend"] = "orbax"

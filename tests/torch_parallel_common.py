@@ -1,5 +1,6 @@
 """
-Ranks of the port's data-parallel tests (tests/test_torch_parallel*.py).
+Ranks of the port's data- and tensor-parallel tests
+(tests/test_torch_parallel*.py, tests/test_torch_tensor_parallel*.py).
 
 ``start_ranks`` launches this file once per rank as a subprocess that
 imports torch and the port only. The ranks rendezvous through a
@@ -259,6 +260,238 @@ def scenario_serving(spec, mesh, out):
         chunk_seconds=0.5, hop_seconds=0.25, mesh=mesh, device="cpu")
     stream.feed(spec["stream"])
     out["stream"] = stream.scores()
+
+
+# -- tensor parallelism (tests/test_torch_tensor_parallel.py) -----------------
+
+PRODUCT_OPS = ("linear", "conv1d", "conv2d", "lstm", "gru")
+
+
+def record_products(fn):
+    """(fn's result, [(op, weight shape)] of every Dense / Conv product
+    and recurrent layer it runs): what a rank computes."""
+    seen = []
+
+    class Record(torch.overrides.TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            name = getattr(func, "__name__", "")
+            if name in PRODUCT_OPS:
+                # a recurrent layer's flat weights: its longest list
+                w = (max((a for a in args if isinstance(a, (list, tuple))),
+                         key=len)[0]
+                     if name in ("lstm", "gru") else args[1])
+                seen.append((name, tuple(w.shape)))
+            return func(*args, **(kwargs or {}))
+    with Record():
+        result = fn()
+    return result, seen
+
+
+def tp_trainer(model, mesh, optimizer=None, **kw):
+    """A Trainer on the CPU, column-parallel over a 2-D ``mesh`` (None:
+    mesh-less), Adam 5e-3 as tests/test_train.py:58 unless given."""
+    from lidbox_tpu_torch import losses, parallel
+    from lidbox_tpu_torch.train import loop, optimizers
+    rule = None if mesh is None else parallel.column_parallel_rule(mesh)
+    return loop.Trainer(model, optimizer or optimizers.adam(5e-3),
+                        losses.nll_loss, mesh=mesh, param_sharding=rule,
+                        device="cpu", **kw)
+
+
+def tp_local(batches, mesh):
+    from lidbox_tpu_torch import parallel
+    return batches if mesh is None else [parallel.local_slice(b, mesh)
+                                         for b in batches]
+
+
+def tp_dnn(spec, mesh, epochs=2, exact=False, **kw):
+    """The dnn of tests/test_train.py:181 for ``epochs`` over the toy
+    batches: (trainer, epoch losses). ``exact`` takes Adam's epsilon to
+    1e-4: at optax's 1e-8 the first updates are about lr * sign(g), and
+    gradients near zero (the dead relu units) turn the column-parallel
+    sums' float32 rounding into 1e-4 of loss within 3 steps."""
+    from lidbox_tpu_torch.train import optimizers
+    if exact:
+        kw["optimizer"] = optimizers.adam(5e-3, eps=1e-4)
+    t = tp_trainer(_model("dnn", spec["dnn"]), mesh, **kw)
+    feed = tp_local(spec["dnn_train"], mesh)
+    h = t.fit(lambda: feed, epochs=epochs, verbose=False,
+              cache_shuffle=False)
+    return t, [e["loss"] for e in h]
+
+
+def tp_xvector(spec, mesh, augment):
+    """A small x-vector (channel dropout with ``augment``) through
+    fit_signals with ``stft_method: "pallas"`` (the kernel's wrapper; its
+    plain version on the CPU), SpecAugment with ``augment``: (trainer,
+    history)."""
+    from lidbox_tpu_torch.data import on_device
+    from lidbox_tpu_torch.train import optimizers
+    import lidbox_tpu_torch.models as tmodels
+    model = tmodels.create("xvector", spec["xv_shape"], spec["outputs"],
+                           channel_dropout_rate=0.3 if augment else 0.0,
+                           device="cpu")
+    model.module.load_state_dict(spec["xvector"]["state"])
+    t = tp_trainer(model, mesh, optimizer=optimizers.adam(1e-3, eps=1e-4))
+    fn = on_device.make_augmented_feature_fn(
+        spec["rate"], spec["xv_features"], on_device.AugmentConfig(
+            snr_range=None, specaug_time_masks=2 if augment else 0,
+            specaug_time_width=5, specaug_freq_masks=2 if augment else 0,
+            specaug_freq_width=4))
+    h = on_device.fit_signals(t, fn, tp_local(spec["xv_train"], mesh),
+                              epochs=2, verbose=False,
+                              val_batches=tp_local(spec["xv_val"], mesh))
+    return t, h
+
+
+def tp_crnn(spec, mesh):
+    """crnn (Conv2d + BatchNorm + the bidirectional LSTM, which gathers
+    its split weights) for 3 one-batch epochs with validation: (trainer,
+    history)."""
+    from lidbox_tpu_torch.train.optimizers import optimizer_from_config
+    t = tp_trainer(_model("crnn", spec["crnn"]), mesh,
+                   optimizer=optimizer_from_config(ADAM)[0])
+    h = t.fit(one_per_epoch(tp_local(spec["crnn_train"], mesh)),
+              lambda: tp_local(spec["crnn_val"], mesh), epochs=3,
+              verbose=False)
+    return t, h
+
+
+def _tp_summary(trainer, batch):
+    """A TP trainer's split parameters (names, shard shapes), its gathered
+    full parameters and batch statistics, the products of one eval
+    forward on ``batch`` and a digest of the model's synced weights on
+    every rank."""
+    from lidbox_tpu_torch import parallel
+    state = trainer.checkpoint_state()
+    batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+    _, products = record_products(lambda: trainer._apply(
+        trainer.state.params, trainer.state.batch_stats, batch, train=False))
+    synced = {k: v.detach() for k, v in
+              trainer.model.module.state_dict().items()}
+    return {"specs": dict(trainer.param_specs),
+            "shards": {k: tuple(trainer.state.params[k].shape)
+                       for k in trainer.param_specs},
+            "full": numpy_tree({**state.params, **state.batch_stats}),
+            "products": products,
+            "synced": _checksum(trainer.mesh, synced).tolist(),
+            "synced_equal": all(torch.equal(synced[k], v) for k, v in
+                                {**state.params,
+                                 **state.batch_stats}.items())}
+
+
+def scenario_tensor_parallel(spec, world, out):
+    """1 x 2 (data, model): the dnn (shards before and after fit, the
+    products, cached replay, restore), the x-vector through fit_signals,
+    crnn and clip_by_global_norm."""
+    from lidbox_tpu_torch import parallel
+    from lidbox_tpu_torch.train import ModelCheckpoint, loop, optimizers
+    mesh = parallel.get_mesh_2d(data_size=1, model_size=2, device="cpu")
+    out["coords"] = (mesh.data_index, mesh.model_index)
+
+    t = tp_trainer(_model("dnn", spec["dnn"]), mesh)
+    t.create_state()
+    before = {k: tuple(t.state.params[k].shape) for k in t.param_specs}
+    moments = {k: tuple(v.shape) for k, v in zip(
+        t.state.params, t.state.opt_state[0]["mu"])}
+    ckpt_dir = os.path.join(spec["tmp"], "tp_ckpt")
+    t, losses = tp_dnn(spec, mesh, callbacks=[ModelCheckpoint(ckpt_dir)])
+    out["dnn"] = dict(_tp_summary(t, spec["dnn_train"][0]), losses=losses,
+                      exact=tp_dnn(spec, mesh, exact=True)[1],
+                      before=before, moments=moments)
+    # rank 0 writes the gathered state, in the mesh-less format
+    out["dnn"]["ckpt"] = numpy_tree(loop.ckpt_lib.load_raw_checkpoint(
+        loop.ckpt_lib.get_best_checkpoint_path(ckpt_dir))["params"])
+
+    # cached replay against streaming
+    replay = {}
+    for cache in (True, False):
+        t, losses = tp_dnn(spec, mesh, epochs=3, cache_staged=cache)
+        replay[cache] = {"losses": losses, "full": numpy_tree(
+            t.checkpoint_state().params)}
+    out["replay"] = replay
+
+    # a mesh-less checkpoint restored into the sharded trainer
+    t = tp_trainer(_model("dnn", spec["dnn"]), mesh)
+    t.restore(spec["ckpt"])
+    out["restore"] = {
+        "epoch": t.initial_epoch,
+        "shards": {k: tuple(t.state.params[k].shape) for k in t.param_specs},
+        "full": numpy_tree(t.checkpoint_state().params),
+        "opt": numpy_tree(t.checkpoint_state().opt_state),
+        "losses": [e["loss"] for e in t.fit(
+            lambda: tp_local(spec["dnn_train"], mesh), epochs=3,
+            verbose=False)]}
+
+    for name, augment in (("xvector", True), ("xvector_clean", False)):
+        t, h = tp_xvector(spec, mesh, augment)
+        out[name] = dict(_tp_summary(t, {"input": spec["xv_feats"]}),
+                         history=h)
+
+    t, h = tp_crnn(spec, mesh)
+    out["crnn"] = dict(_tp_summary(t, spec["crnn_train"][0]), history=h)
+
+    grads = {k: torch.as_tensor(v) for k, v in spec["clip_grads"].items()}
+    shards, specs = parallel.shard_params(grads, mesh)
+    with parallel.tensor_parallel(mesh, specs):
+        clipped, _ = optimizers.clip_by_global_norm(1.0).update(shards, {})
+    out["clip"] = {k: parallel.unshard(v, specs[k], mesh).numpy()
+                   if k in specs else v.numpy() for k, v in clipped.items()}
+
+
+def scenario_tensor_parallel_2x2(spec, world, out):
+    """2 x 2 (data, model): the dnn; the ranks of one data row feed the
+    same rows."""
+    from lidbox_tpu_torch import parallel
+    mesh = parallel.get_mesh_2d(data_size=2, model_size=2, device="cpu")
+    out["coords"] = (mesh.data_index, mesh.model_index)
+    out["rows"] = tp_local(spec["dnn_train"][:1], mesh)[0]["target"]
+    t, losses = tp_dnn(spec, mesh)
+    out["dnn"] = dict(_tp_summary(t, spec["dnn_train"][0]), losses=losses,
+                      exact=tp_dnn(spec, mesh, exact=True)[1])
+
+
+def _step_grads(key, kw, shape, batch, mesh, compute_dtype=None):
+    """The first train step of ``key`` (weights from seed 3) on ``batch``:
+    (loss, gradients gathered whole in float64, split names, the forward's
+    products)."""
+    from lidbox_tpu_torch import losses, parallel
+    import lidbox_tpu_torch.models as tmodels
+    from lidbox_tpu_torch.train import loop, optimizers
+    model = tmodels.create(key, shape, 3, device="cpu", **kw)
+    model.init(torch.Generator().manual_seed(3))
+    rule = None if mesh is None else parallel.column_parallel_rule(mesh)
+    t = loop.Trainer(model, optimizers.adam(1e-3, eps=1e-4),
+                     losses.nll_loss, mesh=mesh, param_sharding=rule,
+                     compute_dtype=compute_dtype, device="cpu")
+    state = t.create_state()
+    batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+    (loss, grads, _), products = record_products(
+        lambda: t._loss_and_grads(state, batch, t.generator))
+    grads = {k: (parallel.unshard(g, t.param_specs[k], mesh)
+                 if k in t.param_specs else g).double().numpy()
+             for k, g in grads.items()}
+    return float(loss), grads, sorted(t.param_specs), products
+
+
+def scenario_tensor_parallel_zoo(spec, world, out):
+    """Every model configuration's first train step in float64 on a 1 x 2
+    mesh and mesh-less: the losses, the gradients' distance (|tp - ref| /
+    |ref| over all of them), the split names, the TP forward's products
+    and the parameters' full shapes."""
+    from lidbox_tpu_torch import parallel
+    mesh = parallel.get_mesh_2d(data_size=1, model_size=2, device="cpu")
+    for name, key, kw in spec["zoo"]:
+        tp_loss, tp, split, products = _step_grads(
+            key, kw, spec["shape"], spec["batch"], mesh, torch.float64)
+        loss, ref = _step_grads(key, kw, spec["shape"], spec["batch"], None,
+                                torch.float64)[:2]
+        num = sum(float(((tp[k] - ref[k]) ** 2).sum()) for k in ref)
+        den = sum(float((v ** 2).sum()) for v in ref.values())
+        out[name] = {"losses": (tp_loss, loss),
+                     "distance": float(np.sqrt(num / den)), "split": split,
+                     "products": products,
+                     "full": {k: v.shape for k, v in ref.items()}}
 
 
 def main(scenario, tmp_path):
