@@ -148,7 +148,26 @@ Phases, each of which fails the run:
    version; the step, and in one instrumented step the model group's
    gathers and all-reduces with their bytes, timed. A rank that fails,
    or outlives its time limit, fails the run;
-13. the kernel table as one JSON line (after phase 6's [64, 32000] kernel
+13. Orbax checkpoints and deployment: whether zstandard, orbax and
+   tensorstore import (none does on the card's machine) and the zstd
+   decoder's build (``native/zstd.cpp``); the full-width x-vector through
+   ``fit_fused`` for 2 epochs of 4 batches of [32, 48000] and 1
+   validation batch (a stream of its own, seed 1241) with
+   ``ModelCheckpoint(backend="orbax")``: the directories carry the msgpack
+   backend's names, the best restores bit-equal to the live state of its
+   epoch (step, params, batch stats, Adam moments), and one epoch resumed
+   from the last equals the live trainer's next epoch bit for bit; the
+   write (save to wait), its bytes and the read timed on the host clock;
+   the committed JAX checkpoint (``tests/data/orbax_jax_xvector_small``,
+   OCDBT + zstd, written by the JAX package) restored bit-equal to its
+   msgpack copy and served (4 wavs, ``serve.Classifier`` on the kernel,
+   within SERVE_ATOL of the CPU), the decoder's MB/s; ``export --platforms
+   cuda,cpu`` through ``cli.main``, the program loaded on each device
+   within atol 1e-5 + rtol 1e-5 of the live model there at batch 1, 2 and
+   32. The launch count, zeroed before each driven part and read after,
+   must equal the prediction (ORBAX_LAUNCHES). cuDNN runs its
+   deterministic algorithms here;
+14. the kernel table as one JSON line (after phase 6's [64, 32000] kernel
    line again), the card line, and the result line.
 
 Every comparison of the kernel with its plain version holds float32 within
@@ -2632,6 +2651,350 @@ def phase_tensor_parallel(root, rng, logmel, device="cuda"):
               "memory, far from what NVLink between cards would give)")
     return launches, err
 
+# Orbax checkpoints and deployment (phase 13): the full-width x-vector
+# trained ORBAX_EPOCHS epochs of ORBAX_BATCHES batches of [32, 48000] plus
+# ORBAX_VAL validation batches with ModelCheckpoint(backend="orbax"), then
+# resumed one epoch; the committed JAX fixture (a narrow x-vector, 40 mel
+# bins in, 5 classes, tests/test_torch_orbax.py::make_fixture) served;
+# export --platforms held at phase 7's tolerance.
+ORBAX_EPOCHS, ORBAX_BATCHES, ORBAX_VAL = 2, 4, 1
+ORBAX_BATCH, ORBAX_SECONDS = 32, 3.0
+ORBAX_FIXTURE = os.path.join("tests", "data", "orbax_jax_xvector_small",
+                             "epoch000002__val_loss0.500000000000")
+ORBAX_FIXTURE_FEATURES = {"type": "logmelspectrogram",
+                          "melspectrogram": {"num_mel_bins": 40},
+                          "stft_method": "pallas"}
+ORBAX_WAVS = 4
+EXPORT_ATOL = EXPORT_RTOL = 1e-5  # phase 7's export check
+# predicted before the first card run (PERF.md): 2 x 4 steps + 1
+# validation batch, the live run's and the resumed run's third epoch (4 +
+# 1 each), and one served batch of the fixture's 4 wavs
+ORBAX_LAUNCHES = (ORBAX_EPOCHS * ORBAX_BATCHES + ORBAX_VAL
+                  + 2 * (ORBAX_BATCHES + ORBAX_VAL) + 1)
+
+
+def narrow_xvector(device):
+    """The committed fixture's model: the x-vector's layers and names at
+    widths 32 (64 before the pooling), 40 mel bins in, 5 classes."""
+    from lidbox_tpu_torch import models
+    from lidbox_tpu_torch.models.layers import Dense, FrameLayer
+    model = models.create("xvector", (None, 40), len(LABELS), device="cpu")
+    m = model.module
+    m.frame1, m.frame2 = FrameLayer(40, 32, 5, 1), FrameLayer(32, 32, 3, 2)
+    m.frame3, m.frame4 = FrameLayer(32, 32, 3, 3), FrameLayer(32, 32, 1, 1)
+    m.frame5 = FrameLayer(32, 64, 1, 1)
+    m.segment1, m.segment2 = Dense(128, 32), Dense(32, 32)
+    m.outputs = Dense(32, len(LABELS))
+    model.module = m.to(device).eval()
+    model.device = torch.device(device)
+    return model
+
+
+def state_leaves(state):
+    """(name, value) of every part of a train state or raw state dict."""
+    get = state.get if isinstance(state, dict) else \
+        (lambda k: getattr(state, k))
+    out = [("step", int(get("step")))]
+    for key in ("params", "batch_stats"):
+        out += sorted((f"{key}.{k}", v) for k, v in get(key).items())
+
+    def walk(node, where):
+        if isinstance(node, dict):
+            for k in node:
+                walk(node[k], f"{where}.{k}")
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{where}[{i}]")
+        else:
+            out.append((where, node))
+    walk(get("opt_state"), "opt_state")
+    return out
+
+
+def check_same_state(a, b, what):
+    la, lb = state_leaves(a), state_leaves(b)
+    check([n for n, _ in la] == [n for n, _ in lb],
+          f"{what}: the states' structures differ")
+    for (name, x), (_, y) in zip(la, lb):
+        if isinstance(x, torch.Tensor):
+            check(torch.equal(x.cpu(), y.cpu()), f"{what}: {name} differs")
+        else:
+            check(x == y, f"{what}: {name} {x} != {y}")
+    return len(la)
+
+
+def phase_orbax(root, rng, logmel, device="cuda"):
+    """Phase 13: (a) whether zstandard, orbax and tensorstore import here,
+    and the zstd decoder's build; (b) the full-width x-vector through
+    ``ModelWrapper.from_config(...).fit_fused`` with
+    ``ModelCheckpoint(backend="orbax")`` (a msgpack ModelCheckpoint beside
+    it in another directory): the directory names equal the msgpack
+    names, the best directory restores into a fresh trainer bit-equal to
+    the live state of its epoch, and one epoch resumed from the last
+    directory is bit-equal to the live trainer's next epoch; the write,
+    its bytes and the read timed; (c) the committed JAX fixture (OCDBT +
+    zstd) restored bit-equal to its msgpack copy and served through
+    ``serve.Classifier`` on the kernel, the decoder's MB/s; (d) ``export
+    --platforms`` from (b)'s best directory through ``cli.main``, the
+    program on each device held to the live model there at batch 1, 2
+    and 32. Returns (launches, the kernel's worst error).
+
+    ``device="cpu"`` rehearses it on the plain version (set ORBAX_BATCH
+    and ORBAX_SECONDS small first); the launch count, the kernel check,
+    the cuda platform and the timing need the card."""
+    import contextlib
+    import copy
+    import importlib.util
+    import io
+    from lidbox_tpu_torch import cli, export, serve
+    from lidbox_tpu_torch.features import io as audio_io
+    from lidbox_tpu_torch.models.model_utils import (
+        ModelWrapper, best_model_checkpoint_from_config,
+        experiment_cache_from_config)
+    from lidbox_tpu_torch.native import zstd
+    from lidbox_tpu_torch.train import checkpoint as ckpt
+    from lidbox_tpu_torch.train import orbax
+    from lidbox_tpu_torch.train.loop import Callback, ModelCheckpoint
+
+    on_card = device == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # (a)
+    probes = {name: importlib.util.find_spec(name) is not None
+              for name in ("zstandard", "orbax", "tensorstore")}
+    print("orbax probe: " + ", ".join(
+        f"{k} {'imports' if v else 'absent'}" for k, v in probes.items()))
+    t0 = time.perf_counter()
+    zstd.load_library()
+    print(f"orbax: zstd decoder {zstd._LIB} built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # (b)
+    train = class_sines(rng, ORBAX_BATCHES, ORBAX_BATCH, ORBAX_SECONDS)
+    val = class_sines(rng, ORBAX_VAL, ORBAX_BATCH, ORBAX_SECONDS)
+    config = train_config(root)
+    config["experiment"]["name"] = "smoke_orbax"
+    config["experiment"]["callbacks"] = [{"cls": "ModelCheckpoint", "kwargs": {
+        "monitor": "val_loss", "mode": "min", "backend": "orbax"}}]
+    resumed_config = copy.deepcopy(config)
+    resumed_config["experiment"]["name"] = "smoke_orbax_resumed"
+
+    def wrapper_for(cfg):
+        wrapper = ModelWrapper.from_config(cfg, device=device)
+        wrapper.model.init(torch.Generator().manual_seed(SEED))
+        return wrapper
+
+    class Snapshots(Callback):
+        """The live state at each epoch's end (states are never written
+        in place)."""
+        def __init__(self):
+            self.states = {}
+
+        def on_epoch_end(self, trainer, epoch, logs):
+            self.states[epoch] = trainer.state
+
+    wrapper = wrapper_for(config)
+    snaps = Snapshots()
+    msgpack_dir = os.path.join(root, "orbax_msgpack")
+    wrapper.trainer.callbacks += [ModelCheckpoint(msgpack_dir), snaps]
+    launches = 0
+    logmel.fused_logmel.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    history = wrapper.fit_fused(lambda: train, epochs=ORBAX_EPOCHS,
+                                val_signal_batches=lambda: val)
+    sync()
+    fit_s = time.perf_counter() - t0
+    launches += logmel.fused_logmel.launches
+    ckpt_dir = os.path.join(experiment_cache_from_config(config),
+                            "checkpoints")
+    names = sorted(os.listdir(ckpt_dir))
+    check(names == sorted(n[:-len(".ckpt")]
+                          for n in os.listdir(msgpack_dir)),
+          f"orbax directories {names} differ from the msgpack names "
+          f"{sorted(os.listdir(msgpack_dir))}")
+    check(len(names) == ORBAX_EPOCHS and all(
+        os.path.isdir(os.path.join(ckpt_dir, n)) for n in names),
+          f"orbax checkpoints {names}")
+    best = best_model_checkpoint_from_config(config)
+    epoch = ckpt.initial_epoch_from_path(best)
+    fresh = wrapper_for(config)
+    fresh.trainer.restore(best)
+    n_leaves = check_same_state(fresh.trainer.state, snaps.states[epoch],
+                                f"restore of {os.path.basename(best)}")
+    print(f"orbax: fit_fused {ORBAX_EPOCHS} epochs in {fit_s:.2f} s, loss "
+          + ", ".join(f"{h['loss']:.4f}" for h in history) + "; "
+          f"directories {names} (the msgpack names); the best, epoch "
+          f"{epoch}, restored bit-equal to the live state ({n_leaves} "
+          "leaves: step, params, batch stats, Adam moments)")
+
+    last = os.path.join(ckpt_dir, names[-1])
+    resumed = wrapper_for(resumed_config)
+    resumed.trainer.restore(last)
+    logmel.fused_logmel.launches = 0
+    wrapper.trainer.initial_epoch = ORBAX_EPOCHS
+    live_next = wrapper.fit_fused(lambda: train, epochs=ORBAX_EPOCHS + 1,
+                                  val_signal_batches=lambda: val)
+    resumed_next = resumed.fit_fused(lambda: train, epochs=ORBAX_EPOCHS + 1,
+                                     val_signal_batches=lambda: val)
+    sync()
+    launches += logmel.fused_logmel.launches
+    check(len(live_next) == len(resumed_next) == 1
+          and live_next[0]["loss"] == resumed_next[0]["loss"]
+          and live_next[0]["val_loss"] == resumed_next[0]["val_loss"],
+          f"resumed epoch {resumed_next} != the live trainer's {live_next}")
+    check_same_state(resumed.trainer.state, wrapper.trainer.state,
+                     "the resumed epoch")
+    print(f"orbax: epoch {ORBAX_EPOCHS + 1} resumed from {names[-1]}: loss "
+          f"{resumed_next[0]['loss']!r}, val_loss "
+          f"{resumed_next[0]['val_loss']!r}, bit-equal to the live "
+          "trainer's (state included)")
+
+    writer = ckpt.OrbaxCheckpointer()
+    state = wrapper.trainer.state
+    timed = os.path.join(root, "orbax_timed")
+    sync()
+    t0 = time.perf_counter()
+    path = writer.save(timed, state, epoch=9, val_loss=0.0)
+    writer.wait()
+    write_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(d, f))
+                 for d, _, files in os.walk(path) for f in files)
+    t0 = time.perf_counter()
+    orbax.read_checkpoint(path)
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    raw = ckpt.load_raw_checkpoint(path, params=state.params)
+    load_s = time.perf_counter() - t0
+    check_same_state(raw, state, "the timed checkpoint")
+    t0 = time.perf_counter()
+    mpath = ckpt.save_checkpoint(timed, state, epoch=9, val_loss=0.0)
+    msave_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ckpt.load_raw_checkpoint(mpath)
+    mload_s = time.perf_counter() - t0
+    where = card_line() if on_card else "cpu"
+    print(f"orbax checkpoint of the full-width x-vector train state on "
+          f"{where} (host clock): write {write_s:.3f} s (save() to wait(), "
+          f"the device-to-host copy included) for {nbytes} bytes; read "
+          f"{read_s:.3f} s (read_checkpoint), {load_s:.3f} s with the "
+          f"conversion (load_raw_checkpoint); torch.save checkpoint "
+          f"{msave_s:.3f} s, its load {mload_s:.3f} s")
+
+    # (c)
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           ORBAX_FIXTURE)
+    t0 = time.perf_counter()
+    jax_state = ckpt.load_raw_checkpoint(fixture)
+    fixture_s = time.perf_counter() - t0
+    n_leaves = check_same_state(jax_state, ckpt.load_raw_checkpoint(
+        fixture + ".ckpt"), "the JAX fixture's Orbax and msgpack copies")
+    store = orbax.OcdbtStore(fixture)
+    chunks = [store.get(k) for k in store.keys()
+              if not k.endswith(".zarray")]
+    out_bytes = sum(len(zstd.decompress(c)) for c in chunks)
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for c in chunks:
+            zstd.decompress(c)
+    decode_s = (time.perf_counter() - t0) / reps
+    print(f"orbax: the JAX fixture (OCDBT + zstd, {len(chunks)} zstd "
+          f"chunks, {sum(map(len, chunks))} -> {out_bytes} bytes) restored "
+          f"in {fixture_s:.3f} s, bit-equal to its msgpack copy "
+          f"({n_leaves} leaves); zstd decode {out_bytes / decode_s / 1e6:.1f} "
+          f"MB/s on the host of {where} (every chunk, one thread, mean of "
+          f"{reps} passes)")
+    model = narrow_xvector(device)
+    model.module.load_state_dict({**jax_state["params"],
+                                  **jax_state["batch_stats"]})
+    paths = write_wavs(audio_io, root, rng, ORBAX_WAVS, ORBAX_SECONDS)
+    logmel.fused_logmel.launches = 0
+    sync()
+    scores = serve.Classifier(model, LABELS,
+                              feature_config=ORBAX_FIXTURE_FEATURES,
+                              batch_size=ORBAX_WAVS,
+                              device=device).classify(paths)
+    sync()
+    launches += logmel.fused_logmel.launches
+    table = np.stack([scores[f"score_{label}"] for label in LABELS], axis=1)
+    cpu_model = narrow_xvector("cpu")
+    cpu_model.module.load_state_dict(model.module.state_dict())
+    cpu_scores = serve.Classifier(cpu_model, LABELS,
+                                  feature_config=ORBAX_FIXTURE_FEATURES,
+                                  batch_size=ORBAX_WAVS,
+                                  device="cpu").classify(paths)
+    cpu_table = np.stack([cpu_scores[f"score_{label}"] for label in LABELS],
+                         axis=1)
+    check(table.shape == (ORBAX_WAVS, len(LABELS))
+          and np.isfinite(table).all(), f"fixture scores {table}")
+    check(np.abs(table - cpu_table).max() <= SERVE_ATOL,
+          f"fixture scores differ from the CPU's by "
+          f"{np.abs(table - cpu_table).max()}")
+    print(f"orbax: the fixture's narrow x-vector serves {ORBAX_WAVS} wavs "
+          f"through serve.Classifier, within "
+          f"{np.abs(table - cpu_table).max():.3e} of the CPU (SERVE_ATOL)")
+
+    # (d)
+    platforms = ["cuda", "cpu"] if on_card else ["cpu"]
+    cfg_path = write_json(config, os.path.join(root, "orbax.json"))
+    out_dir = os.path.join(root, "orbax_deploy")
+    with contextlib.redirect_stdout(io.StringIO()):
+        code = cli.main(["export", cfg_path, out_dir, "--platforms",
+                         ",".join(platforms)], device=device)
+    check(code == 0, f"export --platforms: exit code {code}")
+    program_path = os.path.join(out_dir, export.PROGRAM_NAME)
+    best = best_model_checkpoint_from_config(config)  # epoch 3's included
+    deployed = wrapper_for(config)
+    deployed.trainer.restore(best)
+    live = {device: deployed.model}
+    if on_card:
+        cpu = ModelWrapper.from_config(config, device="cpu")
+        cpu.model.module.load_state_dict(deployed.model.module.state_dict())
+        live["cpu"] = cpu.model
+    frames = 1 + (int(RATE * ORBAX_SECONDS) - 400) // 160
+    gen = torch.Generator().manual_seed(SEED)
+    xs = [torch.randn(b, frames, 64, generator=gen) for b in (1, 2, 32)]
+    worst, cross = {}, 0.0
+    with torch.inference_mode():
+        for platform in platforms:
+            program = export.load_program(program_path, device=platform)
+            worst[platform] = 0.0
+            for x in xs:
+                x = x.to(platform)
+                ref = live[platform].apply(x)
+                got = program(x)
+                err = (got - ref).abs()
+                check((err <= EXPORT_ATOL + EXPORT_RTOL * ref.abs()).all(),
+                      f"export on {platform}: batch {x.shape[0]} differs by "
+                      f"{err.max().item()}")
+                worst[platform] = max(worst[platform], err.max().item())
+                cross = max(cross, (got.cpu() - live[device].apply(
+                    x.to(device)).cpu()).abs().max().item())
+    print(f"orbax: export --platforms {','.join(platforms)} from "
+          f"{os.path.basename(best)}: the program on each device holds the "
+          f"live model there at batch 1, 2 and 32 ("
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f"; atol {EXPORT_ATOL} + rtol {EXPORT_RTOL}); across devices "
+          f"{cross:.3e}")
+
+    errors = []
+    if on_card:
+        check(launches == ORBAX_LAUNCHES,
+              f"phase 13 launched the kernel {launches} times, not the "
+              f"predicted {ORBAX_LAUNCHES}")
+        with torch.inference_mode():
+            errors.append(compare(logmel, "orbax_train",
+                                  torch.as_tensor(train[0][0], device=device),
+                                  RATE, KERNEL_KW))
+        print(f"orbax: kernel launches {launches} (predicted "
+              f"{ORBAX_LAUNCHES})")
+    return launches, max(errors, default=0.0)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2681,6 +3044,8 @@ def main():
                 root, np.random.default_rng(SEED + 5), logmel)
             tp_launches, tp_err = phase_tensor_parallel(
                 root, np.random.default_rng(SEED + 6), logmel)
+            orbax_launches, orbax_err = phase_orbax(
+                root, np.random.default_rng(SEED + 7), logmel)
         finally:
             torch.backends.cudnn.deterministic = False
     if pipe_timing is not None:
@@ -2697,7 +3062,7 @@ def main():
           f"{aug_launches} augmented training + {pipe_launches} pipeline "
           f"(fit and embedding extraction) + {cli_launches} CLI + "
           f"{zoo_launches} model zoo + {dp_launches} data parallel + "
-          f"{tp_launches} tensor parallel")
+          f"{tp_launches} tensor parallel + {orbax_launches} Orbax")
 
     print(json.dumps({"kernels": [{
         "name": "fused_logmel",
@@ -2706,9 +3071,9 @@ def main():
         "replaces": "lidbox_tpu/ops/logmel.py:154",
         "launches": (serve_launches + train_launches + aug_launches
                      + pipe_launches + cli_launches + zoo_launches
-                     + dp_launches + tp_launches),
+                     + dp_launches + tp_launches + orbax_launches),
         "max_abs_err": max(geometry_err, path_err, aug_err, pipe_err,
-                           cli_err, zoo_err, dp_err, tp_err),
+                           cli_err, zoo_err, dp_err, tp_err, orbax_err),
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,

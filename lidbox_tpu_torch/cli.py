@@ -23,9 +23,10 @@ command's output. Configs are JSON, or YAML when the ``yaml`` package
 imports. Metadata comes from a ``metadata`` section: either ``csv:
 <path>`` (columns: id, path, label, split[, duration]) or
 ``common_voice: {corpus_dir, langs}``. The best checkpoint of the
-experiment cache may be this package's or the JAX package's. Not ported
-yet, and raising: ``export --platforms`` (ROADMAP queue 1, item 11) and
-resuming from an Orbax checkpoint directory (item 6).
+experiment cache may be this package's or the JAX package's, a ``.ckpt``
+file or an Orbax directory (``ModelCheckpoint`` with ``backend: orbax``).
+``export --platforms cuda,cpu`` writes one program for every named device
+(the JAX package's ``gpu`` is ``cuda``).
 """
 import argparse
 import csv
@@ -42,11 +43,6 @@ from lidbox_tpu_torch import get_device, get_logger
 logger = get_logger("cli")
 
 REQUIRED_CONFIG_KEYS = ("metadata",)
-
-
-def _not_ported(what, item):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, "
-                              f"item {item})")
 
 
 def load_config(path):
@@ -371,11 +367,14 @@ def cmd_export(args):
     optionally an ahead-of-time ``torch.export`` forward (--torch-export)
     with a symbolic batch dimension so one file serves every batch size
     (the reference's deployment analogue was the hand-run tfjs-converter,
-    reference: lidbox/models/xvector_stats_pooling.js)."""
-    if args.platforms:
-        _not_ported("--platforms (lowering for several backends)", 11)
+    reference: lidbox/models/xvector_stats_pooling.js). ``--platforms``
+    names the devices the program deploys to, and implies
+    ``--torch-export``."""
     config = load_config(args.config)
     from lidbox_tpu_torch import export as export_mod
+
+    platforms = (export_mod.torch_platforms(args.platforms.split(","))
+                 if args.platforms else None)
 
     wrapper = _wrapper_with_best_checkpoint(config, args.device)
     exp = config["experiment"]
@@ -383,9 +382,10 @@ def cmd_export(args):
     model_kwargs["num_outputs"] = int(np.squeeze(exp["output_shape"]))
     export_mod.save_model(wrapper.model, exp["model"]["key"], args.output,
                           model_kwargs=model_kwargs)
-    if args.torch_export:
+    if args.torch_export or platforms:
         export_mod.export_program(wrapper.model, args.output,
-                                  batch_size=args.batch_size)
+                                  batch_size=args.batch_size,
+                                  platforms=platforms)
     return 0
 
 
@@ -477,7 +477,9 @@ def create_argparser():
                    help="concrete batch for --torch-export "
                         "(default: symbolic, serves any batch size)")
     p.add_argument("--platforms", default=None,
-                   help="lowering platforms (not ported yet)")
+                   help="comma-separated devices the --torch-export program "
+                        "deploys to, e.g. cuda,cpu (checked on each; "
+                        "implies --torch-export)")
     p.set_defaults(fn=cmd_export)
 
     p = sub.add_parser("utils", help="config validation and helpers")

@@ -10,9 +10,9 @@ repeat, augment, chunks, cache) -> ``features`` -> ``post_process``
 
 The Step lists are the JAX package's, key for key and kwarg for kwarg; the
 device is chosen when they run (``steps.from_steps(steps, device=...)``).
-The reference's ``user_script`` key, which replaces this module from the
-command line, belongs to the CLI and is not ported yet (ROADMAP queue 1,
-item 13).
+The reference's ``user_script`` key, which replaces this module's
+``create_dataset`` from the command line, is read by the CLI
+(``cli.py``).
 """
 import os
 

@@ -159,6 +159,30 @@ VALID_FEATURE_TYPES = (
 )
 
 
+def window_normalization_numpy(X, window_len=-1, normalize_variance=True):
+    """Host-side sliding-window CMVN of [B, T, F] numpy features WITHOUT
+    boundary padding: windows are clipped at the edges instead of
+    reflected (reference: lidbox/features/__init__.py:89-110, kept for
+    parity; ``window_normalization`` is the pipeline's)."""
+    X = np.asarray(X, np.float32)
+    T = X.shape[1]
+    if window_len == -1 or T <= window_len:
+        centered = X - np.mean(X, axis=1, keepdims=True)
+        if normalize_variance:
+            centered = centered / np.std(X, axis=1, keepdims=True)
+        return centered
+    begin = np.clip(np.arange(T) - window_len // 2, 0, T)
+    end = np.clip(begin + window_len, 0, T)
+    result = np.zeros_like(X)
+    for i, (b, e) in enumerate(zip(begin, end)):
+        window = X[:, b:e]
+        centered = X[:, i] - np.mean(window, axis=1)
+        if normalize_variance:
+            centered = centered / np.std(window, axis=1)
+        result[:, i] = centered
+    return result
+
+
 def _fused_kernel_serves(feature_type, spectrogram, precision):
     """True when the fused log-Mel kernel computes this request: log-mel
     or MFCC features of a power spectrum, in 'highest' or 'bf16'."""

@@ -166,6 +166,21 @@ def hann_window(window_length, periodic=True, dtype=torch.float32):
                            dtype=dtype)
 
 
+def blackman_window(window_length, periodic=True, alpha=0.16,
+                    dtype=torch.float32):
+    """Cosine-sum Blackman window with hann_window's denominator
+    (reference: lidbox/features/audio.py:192-216)."""
+    if window_length <= 1:
+        raise ValueError("unit length window not supported")
+    a0, a1, a2 = (1 - alpha) / 2, 0.5, alpha / 2
+    even = 1 - window_length % 2
+    n = window_length + int(periodic) * even - 1
+    count = np.arange(window_length, dtype=np.float64)
+    w = (a0 - a1 * np.cos(2.0 * np.pi * count / n)
+         + a2 * np.cos(4.0 * np.pi * count / n))
+    return torch.as_tensor(w, dtype=dtype)
+
+
 @functools.lru_cache(maxsize=16)
 def _windowed_dft_basis(frame_length, fft_length):
     """float32 numpy (cos, sin) bases [frame_length, fft_length//2 + 1]
@@ -260,6 +275,20 @@ def melspectrograms(S, sample_rate, num_mel_bins=40, fmin=0.0, fmax=8000.0):
     (reference: lidbox/data/tf_utils.py:175 vs lidbox/features/audio.py:253)."""
     return linear_to_mel(S, sample_rate, num_mel_bins=num_mel_bins, fmin=fmin,
                          fmax=fmax)
+
+
+@functools.lru_cache(maxsize=16)
+def _kept_bins(sample_rate, fft_length, fmin, fmax):
+    freqs = np.linspace(0.0, sample_rate // 2, 1 + fft_length // 2)
+    return np.flatnonzero((fmin <= freqs) & (freqs <= fmax))
+
+
+def drop_frequency_bins(S, sample_rate, fft_length, fmin, fmax):
+    """Keep the fft bins of [B, T, bins] inside [fmin, fmax]
+    (reference: lidbox/features/audio.py:233-244); the band depends only
+    on the configuration, so only the band is cached."""
+    keep = _kept_bins(sample_rate, fft_length, fmin, fmax)
+    return torch.index_select(S, 2, torch.as_tensor(keep, device=S.device))
 
 
 @functools.lru_cache(maxsize=16)

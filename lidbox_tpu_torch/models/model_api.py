@@ -30,7 +30,8 @@ def params_from_flax(params):
     """JAX package parameters -> this port's ``state_dict``.
 
     ``params`` is the Flax ``variables["params"]`` tree (or its
-    ``batch_stats``) as nested dicts of numpy arrays. Conv kernels go from
+    ``batch_stats``) as nested dicts of numpy arrays (or torch tensors, as
+    Orbax's bfloat16 leaves read). Conv kernels go from
     [k, in, out] to [out, in, k] and 2-D ones (depthwise too) from
     [kh, kw, in, out] to [out, in, kh, kw], Dense kernels (the gates of
     the recurrent cells too) are transposed; biases, BatchNorm ``scale`` /
@@ -44,13 +45,17 @@ def params_from_flax(params):
             if isinstance(value, dict) or hasattr(value, "items"):
                 walk(value, path + ".")
                 continue
+            if isinstance(value, torch.Tensor):  # bfloat16 from Orbax
+                value = value.float().numpy()
             a = np.asarray(value, np.float32)
             if name == "kernel":
                 path = f"{prefix}weight"
                 if a.ndim not in _KERNEL_TO_TORCH:
                     raise ValueError(f"{path}: unsupported kernel rank {a.ndim}")
                 a = a.transpose(_KERNEL_TO_TORCH[a.ndim])
-            state[path] = torch.tensor(a)
+            # contiguous, as the module's own tensors: strides decide the
+            # kernels, and so the rounding, of what runs on them
+            state[path] = torch.tensor(a).contiguous()
     walk(params, "")
     return state
 

@@ -35,16 +35,21 @@ _lock = threading.Lock()
 _build_failed = False
 
 
-def _build():
+def build_library(src, lib, flags=("-march=native", "-funroll-loops")):
+    """Compile ``src`` with g++ into the shared library ``lib`` when it is
+    missing or older than its source; raises CalledProcessError (with the
+    compiler's output) or OSError on failure."""
+    if os.path.exists(lib) and os.path.getmtime(lib) >= os.path.getmtime(src):
+        return
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = ["g++", "-O3", "-march=native", "-funroll-loops", "-shared",
-           "-fPIC", "-std=c++17", _SRC, "-o", tmp]
-    logger.info("Building native audio library: %s", " ".join(cmd))
+    cmd = ["g++", "-O3", *flags, "-shared", "-fPIC", "-std=c++17", src,
+           "-o", tmp]
+    logger.info("Building native library: %s", " ".join(cmd))
     try:
         subprocess.run(cmd, check=True, capture_output=True, text=True)
-        os.replace(tmp, _LIB)  # atomic: a concurrent loader never sees half a file
+        os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
@@ -63,9 +68,7 @@ def load_library():
         if _lib is not None or _build_failed:
             return _lib
         try:
-            if (not os.path.exists(_LIB)
-                    or os.path.getmtime(_LIB) < os.path.getmtime(_SRC)):
-                _build()
+            build_library(_SRC, _LIB)
             lib = ctypes.CDLL(_LIB)
         except (OSError, subprocess.CalledProcessError) as e:
             logger.warning("native audio library unavailable (%s); "

@@ -12,14 +12,19 @@ and ``.ckpt`` suffix, so best-checkpoint selection and ``initial_epoch``
 resume behave identically. Writes go through a temp file + rename so a
 crashed run never leaves a torn checkpoint.
 
-The JAX package's msgpack ``.ckpt`` files (``flax.serialization``) read
-too: ``load_raw_checkpoint`` converts their parameters, batch statistics
-and optax state to this port's train state, so a model trained by the JAX
-package resumes, evaluates and serves here. Not ported yet (ROADMAP queue
-1, item 6): the Orbax directory backend; it raises.
+The JAX package's checkpoints read too, both its msgpack ``.ckpt`` files
+(``flax.serialization``) and its Orbax directories (``train/orbax.py``):
+``load_raw_checkpoint`` converts their parameters, batch statistics and
+optax state to this port's train state, so a model trained by the JAX
+package resumes, evaluates and serves here. ``OrbaxCheckpointer`` writes
+Orbax directories (the JAX package's key paths and dtypes) from a writer
+thread, and the JAX package restores them.
 """
 import os
+import shutil
 import tempfile
+import threading
+import time
 
 import numpy as np
 import torch
@@ -109,34 +114,33 @@ def save_checkpoint(checkpoints_dir, state, epoch, val_loss=0.0,
 def load_raw_checkpoint(path, params=None):
     """A checkpoint as a dict of its ``STATE_KEYS``, tensors on the CPU.
 
-    Reads this port's ``torch.save`` files and the JAX package's msgpack
-    files. A JAX train state converts on the way: its parameters and batch
-    statistics through ``params_from_flax``, its optax state through
+    Reads this port's ``torch.save`` files and, from either package,
+    msgpack files and Orbax directories. A JAX train state converts on
+    the way: its parameters and batch statistics through
+    ``params_from_flax``, its optax state through
     ``opt_state_from_optax`` with the moments listed in the order of
     ``params`` (a name -> tensor dict; default the checkpoint's own order),
     and its step to an int."""
     if os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path} is an Orbax checkpoint directory; the Orbax backend is "
-            "not ported yet (ROADMAP queue 1, item 6)")
+        from lidbox_tpu_torch.train.orbax import read_checkpoint
+        return _from_jax_state(read_checkpoint(path), path, params)
     with open(path, "rb") as f:
         head = f.read(2)
     if head == b"PK":  # torch.save writes a zip archive
         return torch.load(path, map_location="cpu", weights_only=True)
     if head[:1] and (0x80 <= head[0] <= 0x8F or head[0] in (0xDE, 0xDF)):
-        return _from_flax_state(path, params)
+        from lidbox_tpu_torch.train.serialization import msgpack_restore
+        with open(path, "rb") as f:
+            return _from_jax_state(msgpack_restore(f.read()), path, params)
     raise ValueError(f"{path} is neither a torch.save checkpoint nor a "
                      "msgpack state dict")
 
 
-def _from_flax_state(path, params):
-    """A JAX package checkpoint (a msgpack TrainState) as this port's raw
-    state."""
+def _from_jax_state(raw, path, params):
+    """A JAX package train state, as its msgpack state dict or its Orbax
+    raw tree, as this port's raw state."""
     from lidbox_tpu_torch.models.model_api import params_from_flax
     from lidbox_tpu_torch.train.optimizers import opt_state_from_optax
-    from lidbox_tpu_torch.train.serialization import msgpack_restore
-    with open(path, "rb") as f:
-        raw = msgpack_restore(f.read())
     missing = [k for k in STATE_KEYS if k not in raw]
     if missing:
         raise ValueError(f"{path}: not a train state (missing {missing})")
@@ -177,6 +181,87 @@ def restore_checkpoint(path, target):
     raw = load_raw_checkpoint(path, params=target.params)
     return target.replace(**{k: _restore_into(getattr(target, k), raw[k], k)
                              for k in STATE_KEYS})
+
+
+def jax_state_tree(state):
+    """A train state as the JAX package's ``TrainState`` tree (as Orbax
+    restores it raw), on the host: the inverse of ``load_raw_checkpoint``'s
+    conversion, copied off the state's tensors."""
+    from lidbox_tpu_torch.models.model_api import params_to_flax
+    from lidbox_tpu_torch.train.optimizers import opt_state_to_optax
+    return {"step": np.asarray(int(state.step), np.int32),
+            "params": params_to_flax(state.params),
+            "batch_stats": params_to_flax(state.batch_stats),
+            "opt_state": opt_state_to_optax(state.opt_state,
+                                            list(state.params))}
+
+
+class OrbaxCheckpointer:
+    """Orbax checkpoint directories under the best-by-metric names (the
+    JAX package's ``OrbaxCheckpointer``): ``epoch{epoch:06d}__val_loss
+    {val_loss:.12f}``, a directory the JAX package's ``restore_checkpoint``
+    and ``load_raw_checkpoint`` read.
+
+    ``save`` copies the state to the host and converts it to the JAX
+    package's tree at once, then writes from a writer thread (with
+    ``use_async``), into ``<name>.orbax-checkpoint-tmp-<n>``, renamed into
+    place when complete: a killed run leaves only a tmp entry, which
+    best-checkpoint selection skips. One write runs at a time; ``wait``
+    drains it and raises what it raised."""
+
+    def __init__(self, use_async=True):
+        self.use_async = use_async
+        self._thread = None
+        self._error = None
+
+    def save(self, checkpoints_dir, state, epoch, val_loss=0.0):
+        name = DEFAULT_FORMAT.format(epoch=epoch, val_loss=float(val_loss))
+        name = name[:-len(CHECKPOINT_SUFFIX)]  # orbax uses a directory
+        path = os.path.abspath(os.path.join(checkpoints_dir, name))
+        os.makedirs(checkpoints_dir, exist_ok=True)
+        tree = jax_state_tree(state)
+        self.wait()
+        if not self.use_async:
+            _commit(path, tree)
+            return path
+        self._thread = threading.Thread(target=self._run, args=(path, tree),
+                                        name="orbax-writer", daemon=True)
+        self._thread.start()
+        return path
+
+    def _run(self, path, tree):
+        try:
+            _commit(path, tree)
+        except BaseException as e:  # raised again by wait()
+            self._error = e
+
+    def restore(self, path, target=None):
+        """The raw state (``target=None``) or ``target`` restored."""
+        if target is None:
+            return load_raw_checkpoint(path)
+        return restore_checkpoint(path, target)
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        error, self._error = self._error, None
+        if error is not None:
+            raise error
+
+
+def _commit(path, tree):
+    """Write ``tree`` beside ``path`` and rename it into place (replacing
+    an older checkpoint of the same name, as Orbax's ``force=True``)."""
+    from lidbox_tpu_torch.train.orbax import write_checkpoint
+    started = time.perf_counter()
+    tmp = f"{path}.orbax-checkpoint-tmp-{time.time_ns()}"
+    write_checkpoint(tmp, tree)
+    if os.path.exists(path):
+        shutil.rmtree(path)
+    os.replace(tmp, path)
+    logger.info("Saved checkpoint %s (%.3f s)", path,
+                time.perf_counter() - started)
 
 
 def initial_epoch_from_path(path):

@@ -377,10 +377,14 @@ def opt_state_from_optax(opt_state, params):
 
     ``opt_state`` may also be the msgpack form of a JAX checkpoint
     (``flax.serialization.to_state_dict``): a chain is a dict keyed
-    ``"0"``, ``"1"``, ... and each state a dict of its fields."""
+    ``"0"``, ``"1"``, ... and each state a dict of its fields; or the raw
+    tree of an Orbax checkpoint: a chain is a list, each state a dict and
+    an empty state (optax ``EmptyState``) None."""
     from lidbox_tpu_torch.models.model_api import params_from_flax
 
     def field(value):
+        if value is None:  # an empty nested state, in Orbax's raw form
+            return {}
         if isinstance(value, tuple):  # a nested state (optax MaskedState)
             return convert(value)
         if (isinstance(value, dict) or hasattr(value, "items")) and not value:
@@ -395,6 +399,8 @@ def opt_state_from_optax(opt_state, params):
         return int(np.asarray(value))
 
     def convert(node):
+        if node is None:
+            return {}
         if isinstance(node, tuple) and hasattr(node, "_fields"):
             return {f: field(getattr(node, f)) for f in node._fields}
         if isinstance(node, dict):
@@ -404,4 +410,27 @@ def opt_state_from_optax(opt_state, params):
         if isinstance(node, (tuple, list)):
             return tuple(convert(n) for n in node)
         raise TypeError(f"unsupported optimizer state node {type(node)}")
+    return convert(opt_state)
+
+
+def opt_state_to_optax(opt_state, names):
+    """This module's state -> the tree a JAX checkpoint of the same optax
+    state holds, as Orbax restores it raw (the inverse of
+    :func:`opt_state_from_optax`): a chain is a list, each state a dict of
+    its fields, an empty state None, moments the JAX package's parameter
+    trees (``params_to_flax`` of ``names``, this port's parameter names in
+    the moments' order) and step counts int32 scalars."""
+    from lidbox_tpu_torch.models.model_api import params_to_flax
+
+    def convert(node):
+        if isinstance(node, dict):
+            return {f: convert(v) for f, v in node.items()} if node else None
+        if isinstance(node, (list, tuple)) and node and all(
+                isinstance(t, torch.Tensor) for t in node):
+            if len(node) != len(names):  # moments, in the order of names
+                raise ValueError("optimizer moments do not match the params")
+            return params_to_flax(dict(zip(names, node)))
+        if isinstance(node, (list, tuple)):  # a chain
+            return [convert(n) for n in node]
+        return np.asarray(node, np.int32)
     return convert(opt_state)

@@ -66,7 +66,10 @@ def make_batch_predict_fn(model, batch_size=32, mesh=None, compute_dtype=None,
     rank runs the forward of its rows, and the rows are gathered back, so
     every rank returns the whole batch's outputs. Ranks outside a sub-mesh
     (``get_mesh(num_devices=N)`` below the group's size) run no forward
-    and receive the outputs from rank 0."""
+    and receive the outputs from rank 0.
+
+    The function has a ``refresh()`` attribute, as the JAX package's has;
+    here a no-op, since every call reads the live parameters."""
     mesh = parallel.as_mesh(mesh)
     if mesh is not None and batch_size % mesh.size:
         raise ValueError(f"batch_size {batch_size} must divide over the "
@@ -98,7 +101,10 @@ def make_batch_predict_fn(model, batch_size=32, mesh=None, compute_dtype=None,
         return out.float()
 
     if mesh is None:
-        return lambda inputs, mask=None: forward(inputs, mask).cpu().numpy()
+        def predict_fn(inputs, mask=None):
+            return forward(inputs, mask).cpu().numpy()
+        predict_fn.refresh = _refresh
+        return predict_fn
 
     @torch.inference_mode()
     def predict_fn(inputs, mask=None):
@@ -124,7 +130,16 @@ def make_batch_predict_fn(model, batch_size=32, mesh=None, compute_dtype=None,
                 forward(inputs[rows], None if mask is None else mask[rows]),
                 mesh)
         return parallel.share_with_world(out, mesh)[:n].cpu().numpy()
+    predict_fn.refresh = _refresh
     return predict_fn
+
+
+def _refresh():
+    """``predict_fn.refresh()``: the JAX package's predict fn caches the
+    replicated weights and needs it after the weights change; this one
+    reads the model's live parameters on every call, so there is nothing
+    to drop. It exists so that serving code written for either package
+    runs."""
 
 
 def predict_with_model(model, ds, predict_fn=None, batch_size=32,

@@ -2,8 +2,10 @@
 The PyTorch port stands alone: ``lidbox_tpu_torch``, its examples and
 ``chip_smoke.py`` import neither jax nor flax nor anything of
 ``lidbox_tpu``, nor the libraries the card's machine lacks (pandas,
-scikit-learn, joblib, msgpack); yaml, matplotlib and TensorBoard are
-imported only inside the functions that need them.
+scikit-learn, joblib, msgpack, orbax, tensorstore, zstandard: Orbax
+checkpoints read through the port's own decoder); yaml, matplotlib,
+seaborn and TensorBoard are imported only inside the functions that need
+them.
 """
 import os
 import pathlib
@@ -15,8 +17,10 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "lidbox_tpu_torch"
 EXAMPLES = ("examples/end_to_end_torch.py",
             "examples/fused_feed_training_torch.py")
-ABSENT = ("jax", "flax", "pandas", "sklearn", "joblib", "msgpack")
-LAZY = ("yaml", "matplotlib", "tensorboard", "torch.utils.tensorboard")
+ABSENT = ("jax", "flax", "pandas", "sklearn", "joblib", "msgpack", "orbax",
+          "tensorstore", "zstandard")
+LAZY = ("yaml", "matplotlib", "seaborn", "tensorboard",
+        "torch.utils.tensorboard")
 
 _IMPORT_ALL = r"""
 import importlib, importlib.util, pkgutil, sys
@@ -52,7 +56,7 @@ def test_package_imports_without_jax_or_lidbox_tpu():
 def test_sources_name_no_jax_flax_or_lidbox_tpu():
     pattern = re.compile(
         r"^\s*(import|from)\s+(jax|flax|lidbox_tpu|pandas|sklearn|joblib"
-        r"|msgpack)(\.|\s|$)", re.MULTILINE)
+        r"|msgpack|orbax|tensorstore|zstandard)(\.|\s|$)", re.MULTILINE)
     files = (sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
              + [ROOT / e for e in EXAMPLES])
     assert len(files) >= 42

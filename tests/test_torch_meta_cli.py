@@ -577,8 +577,10 @@ def test_user_script_replaces_create_dataset(corpus, tmp_path):
 
 def test_options_not_ported_raise(corpus, jax_checkpoint, tmp_path):
     """``--data-parallel`` runs (a 1-rank mesh in this process: the
-    numbers of the run without it); ``export --platforms`` and an Orbax
-    resume raise naming their ROADMAP items."""
+    numbers of the run without it); ``export --platforms cpu`` writes a
+    program for the CPU, ``tpu`` is refused, and a resume from a
+    checkpoint directory that holds no Orbax checkpoint raises (the Orbax
+    journeys are in tests/test_torch_orbax.py)."""
     runs = {}
     for flag in ([], ["--data-parallel"]):
         cache = tmp_path / f"cache{len(flag)}"
@@ -615,12 +617,16 @@ def test_options_not_ported_raise(corpus, jax_checkpoint, tmp_path):
                                atol=1e-5, rtol=0)
     path = write_config(experiment_config(corpus, tmp_path / "cache"),
                         tmp_path / "c.json")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        port_main(["export", path, "out", "--platforms", "cpu"])
+    out = tmp_path / "deploy"
+    assert port_main(["export", config_path, str(out), "--platforms",
+                      "cpu"]) == 0
+    assert (out / "forward.pt2").is_file()
+    with pytest.raises(ValueError, match="tpu"):
+        port_main(["export", config_path, str(out), "--platforms", "tpu"])
     orbax = tmp_path / "cache" / "xvector" / "cli" / "checkpoints" / \
         "epoch000001__val_loss1.000000000000"
     orbax.mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="not an Orbax checkpoint"):
         port_main(["train", path, "--resume"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -22,7 +22,8 @@ the same weights, and the port's mesh-less run of the same code. Held:
   recurrent layer on gathered weights);
 - ``restore`` of a mesh-less checkpoint re-splits it, its gathered
   parameters and moments equal to the file's; the checkpoints the sharded
-  trainer writes hold the gathered state in the mesh-less format;
+  trainer writes hold the gathered state in the mesh-less format (an
+  Orbax directory holds the same);
 - cached replay equal to streaming (rtol 1e-6, tests/test_train.py:1115);
 - ``sync_model_variables`` leaves bit-identical full weights on every
   rank, equal to the gathered state;
@@ -30,6 +31,8 @@ the same weights, and the port's mesh-less run of the same code. Held:
   plain version here): with SpecAugment and channel dropout against the
   port's mesh-less run (rtol 1e-5; the draws are the same), and clean
   against the JAX ``fit_signals`` on the 2-D mesh;
+- ``remat`` on 1 x 2: the x-vector with channel dropout 0.5 for 3 steps,
+  step losses equal to the plain run's in float32;
 - crnn (Conv2d, BatchNorm, the bidirectional LSTM on the weight-gather
   route), 3 steps with validation: losses against the JAX 2-D mesh and
   the mesh-less port, parameters and batch statistics within rtol 1e-4 +
@@ -164,6 +167,7 @@ def runs(tmp_path_factory):
         "crnn": {"shape": (CRNN_T, CRNN_F), "outputs": N,
                  "state": {k: v.detach().clone() for k, v in
                            crnn.module.state_dict().items()}},
+        "remat_train": feature_batches(3, 8, (XV_FRAMES, XV_MELS)),
         "crnn_train": feature_batches(3, 5, (CRNN_T, CRNN_F)),
         "crnn_val": feature_batches(1, 6, (CRNN_T, CRNN_F)),
         "clip_grads": {k: rng.normal(0, 10, v.shape).astype(np.float32)
@@ -322,9 +326,11 @@ def test_restore_resplits_a_meshless_checkpoint(runs):
             for a, b in zip(out["opt"][0][field], raw["opt_state"][0][field]):
                 np.testing.assert_array_equal(a, b.numpy())
         assert len(out["losses"]) == 2 and np.isfinite(out["losses"]).all()
-        # the sharded trainer's own checkpoints: the gathered state
+        # the sharded trainer's own checkpoints: the gathered state, the
+        # same in an Orbax directory
         for k, v in r["dnn"]["ckpt"].items():
             assert v.shape == r["dnn"]["full"][k].shape
+            np.testing.assert_array_equal(r["dnn"]["orbax"][k], v)
 
 
 def test_cached_replay_equals_streaming(runs):
@@ -363,6 +369,17 @@ def test_xvector_through_fit_signals(runs):
         jax_clean = losses_of(ref["jax_xvector_clean"])
         np.testing.assert_allclose(clean[0], jax_clean[0], rtol=1e-4)
         np.testing.assert_allclose(clean[-1], jax_clean[-1], rtol=1e-3)
+
+
+def test_remat_on_a_two_rank_mesh(runs):
+    """``remat`` with channel dropout 0.5 over 1 x 2: the recompute
+    re-enters the mesh scopes and redraws the forward's masks, so the
+    step losses equal the plain run's in float32."""
+    ranks, _, _ = runs
+    for r in ranks:
+        assert len(r["remat"][True]) == 3
+        assert r["remat"][True] == r["remat"][False]
+    assert ranks[0]["remat"] == ranks[1]["remat"]
 
 
 def test_crnn_weight_gather_route(runs):

@@ -26,6 +26,7 @@ The port's training path against lidbox_tpu's, on the CPU.
   requires grad, and dropout masks come from the trainer's generator.
 """
 import os
+import re
 
 import numpy as np
 import pytest
@@ -232,8 +233,10 @@ def test_checkpoint_names_and_best_match_jax(tmp_path, entries, key, mode):
 
 def test_foreign_checkpoints_raise(tmp_path):
     """The JAX package's msgpack train states read (tests/
-    test_torch_meta_cli.py); a msgpack file that holds no train state, a
-    file of neither format and an Orbax directory raise."""
+    test_torch_meta_cli.py) and its Orbax directories too
+    (tests/test_torch_orbax.py); a msgpack file that holds no train state,
+    a file of neither format and a directory that is no Orbax checkpoint
+    raise."""
     msgpack = jckpt.save_checkpoint(str(tmp_path), {"w": np.zeros(2)}, 1, 0.1)
     with pytest.raises(ValueError, match="not a train state"):
         tckpt.load_raw_checkpoint(msgpack)
@@ -241,7 +244,7 @@ def test_foreign_checkpoints_raise(tmp_path):
     text.write_text("not a checkpoint")
     with pytest.raises(ValueError, match="neither"):
         tckpt.load_raw_checkpoint(str(text))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="not an Orbax checkpoint"):
         tckpt.load_raw_checkpoint(str(tmp_path))
 
 
@@ -424,15 +427,14 @@ def test_fit_fused_entry_points(fused_runs, tmp_path):
     "bad_prob", "steps_per_dispatch", "cache_staged", "mesh",
     "embedding_extractor", "remat", "param_sharding", "orbax"])
 def test_left_options_raise(tmp_path, what):
-    """The options a later slice ports raise NotImplementedError naming
-    ROADMAP (Orbax), bad augmentation configs raise ValueError; the
-    augmentation stages, the feed options, the mesh (a 1-rank one here,
-    the mesh of the embedding extractor too), ``remat`` and
-    ``param_sharding`` (over a 1 x 1 mesh here) run, and a ``mesh`` that
+    """Bad augmentation configs raise ValueError; the augmentation
+    stages, the feed options, the mesh (a 1-rank one here, the mesh of the
+    embedding extractor too), ``remat``, ``param_sharding`` (over a 1 x 1
+    mesh here) and the Orbax checkpoint backend run, and a ``mesh`` that
     is not a ``parallel.Mesh`` raises TypeError (their numerics are in
     tests/test_torch_augment.py, tests/test_torch_feed.py,
-    tests/test_torch_parallel*.py, tests/test_torch_tensor_parallel.py and
-    tests/test_torch_remat_precision.py)."""
+    tests/test_torch_parallel*.py, tests/test_torch_tensor_parallel.py,
+    tests/test_torch_remat_precision.py and tests/test_torch_orbax.py)."""
     cfg = fused_config(tmp_path)
     noise = tmp_path / "n.wav"
     tio.write_mono_wav(str(noise), np.full(RATE, 0.1, np.float32), RATE)
@@ -511,11 +513,18 @@ def test_left_options_raise(tmp_path, what):
         np.testing.assert_allclose(h, plain, rtol=1e-6)
         assert wrapper.trainer.state.step == 1
         return
-    if what == "orbax":
-        cfg["experiment"]["callbacks"][0]["kwargs"]["backend"] = "orbax"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ModelWrapper.from_config(cfg, device="cpu").fit_fused(
-            lambda: noisy_sines(1, seed=8))
+    assert what == "orbax"
+    cfg["experiment"]["callbacks"][0]["kwargs"]["backend"] = "orbax"
+    wrapper = ModelWrapper.from_config(cfg, device="cpu")
+    wrapper.fit_fused(lambda: noisy_sines(1, seed=8), verbose=False)
+    ckpts = os.path.join(tmp_path, "xvector", "fused", "checkpoints")
+    (name,) = os.listdir(ckpts)
+    assert re.fullmatch(r"epoch000001__val_loss\d+\.\d{12}", name)
+    assert os.path.isdir(os.path.join(ckpts, name))
+    restored = tckpt.load_raw_checkpoint(os.path.join(ckpts, name))
+    assert restored["step"] == 1 and all(
+        torch.equal(restored["params"][k], v)
+        for k, v in wrapper.trainer.state.params.items())
 
 
 class _ClaimsCuda(torch.Tensor):

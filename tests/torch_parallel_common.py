@@ -344,6 +344,22 @@ def tp_xvector(spec, mesh, augment):
     return t, h
 
 
+def tp_remat(spec, mesh, remat):
+    """The x-vector with channel dropout 0.5 for 3 one-batch epochs of
+    feature batches, its forward recomputed in the backward with
+    ``remat``: the step losses."""
+    from lidbox_tpu_torch.train import optimizers
+    import lidbox_tpu_torch.models as tmodels
+    model = tmodels.create("xvector", spec["xv_shape"], spec["outputs"],
+                           channel_dropout_rate=0.5, device="cpu")
+    model.module.load_state_dict(spec["xvector"]["state"])
+    t = tp_trainer(model, mesh, optimizer=optimizers.adam(1e-3, eps=1e-4))
+    t.remat = remat
+    h = t.fit(one_per_epoch(tp_local(spec["remat_train"], mesh)), epochs=3,
+              verbose=False)
+    return [e["loss"] for e in h]
+
+
 def tp_crnn(spec, mesh):
     """crnn (Conv2d + BatchNorm + the bidirectional LSTM, which gathers
     its split weights) for 3 one-batch epochs with validation: (trainer,
@@ -382,8 +398,8 @@ def _tp_summary(trainer, batch):
 
 def scenario_tensor_parallel(spec, world, out):
     """1 x 2 (data, model): the dnn (shards before and after fit, the
-    products, cached replay, restore), the x-vector through fit_signals,
-    crnn and clip_by_global_norm."""
+    products, cached replay, restore), the x-vector through fit_signals
+    and with ``remat``, crnn and clip_by_global_norm."""
     from lidbox_tpu_torch import parallel
     from lidbox_tpu_torch.train import ModelCheckpoint, loop, optimizers
     mesh = parallel.get_mesh_2d(data_size=1, model_size=2, device="cpu")
@@ -395,13 +411,18 @@ def scenario_tensor_parallel(spec, world, out):
     moments = {k: tuple(v.shape) for k, v in zip(
         t.state.params, t.state.opt_state[0]["mu"])}
     ckpt_dir = os.path.join(spec["tmp"], "tp_ckpt")
-    t, losses = tp_dnn(spec, mesh, callbacks=[ModelCheckpoint(ckpt_dir)])
+    orbax_dir = os.path.join(spec["tmp"], "tp_orbax")
+    t, losses = tp_dnn(spec, mesh, callbacks=[
+        ModelCheckpoint(ckpt_dir), ModelCheckpoint(orbax_dir,
+                                                   backend="orbax")])
     out["dnn"] = dict(_tp_summary(t, spec["dnn_train"][0]), losses=losses,
                       exact=tp_dnn(spec, mesh, exact=True)[1],
                       before=before, moments=moments)
-    # rank 0 writes the gathered state, in the mesh-less format
-    out["dnn"]["ckpt"] = numpy_tree(loop.ckpt_lib.load_raw_checkpoint(
-        loop.ckpt_lib.get_best_checkpoint_path(ckpt_dir))["params"])
+    # rank 0 writes the gathered state, in the mesh-less format, with
+    # either backend
+    for key, path in (("ckpt", ckpt_dir), ("orbax", orbax_dir)):
+        out["dnn"][key] = numpy_tree(loop.ckpt_lib.load_raw_checkpoint(
+            loop.ckpt_lib.get_best_checkpoint_path(path))["params"])
 
     # cached replay against streaming
     replay = {}
@@ -430,6 +451,10 @@ def scenario_tensor_parallel(spec, world, out):
 
     t, h = tp_crnn(spec, mesh)
     out["crnn"] = dict(_tp_summary(t, spec["crnn_train"][0]), history=h)
+
+    # remat re-enters the mesh scopes for the recompute
+    out["remat"] = {remat: tp_remat(spec, mesh, remat)
+                    for remat in (False, True)}
 
     grads = {k: torch.as_tensor(v) for k, v in spec["clip_grads"].items()}
     shards, specs = parallel.shard_params(grads, mesh)
