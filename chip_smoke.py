@@ -11,8 +11,12 @@ Phases, each of which fails the run:
    log-Mel CUDA kernel built with nvcc from ``lidbox_tpu_torch/csrc``, and
    the instruction each precision mode runs, as the library reports it;
 2. kernel vs plain on the geometry cases of the tests (odd lengths, mel
-   ranges, 8 kHz, fft < frame length, 25/2 ms) and on fft 2048 and 4096,
-   whose power tiles take the kernel's smaller frame tiles;
+   ranges, 8 kHz, fft < frame length, 25/2 ms), on fft 2048 and 4096 (32
+   and 64 bin passes), and at batch 1 and 3 (the bin passes split over
+   blocks and added by the reduction kernel; a block's two frame tiles
+   from two rows); then batch invariance: rows of [32, 48000] alone, in
+   half the batch and in the whole batch give the same bits, split or not.
+   The last three on a random stream of their own;
 3. serving, the main path: a full-width x-vector (random weights from a
    seed) behind ``serve.Classifier`` with ``stft_method: "pallas"``
    classifies 32 whole 3 s wavs and the same wavs in 2 s / 1 s chunks, and
@@ -107,12 +111,19 @@ Phases, each of which fails the run:
    shape, the largest one in the kernel table. The bound of "highest" is
    its 3xTF32 tensor-core work (3 products at 495 TFLOP/s), with the
    float32 CUDA-core bound printed beside it; ``dft_gemm_ms`` is one cuBLAS
-   float32 product of the unfolded frames by the DFT basis, a yardstick
-   for the bulk of the work;
+   product of the unfolded frames by the DFT basis (float32, and bfloat16
+   for "bf16"), a yardstick for the bulk of the work. Each shape also
+   prints the kernel's launch plan (blocks, the SMs they occupy, split
+   count, the share of computed frames that is padding, the basis bytes
+   its blocks read from L2 and the implied L2 rate), its time as a CUDA
+   graph of 20 launches and its device time under torch.profiler. The
+   split reduction kernel is held to its plain version and timed at the
+   serving path's split shapes;
 10. the steady train step at [32, 48000]: the median of 30 steps on CUDA
    events, split into features, forward + backward and optimizer, beside
    the kernel's time at that shape and its share of the step, and the
-   device's busy time over 5 steps under ``torch.profiler``; then the
+   device's busy time over 5 steps under ``torch.profiler`` with the
+   kernel's own device time inside the step; then the
    augmented step the same way, split at each stage of the chain;
 11. data parallelism (``lidbox_tpu_torch.parallel``): the full-width
    x-vector and crnn through ``ModelWrapper.from_config(..., mesh=)
@@ -275,6 +286,40 @@ def cuda_ms(fn, reps=7, iters=20):
     return float(np.median(times))
 
 
+def graph_ms(fn, n=20, reps=5):
+    """Median time of one call of ``fn`` replayed as a CUDA graph of ``n``
+    calls: the device's time without the host's launch overhead."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return float(np.median(times))
+
+
+def kernel_device_ms(kernels, name):
+    """Device ms per call of the device ops whose name holds ``name``, from
+    ``device_ops``; None when the profiler saw none."""
+    found = [ms for ms, key in kernels if name in key]
+    return sum(found) if found else None
+
+
 def geometry(logmel, rate, kw):
     """(frame length, frame step, L, NB, W, M) of one fused_logmel call: L
     basis rows and NB weighted bins (unpadded), W [L, 2 * NB] (bin i's cos
@@ -323,13 +368,14 @@ def logmel_f64(logmel, x, rate, kw):
     return torch.log((y[..., 0::2] ** 2 + y[..., 1::2] ** 2) @ M + 1e-6)
 
 
-def dft_gemm_ms(logmel, x, rate, kw):
-    """Yardstick for the bulk of the work: one cuBLAS float32 product of the
-    unfolded frames [B * frames, L] by W [L, 2 * NB] (TF32 off). Not a call
-    the port makes, and not the whole function."""
+def dft_gemm_ms(logmel, x, rate, kw, dtype=torch.float32):
+    """Yardstick for the bulk of the work: one cuBLAS product of the unfolded
+    frames [B * frames, L] by W [L, 2 * NB] in ``dtype`` (float32 with TF32
+    off, or bfloat16). Not a call the port makes, and not the whole
+    function."""
     fl, fs, L, _, W, _ = geometry(logmel, rate, kw)
-    frames = x.unfold(1, fl, fs)[..., :L].reshape(-1, L).contiguous()
-    W = torch.as_tensor(W, device=x.device).contiguous()
+    frames = x.unfold(1, fl, fs)[..., :L].reshape(-1, L).to(dtype).contiguous()
+    W = torch.as_tensor(W, device=x.device).to(dtype).contiguous()
     return cuda_ms(lambda: torch.matmul(frames, W))
 
 
@@ -384,14 +430,46 @@ def phase_geometry(logmel, rng):
         x = torch.as_tensor(noisy_sines(rng, batch, seconds, rate),
                             device="cuda")
         worst = max(worst, compare(logmel, name, x, rate, kw))
+    # the split passes (batch 1: 4 tiles, 16 blocks) and tile pairs across
+    # rows (batch 3: 4 tiles a row); a stream of their own, so the served
+    # data below is the draw it always was
+    own = np.random.default_rng(SEED + 8)
+    for name, batch in (("batch1_2s", 1), ("batch3_2s", 3)):
+        x = torch.as_tensor(noisy_sines(own, batch, 2.0, RATE), device="cuda")
+        plan, _ = logmel.launch_plan(batch, x.shape[1], RATE)
+        check(plan["splits"] > 1, f"{name}: the plan does not split")
+        before = logmel.split_reduce.launches
+        worst = max(worst, compare(logmel, name, x, RATE, {}))
+        check(logmel.split_reduce.launches == before + 2,
+              f"{name}: the split reduction ran "
+              f"{logmel.split_reduce.launches - before} times, not 2")
+    # a row's log-Mel does not depend on its batch: [32, 48000] runs
+    # unsplit, its first 16 rows split in 3, row 5 alone split in 8
+    x = torch.as_tensor(noisy_sines(own, 32, 3.0, RATE), device="cuda")
+    for precision in ("highest", "bf16"):
+        whole = logmel.fused_logmel(x, RATE, precision=precision)
+        splits = [logmel.launch_plan(*x.shape, RATE, precision=precision)[0]
+                  ["splits"]]
+        for rows in (slice(0, 16), slice(5, 6)):
+            part = logmel.fused_logmel(x[rows].contiguous(), RATE,
+                                       precision=precision)
+            splits.append(logmel.launch_plan(*x[rows].shape, RATE,
+                                             precision=precision)[0]["splits"])
+            check(torch.equal(part, whole[rows]),
+                  f"{precision}: rows {rows} alone differ from the same rows "
+                  f"in the batch by {(part - whole[rows]).abs().max().item()}")
+        print(f"batch invariance {precision}: [32, 48000] (splits "
+              f"{splits[0]}), its rows 0-15 (splits {splits[1]}) and row 5 "
+              f"alone (splits {splits[2]}) bit-equal")
     return worst
 
 
 def phase_path_kernel(logmel, batches):
     """The kernel on the signal batches the main paths handed it: each one
-    compared with the plain version, each shape timed. Returns the worst
-    float32 error and {(B, T, precision): (ms, plain_ms, bound_ms,
-    bound_by)}."""
+    compared with the plain version, each shape timed (back to back on CUDA
+    events, as a CUDA graph, and its device time under torch.profiler) with
+    its launch plan. Returns the worst float32 error and {(B, T,
+    precision): (ms, plain_ms, bound_ms, bound_by)}."""
     worst = 0.0
     timing = {}
     with torch.inference_mode():
@@ -402,26 +480,81 @@ def phase_path_kernel(logmel, batches):
             B, T = x.shape
             flops, nbytes = logmel_work(logmel, B, T, rate, KERNEL_KW)
             cores_ms, _ = bound(flops, nbytes, PEAK_F32_FLOPS)
-            gemm = (f", dft_gemm_ms "
-                    f"{dft_gemm_ms(logmel, x, rate, KERNEL_KW):.4f}"
+            gemm = (f", dft_gemm_ms {dft_gemm_ms(logmel, x, rate, KERNEL_KW):.4f} "
+                    f"(bf16 {dft_gemm_ms(logmel, x, rate, KERNEL_KW, torch.bfloat16):.4f})"
                     if B > 1 else "")
             print(f"fused_logmel [{B}, {T}]: {flops / 1e9:.3f} GFLOP, "
                   f"{nbytes / 1e6:.2f} MB; float32 CUDA-core bound "
                   f"{cores_ms:.4f} ms{gemm}")
             for precision in ("highest", "bf16"):
                 kw = dict(KERNEL_KW, precision=precision)
-                ms = cuda_ms(lambda: logmel.fused_logmel(x, rate, **kw))
+                run = lambda: logmel.fused_logmel(x, rate, **kw)
+                ms = cuda_ms(run)
                 plain_ms = cuda_ms(lambda: logmel.logmel_plain(x, rate, **kw))
+                g_ms = graph_ms(run)
+                run()
+                torch.cuda.synchronize()
+                ops = device_ops(run, calls=10)
+                dev = kernel_device_ms(ops, "logmel_kernel")
+                red = kernel_device_ms(ops, "logmel_reduce")
                 bound_ms, bound_by = logmel_bound(logmel, B, T, rate,
                                                   precision, KERNEL_KW)
                 timing[(B, T, precision)] = (ms, plain_ms, bound_ms, bound_by)
+                plan, st = logmel.launch_plan(B, T, rate, **kw)
                 cores = (f"; {cores_ms / ms:.1%} of the float32 CUDA-core "
                          f"bound" if precision == "highest" else "")
+                l2 = (f", {st['basis_bytes'] / dev / 1e9:.2f} TB/s from L2"
+                      if dev else "")
                 print(f"fused_logmel [{B}, {T}] 64 mel precision={precision}: "
                       f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
                       f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} "
-                      f"of bound{cores}")
+                      f"of bound{cores}; CUDA graph {g_ms:.4f} ms; device "
+                      f"{dev if dev is None else f'{dev:.4f}'} ms"
+                      + (f" + reduction {red:.4f} ms" if red else "")
+                      + f"; plan: {st['blocks']} blocks on {st['sms_used']} "
+                      f"SMs, {plan['nwg']} x 64-frame tiles a block, "
+                      f"{plan['splits']} split(s) of {plan['passes']} bin "
+                      f"passes, {st['padded_frames']:.1%} of computed frames "
+                      f"padding, basis + mel {st['basis_bytes'] / 1e6:.1f} MB "
+                      f"from L2{l2}")
     return worst, timing
+
+
+def phase_split_reduce(logmel, batches):
+    """The split reduction kernel against its plain version at the split
+    shapes of the serving path ([slices, B, frames, 64] partial mel sums,
+    positive, from a stream of their own), timed. Returns the kernels-line
+    fields: max_abs_err, ms, plain_ms, bound_ms, bound_by."""
+    rng = np.random.default_rng(SEED + 9)
+    plans = [logmel.launch_plan(*x.shape, rate)[0] for x, rate in batches]
+    shapes = sorted({(logmel.partial_slices(p), p["B"], p["F"])
+                     for p in plans if p["splits"] > 1})
+    check(shapes, "no split shape on the serving path")
+    worst, fields = 0.0, None
+    for S, B, F in shapes:
+        part = torch.as_tensor(rng.uniform(0.0, 4.0, (S, B, F, 64)).astype(
+            np.float32), device="cuda")
+        before = logmel.split_reduce.launches
+        out = logmel.split_reduce(part)
+        ref = logmel.split_reduce_plain(part)
+        torch.cuda.synchronize()
+        check(logmel.split_reduce.launches == before + 1,
+              "split_reduce did not count its launch")
+        err = (out - ref).abs().max().item()
+        check(err <= 1e-6, f"split reduction [{S}, {B}, {F}, 64]: max abs "
+                           f"error {err} beyond 1e-6 of its plain version")
+        worst = max(worst, err)
+        ms = cuda_ms(lambda: logmel.split_reduce(part))
+        plain_ms = cuda_ms(lambda: logmel.split_reduce_plain(part))
+        n = B * F * 64
+        bound_ms, bound_by = bound(n * S, 4 * (S + 1) * n, PEAK_F32_FLOPS)
+        print(f"split reduction [{S}, {B}, {F}, 64]: max abs err {err:.3e} "
+              f"(tolerance 1e-6: the same additions in the same order, logf "
+              f"against torch.log); kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, bound {bound_ms:.4f} ms ({bound_by})")
+        if fields is None or n * S > fields[-1]:
+            fields = (ms, plain_ms, bound_ms, bound_by, n * S)
+    return (worst,) + fields[:4]
 
 
 def write_wavs(io, root, rng, n, seconds):
@@ -476,6 +609,7 @@ def phase_serve(root, rng):
     DeviceFeatureExtractor.extract = keeping
     try:
         logmel.fused_logmel.launches = 0
+        logmel.split_reduce.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = whole.classify(paths, ids=ids)
@@ -486,12 +620,18 @@ def phase_serve(root, rng):
             stream.feed(block)
         torch.cuda.synchronize()
         launches = logmel.fused_logmel.launches
+        reductions = logmel.split_reduce.launches
     finally:
         DeviceFeatureExtractor.extract = extract
 
     check(launches > 0, "serving never launched the log-Mel kernel")
     check(launches == len(batches),
           f"{launches} kernel launches for {len(batches)} feature batches")
+    split = sum(logmel.launch_plan(*x.shape, rate)[0]["splits"] > 1
+                for x, rate in batches)
+    check(reductions > 0 and reductions == split,
+          f"serving ran the split reduction {reductions} times, not once for "
+          f"each of the {split} split batches")
     check(out["id"] == ids and out_chunked["id"] == ids, "ids lost or reordered")
     scores = np.stack([out[f"score_{l}"] for l in LABELS], axis=1)
     scores_chunked = np.stack([out_chunked[f"score_{l}"] for l in LABELS], axis=1)
@@ -504,7 +644,7 @@ def phase_serve(root, rng):
     print(f"serving: {n} whole 3 s utterances in {t1 - t0:.4f} s "
           f"({n / (t1 - t0):.1f} utt/s, smoke figure, not a benchmark); "
           f"kernel launches over whole + chunked + streaming: {launches}, "
-          f"signal batches {shapes}")
+          f"split reductions {reductions}, signal batches {shapes}")
 
     matmul_cfg = dict(FEATURES_PALLAS, stft_method="matmul")
     ref = serve.Classifier(gpu_model, LABELS, feature_config=matmul_cfg,
@@ -529,7 +669,7 @@ def phase_serve(root, rng):
           f"streaming vs offline chunked scores differ by {err_stream}")
     print(f"streaming vs offline chunked: max abs diff {err_stream:.3e} "
           f"(tolerance {STREAM_ATOL}), {stream._num_chunks} chunks")
-    return launches, batches
+    return launches, reductions, batches
 
 
 def train_config(root, stft_method="pallas"):
@@ -789,11 +929,16 @@ def phase_train_step_timing(wrapper, batch, kernel_ms, steps=30, warmup=5):
           f"{fb_flops / 1e9:.1f} GFLOP, float32 CUDA-core bound "
           f"{fb_flops / PEAK_F32_FLOPS * 1e3:.4f} ms")
     if busy_ms:
+        in_step = kernel_device_ms(kernels, "logmel_kernel")
         print(f"train step profile (torch.profiler, 5 steps): device busy "
               f"{busy_ms:.4f} ms/step, {1 - busy_ms / parts['step']:.1%} of "
               f"the step median idle; {len(kernels)} device ops, the top: "
               + "; ".join(f"{ms:.4f} ms {name[:60]}"
                           for ms, name in kernels[:6]))
+        print(f"fused_logmel inside the train step: "
+              f"{in_step if in_step is None else f'{in_step:.4f}'} ms of "
+              f"device time a step (torch.profiler) against {kernel_ms:.4f} "
+              f"ms back to back (CUDA events, phase 9)")
     else:
         print("train step profile: torch.profiler saw no device time")
     return parts
@@ -3015,7 +3160,7 @@ def main():
     rng = np.random.default_rng(SEED)
     geometry_err = phase_geometry(logmel, rng)
     with tempfile.TemporaryDirectory() as root:
-        serve_launches, batches = phase_serve(root, rng)
+        serve_launches, serve_reductions, batches = phase_serve(root, rng)
         # the training data has its own stream: phases before it do not
         # shift its draw
         torch.backends.cudnn.deterministic = True
@@ -3035,6 +3180,7 @@ def main():
         train_x = torch.as_tensor(train_batch[0], device="cuda")
         path_err, timing = phase_path_kernel(logmel,
                                              batches + [(train_x, RATE)])
+        reduce_fields = phase_split_reduce(logmel, batches)
         phase_train_step_timing(
             wrapper, train_batch, timing[(*train_x.shape, "highest")][0])
         phase_augmented_step_timing(aug_wrapper, aug_batch)
@@ -3062,7 +3208,8 @@ def main():
           f"{aug_launches} augmented training + {pipe_launches} pipeline "
           f"(fit and embedding extraction) + {cli_launches} CLI + "
           f"{zoo_launches} model zoo + {dp_launches} data parallel + "
-          f"{tp_launches} tensor parallel + {orbax_launches} Orbax")
+          f"{tp_launches} tensor parallel + {orbax_launches} Orbax; split "
+          f"reductions {serve_reductions} in serving")
 
     print(json.dumps({"kernels": [{
         "name": "fused_logmel",
@@ -3078,6 +3225,18 @@ def main():
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "library_ms": None,
+    }, {
+        "name": "logmel_reduce",
+        "route": "cuda",
+        "source": "lidbox_tpu_torch/csrc/logmel.cu",
+        "replaces": "lidbox_tpu/ops/logmel.py:154",
+        "launches": serve_reductions,
+        "max_abs_err": reduce_fields[0],
+        "ms": reduce_fields[1],
+        "plain_ms": reduce_fields[2],
+        "bound_ms": reduce_fields[3],
+        "bound_by": reduce_fields[4],
         "library_ms": None,
     }]}))
     print(card)

@@ -5,29 +5,37 @@ Replaces ``lidbox_tpu/ops/logmel.py::_logmel_kernel_packed`` (launched by
 ``fused_logmel_packed``) with a CUDA C++ kernel for Hopper,
 ``lidbox_tpu_torch/csrc/logmel.cu``: one launch computes frames ->
 Hann-windowed DFT -> power -> HTK mel -> ``log(x + 1e-6)``, and neither the
-frame tensor nor the power spectrogram goes to device memory.
+frame tensor nor the power spectrogram leaves the registers.
 
-What bounds it on the card: operations. At b32 x 4 s (25/10 ms, fft 512,
-64 mel) the two products are 5.41 GFLOP against ~11.5 MB of signal in and
-log-Mel out. Both run on the tensor cores through warp-level ``mma.sync``:
-"highest" as 3xTF32 (m16n8k8, three TF32 products per float32 product,
-16.2 GFLOP at 495 TFLOP/s), "bf16" as one bf16 product (m16n8k16, at 989
-TFLOP/s). Blocks of 32 frames stage the signal in shared memory with a
-row pitch that keeps the fragment loads free of bank conflicts, read the
-basis fragments from L2, and keep the power tile on chip for the mel
-product (see the source's header).
+What bounds it on the card: operations and the basis stream from L2. At
+b32 x 4 s (25/10 ms, fft 512, 64 mel) the two products are 5.41 GFLOP
+against ~11.5 MB of signal in and log-Mel out; "highest" runs them as
+3xTF32 (16.2 GFLOP at 495 TFLOP/s), "bf16" as one bf16 product (989
+TFLOP/s). Every block reads the whole basis (1.7 MB hi|lo in "highest")
+from L2, so the frames a block covers set the L2 bytes. Both products run
+on ``wgmma`` with A in registers: two consumer warpgroups of 64 frames
+share each basis tile, which one producer thread brings into a ring in
+shared memory by ``cp.async.bulk`` with ``mbarrier``s; the mel product is
+folded into each pass of 32 bins (see the source's header). Where the
+frame tiles cannot fill the card, the bin passes are split over blocks and
+``split_reduce`` adds their partial mel sums in a fixed order.
 
 The host side lives here: ``kernel_bases`` builds the operands (cos and
-sin of each bin in adjacent columns, zero-padded to the mma depth),
-``split_tf32`` splits "highest" operands into TF32 hi and lo, and
-``mma_fragments`` lays them out in the order each lane loads them.
+sin of each bin in adjacent columns), ``split_tf32`` splits "highest"
+operands into TF32 hi and lo, ``basis_tiles`` and ``mel_tiles`` lay them out
+as the kernel's wgmma descriptors read them (``core_matrix_order``,
+``mel_row_order``), and ``kernel_plan`` sizes the tiles, the signal span in
+shared memory, the grid and the split from the card's SM count and
+shared memory.
 
 ``fused_logmel`` is the wrapper: on a CPU tensor it computes the plain
-version, ``logmel_plain``; on a CUDA tensor it launches the kernel or
-raises. There is no fallback from one to the other. The kernel is built with
-``nvcc`` for ``sm_90a`` into ``lidbox_tpu_torch/_build/`` at first use and
-loaded with ctypes; a missing ``nvcc`` or a failed build raises.
+version, ``logmel_plain``; on a CUDA tensor it launches the kernel (and,
+when the plan splits, ``split_reduce``'s kernel) or raises. There is no
+fallback from one to the other. The kernels are built with ``nvcc`` for
+``sm_90a`` into ``lidbox_tpu_torch/_build/`` at first use and loaded with
+ctypes; a missing ``nvcc`` or a failed build raises.
 """
+import contextlib
 import ctypes
 import functools
 import os
@@ -46,13 +54,25 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 LIBRARY = os.path.join(BUILD_DIR, "liblogmel.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-MAX_GRID_Y = 65535
-# k of one mma.sync: m16n8k8 in TF32, m16n8k16 in bf16
+# k of one wgmma: m64nNk8 in TF32, m64nNk16 in bf16
 MMA_DEPTH = {False: 8, True: 16}
-# No mma of the kernel sits behind a branch, so its operands come in whole
-# units of its loops: basis rows in 32-row chunks, bins in 128-bin passes,
-# mel columns in rounds of 64 (csrc/logmel.cu).
-KERNEL_PADDING = (32, 128, 64)
+# The kernel's tiles (csrc/logmel.cu): basis rows of a ring stage, bins of
+# a pass (64 DFT columns), frames of a consumer warpgroup, mel columns of
+# one mel wgmma and of one block (more run in rounds), consumer warpgroups
+# of a block.
+CHUNK, PASS_BINS, TILE_FRAMES = 32, 32, 64
+MEL_CHUNK, MEL_ROUND, MAX_CONSUMERS = 32, 128, 2
+# Per mode (False: "highest", True: "bf16"): bytes of a basis tile and of
+# 32 mel columns of a pass, and the span's pitch residue mod 32 words that
+# keeps the A fragment loads conflict-free.
+TILE_BYTES = {False: 16384, True: 4096}
+MEL_CHUNK_BYTES = {False: 8192, True: 2048}
+PITCH_MOD = {False: 4, True: 8}
+# kernel_plan's ints in the order of the kernel's Params
+GEO_FIELDS = ("B", "T", "F", "step", "K", "nchunks", "passes", "pps",
+              "splits", "n_mel", "mc", "rounds", "tiles_per_row",
+              "total_tiles", "nwg", "pitch", "rows", "cols", "span_floats",
+              "smem")
 
 _lib = None
 
@@ -99,8 +119,13 @@ def _load_library():
     if _lib is None:
         lib = ctypes.CDLL(build())
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.lidbox_logmel.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 9 + [ptr]
+        lib.lidbox_logmel.argtypes = [ptr] * 6 + [i32, ptr]
         lib.lidbox_logmel.restype = i32
+        lib.lidbox_logmel_reduce.argtypes = [ptr, ptr, i32, ctypes.c_longlong,
+                                             ptr]
+        lib.lidbox_logmel_reduce.restype = i32
+        lib.lidbox_logmel_device.argtypes = [ptr, ptr]
+        lib.lidbox_logmel_device.restype = i32
         lib.lidbox_logmel_variant.argtypes = [i32]
         lib.lidbox_logmel_variant.restype = ctypes.c_char_p
         lib.lidbox_logmel_error_string.argtypes = [i32]
@@ -163,44 +188,235 @@ def kernel_bases(frame_length, fft_length, num_mel_bins, sample_rate, fmin,
     return W, M
 
 
-def mma_fragments(X, bf16):
-    """A [K, N] operand (K a multiple of the mma depth, N of 8) in the order
-    the kernel loads it as the B operand of ``mma.sync``: one fragment of 4
-    values per (k-step, 8-column tile, lane), [K / depth, N / 8, 32, 4].
-    Lane ``4 * g + t`` holds column ``8 * tile + g``:
+def core_matrix_order(X, bf16):
+    """K-major tiles [..., N, Kc] (N a multiple of 8, Kc of the wgmma depth)
+    flattened to [..., N * Kc] in the order a no-swizzle K-major wgmma
+    descriptor reads them: [k-step, K half, 8-column group, column % 8, k %
+    (depth / 2)]. A core matrix is 8 columns x 16 bytes (128 contiguous
+    bytes); the two K halves of a k-step are N / 8 * 128 bytes apart (the
+    descriptor's leading byte offset), the column groups 128 bytes (its
+    stride byte offset). Keeps the dtype."""
+    depth = MMA_DEPTH[bool(bf16)]
+    lead, (N, Kc) = X.shape[:-2], X.shape[-2:]
+    x = X.reshape(*lead, N // 8, 8, Kc // depth, 2, depth // 2)
+    n = len(lead)
+    x = x.transpose(*range(n), n + 2, n + 3, n, n + 1, n + 4)
+    return x.reshape(*lead, -1)
 
-    - TF32 (m16n8k8): rows t and t + 4 of the k-step, as ``hi`` then ``lo``
-      of ``split_tf32``, float32;
-    - bf16 (m16n8k16): rows 2t, 2t + 1, 2t + 8, 2t + 9, bfloat16.
-    """
-    K, N = X.shape
-    S, J = K // MMA_DEPTH[bool(bf16)], N // 8
+
+def _tiles(blocks, bf16):
+    """[..., N, Kc] float32 tiles as the kernel reads them: bfloat16, or
+    float32 hi then lo of split_tf32, in core_matrix_order."""
+    x = np.ascontiguousarray(core_matrix_order(blocks, bf16), np.float32)
     if bf16:
-        f = torch.from_numpy(X).reshape(S, 2, 4, 2, J, 8)
-        f = f.permute(0, 4, 5, 2, 1, 3)
-        return f.reshape(S, J, 32, 4).to(torch.bfloat16).contiguous()
-    parts = [torch.from_numpy(a).reshape(S, 2, 4, J, 8).permute(0, 3, 4, 2, 1)
-             for a in split_tf32(X)]
-    return torch.cat(parts, dim=-1).reshape(S, J, 32, 4).contiguous()
+        return torch.from_numpy(x).to(torch.bfloat16)
+    return torch.from_numpy(np.concatenate(split_tf32(x), axis=-1))
+
+
+def basis_blocks(W):
+    """W [K, 2 * NB] (``kernel_bases``) zero-padded to whole 32-row chunks and
+    32-bin passes, as [passes, chunks, 64, 32] tiles W[32c:32c + 32, 64p:64p
+    + 64]^T (K-major). Keeps the dtype."""
+    Wp = _zero_pad(W, CHUNK, 2 * PASS_BINS)
+    chunks, passes = Wp.shape[0] // CHUNK, Wp.shape[1] // (2 * PASS_BINS)
+    blocks = Wp.reshape(chunks, CHUNK, passes, 2 * PASS_BINS)
+    return blocks.transpose(2, 0, 3, 1)
+
+
+def basis_tiles(W, bf16):
+    """The kernel's basis stream: ``basis_blocks(W)``, each tile in
+    ``core_matrix_order`` (hi then lo, float32, in "highest"; bfloat16 in
+    "bf16"), so one bulk copy brings a tile in the order the descriptors
+    read it."""
+    return _tiles(basis_blocks(W), bf16)
+
+
+def mel_row_order(bf16):
+    """Which bin of a mel k-step each of the A fragment's k positions holds:
+    the kernel feeds the power straight from the DFT accumulator, where lane
+    (g, t) holds bin 4i + t of its n8 group i. In TF32 (k8) that is the
+    fragment's own order; in bf16 (k16) positions 2t, 2t + 1, 2t + 8, 2t + 9
+    hold bins t, 4 + t, 8 + t, 12 + t, so M's rows are permuted alike."""
+    if not bf16:
+        return np.arange(8)
+    t = np.arange(4)
+    order = np.empty(16, np.int64)
+    order[2 * t], order[2 * t + 1] = t, 4 + t
+    order[2 * t + 8], order[2 * t + 9] = 8 + t, 12 + t
+    return order
+
+
+def mel_layout(n_mel):
+    """(mc, rounds): mel wgmmas of 32 columns a block keeps, and rounds of
+    blocks over the mel columns (a block keeps at most MEL_ROUND)."""
+    rounds = -(-n_mel // MEL_ROUND)
+    return -(-(-(-n_mel // rounds)) // MEL_CHUNK), rounds
+
+
+def mel_blocks(M, bf16, mc, rounds):
+    """M [NB, n_mel] zero-padded to whole passes and to rounds * mc * 32
+    columns, its rows permuted within each k-step (``mel_row_order``), as
+    [rounds, passes, mc * 32, 32] tiles (the pass's 32 rows by the round's
+    columns, transposed: K-major). Keeps the dtype."""
+    depth = MMA_DEPTH[bool(bf16)]
+    cols = mc * MEL_CHUNK
+    Mp = _zero_pad(M, PASS_BINS, rounds * cols)
+    idx = np.arange(Mp.shape[0])
+    Mp = Mp[idx // depth * depth + mel_row_order(bf16)[idx % depth]]
+    passes = Mp.shape[0] // PASS_BINS
+    blocks = Mp.reshape(passes, PASS_BINS, rounds, cols)
+    return blocks.transpose(2, 0, 3, 1)
+
+
+def mel_tiles(M, bf16, mc, rounds):
+    """The kernel's mel stream: ``mel_blocks`` in ``core_matrix_order``, as
+    ``basis_tiles``."""
+    return _tiles(mel_blocks(M, bf16, mc, rounds), bf16)
+
+
+def ring_stages(bf16):
+    """Stages of the kernel's basis ring, each holding two passes' tiles: 2
+    in "highest", 4 in "bf16"."""
+    return 4 if bf16 else 2
 
 
 def _zero_pad(X, rows, cols):
+    """X zero-padded to whole multiples of rows and cols; keeps the dtype."""
     out = np.zeros((_round_up(X.shape[0], rows), _round_up(X.shape[1], cols)),
-                   np.float32)
+                   X.dtype)
     out[:X.shape[0], :X.shape[1]] = X
     return out
 
 
+def kernel_plan(batch, samples, num_frames, frame_step, rows, bins, n_mel,
+                bf16, sms, max_smem):
+    """The kernel's geometry for one call, as a dict of ``GEO_FIELDS``.
+
+    ``rows`` basis rows (L) and ``bins`` weighted bins (``kernel_bases``)
+    round up to K (whole chunks) and whole passes. Each consumer keeps the
+    span of its 64 frames in shared memory: rows of ``frame_step`` samples
+    (``cols`` = min(step, K) of them used) at ``pitch`` words, 63 + ceil(K /
+    step) rows, so column k of frame f sits at (f + k // step) * pitch + k %
+    step; beside it a table of K span offsets, each lane's columns in load
+    order, and its running mel sums. Two consumers a block where both fit in
+    ``max_smem`` bytes beside the rings, else one (raises when none fits). 64-frame tiles are
+    numbered row by row; a block takes ``nwg`` consecutive ones. The bin
+    passes of a tile are split over blocks (one block an SM) where the
+    blocks (times the mel rounds) fill less than half of the ``sms``: into
+    sms // blocks splits, at most one pass each."""
+    bf16 = bool(bf16)
+    K = _round_up(rows, CHUNK)
+    passes = -(-bins // PASS_BINS)
+    mc, rounds = mel_layout(n_mel)
+    cols = min(frame_step, K)
+    pitch = cols + (PITCH_MOD[bf16] - cols) % 32
+    span_rows = TILE_FRAMES - 1 + -(-K // frame_step)
+    span_floats = _round_up(span_rows * pitch, 4)
+    stages = ring_stages(bf16)
+    fixed = (stages * 2 * TILE_BYTES[bf16] + 2 * mc * MEL_CHUNK_BYTES[bf16]
+             + (2 * stages + 4) * 8)
+    for nwg in range(MAX_CONSUMERS, 0, -1):
+        # a consumer's span, offset table and running mel sums
+        smem = fixed + nwg * (span_floats + K + 128 * 16 * mc) * 4
+        if smem <= max_smem:
+            break
+    else:
+        raise ValueError(f"the log-Mel kernel's signal span ({span_rows} "
+                         f"rows of {pitch} floats) does not fit the card's "
+                         f"{max_smem} bytes of shared memory a block")
+    tiles_per_row = -(-num_frames // TILE_FRAMES)
+    total = batch * tiles_per_row
+    blocks = -(-total // nwg)
+    pps = -(-passes // min(max(sms // (blocks * rounds), 1), passes))
+    return dict(B=batch, T=samples, F=num_frames, step=frame_step, K=K,
+                nchunks=K // CHUNK, passes=passes, pps=pps,
+                splits=-(-passes // pps), n_mel=n_mel, mc=mc, rounds=rounds,
+                tiles_per_row=tiles_per_row, total_tiles=total, nwg=nwg,
+                pitch=pitch, rows=span_rows, cols=cols,
+                span_floats=span_floats, smem=smem)
+
+
+def partial_slices(plan):
+    """Slices of a split launch's partial mel sums: the first split's sum of
+    its passes, then one slice for each later pass (added in that order,
+    which is the order an unsplit block adds its passes in)."""
+    return plan["passes"] - plan["pps"] + 1
+
+
+def plan_stats(plan, bf16, sms):
+    """What a plan costs the card: blocks, the SMs they occupy (one block an
+    SM: the rings and spans take most of its shared memory), the share of
+    computed frames that are padding, and the basis and mel bytes the blocks
+    read from L2 (each block reads its passes' tiles once)."""
+    bf16 = bool(bf16)
+    frame_blocks = -(-plan["total_tiles"] // plan["nwg"])
+    blocks = frame_blocks * plan["splits"] * plan["rounds"]
+    computed = plan["total_tiles"] * TILE_FRAMES
+    per_pass = (plan["nchunks"] * TILE_BYTES[bf16]
+                + plan["mc"] * MEL_CHUNK_BYTES[bf16])
+    return {"blocks": blocks, "sms_used": min(blocks, sms),
+            "padded_frames": 1.0 - plan["B"] * plan["F"] / computed,
+            "basis_bytes": frame_blocks * plan["rounds"] * plan["passes"]
+            * per_pass}
+
+
 @functools.lru_cache(maxsize=16)
 def _device_bases(key, device):
-    """(W fragments, M fragments, K, NB) of one geometry on ``device``,
-    zero-padded to ``KERNEL_PADDING``."""
-    rows, bins, mel = KERNEL_PADDING
+    """(basis tiles, mel tiles, L, NB) of one geometry on ``device``."""
     W, M = kernel_bases(*key)
-    W, M = _zero_pad(W, rows, 2 * bins), _zero_pad(M, bins, mel)
     bf16 = key[-1]
-    return (mma_fragments(W, bf16).to(device),
-            mma_fragments(M, bf16).to(device), W.shape[0], M.shape[0])
+    mc, rounds = mel_layout(key[2])
+    return (basis_tiles(W, bf16).to(device),
+            mel_tiles(M, bf16, mc, rounds).to(device),
+            min(key[0], key[1]), M.shape[0])
+
+
+@functools.lru_cache(maxsize=16)
+def device_limits(device):
+    """(SM count, shared memory a block may opt in to) of a CUDA device,
+    as the kernel's library reads them."""
+    sms, smem = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        err = _load_library().lidbox_logmel_device(ctypes.byref(sms),
+                                                   ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError("log-Mel kernel: cannot read the device: "
+                           + _load_library().lidbox_logmel_error_string(
+                               err).decode())
+    return sms.value, smem.value
+
+
+def _key(sample_rate, frame_length, fft_length, num_mel_bins, fmin, fmax,
+         precision):
+    return (frame_length, fft_length, int(num_mel_bins), int(sample_rate),
+            float(fmin), float(fmax), precision == "bf16")
+
+
+@functools.lru_cache(maxsize=64)
+def _launch_config(key, batch, samples, frame_step, device):
+    """(basis tiles, mel tiles, plan, the plan's ints for the library) of
+    one launch shape."""
+    W, M, L, NB = _device_bases(key, device)
+    sms, max_smem = device_limits(device)
+    plan = kernel_plan(batch, samples,
+                       audio.num_frames(samples, key[0], frame_step),
+                       frame_step, L, NB, key[2], key[-1], sms, max_smem)
+    return W, M, plan, (ctypes.c_int * len(GEO_FIELDS))(
+        *(plan[f] for f in GEO_FIELDS))
+
+
+def launch_plan(batch, samples, sample_rate, frame_length_ms=25,
+                frame_step_ms=10, fft_length=512, num_mel_bins=64, fmin=0.0,
+                fmax=8000.0, precision="highest", device="cuda"):
+    """``kernel_plan`` and ``plan_stats`` of the launch ``fused_logmel``
+    makes for [batch, samples] signals on ``device``."""
+    frame_length = audio.ms_to_frames(sample_rate, frame_length_ms)
+    frame_step = audio.ms_to_frames(sample_rate, frame_step_ms)
+    key = _key(sample_rate, frame_length, fft_length, num_mel_bins, fmin,
+               fmax, precision)
+    device = torch.device(device)
+    plan = _launch_config(key, batch, samples, frame_step, device)[2]
+    return plan, plan_stats(plan, key[-1], device_limits(device)[0])
 
 
 def fused_logmel(signals, sample_rate, frame_length_ms=25, frame_step_ms=10,
@@ -245,29 +461,81 @@ def fused_logmel(signals, sample_rate, frame_length_ms=25, frame_step_ms=10,
     lib = _load_library()
     if not signals.is_contiguous():
         raise ValueError("signals must be contiguous")
-    if B > MAX_GRID_Y:
-        raise ValueError(f"batch {B} exceeds the kernel grid's {MAX_GRID_Y}")
-    key = (frame_length, fft_length, int(num_mel_bins), int(sample_rate),
-           float(fmin), float(fmax), precision == "bf16")
-    W, M, K, NB = _device_bases(key, signals.device)
-    L = min(frame_length, fft_length)
+    key = _key(sample_rate, frame_length, fft_length, num_mel_bins, fmin,
+               fmax, precision)
+    W, M, plan, geo = _launch_config(key, B, T, frame_step, signals.device)
     out = torch.empty((B, num_frames, num_mel_bins), dtype=torch.float32,
                       device=signals.device)
-    with torch.cuda.device(signals.device):
-        stream = torch.cuda.current_stream(signals.device).cuda_stream
+    partial = (torch.empty((partial_slices(plan),) + out.shape,
+                           dtype=torch.float32, device=signals.device)
+               if plan["splits"] > 1 else None)
+    with _on(signals.device) as stream:
         err = lib.lidbox_logmel(
             signals.data_ptr(), W.data_ptr(), M.data_ptr(), out.data_ptr(),
-            B, T, num_frames, frame_step, L, K, NB, num_mel_bins,
-            int(precision == "bf16"), stream)
+            None if partial is None else partial.data_ptr(), geo,
+            int(key[-1]), stream)
     if err != 0:
-        raise RuntimeError(f"log-Mel kernel launch failed (basis rows {K}, "
-                           f"bins {NB}): "
+        raise RuntimeError(f"log-Mel kernel launch failed (plan {plan}): "
                            + lib.lidbox_logmel_error_string(err).decode())
     fused_logmel.launches += 1
+    if partial is not None:  # the library launched logmel_reduce after it
+        split_reduce.launches += 1
     return out
 
 
 fused_logmel.launches = 0
+
+
+@contextlib.contextmanager
+def _on(device):
+    """The current CUDA stream of ``device`` as an int, with ``device``
+    current (switched only when another card is)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        yield torch.cuda.current_stream(device).cuda_stream
+    else:
+        with torch.cuda.device(device):
+            yield torch.cuda.current_stream(device).cuda_stream
+
+
+def split_reduce(partial, out=None):
+    """[n, B, F, n_mel] partial mel sums -> [B, F, n_mel] ``log(sum +
+    1e-6)``, the n slices added in order: the second kernel of a split
+    ``fused_logmel`` (``partial_slices``: the slices add up as an unsplit
+    launch adds its passes), which launches it from the library and counts
+    it here too.
+    CPU tensor: ``split_reduce_plain``. CUDA tensor: the kernel
+    ``logmel_reduce`` (counted in ``split_reduce.launches``), or an
+    exception."""
+    if partial.dim() != 4 or partial.dtype != torch.float32:
+        raise ValueError("partial must be a float32 [n, batch, frames, mel] "
+                         "tensor")
+    if partial.device.type == "cpu":
+        return split_reduce_plain(partial)
+    if partial.device.type != "cuda" or not partial.is_contiguous():
+        raise ValueError("partial must be a contiguous cpu or cuda tensor")
+    lib = _load_library()
+    if out is None:
+        out = torch.empty(partial.shape[1:], dtype=torch.float32,
+                          device=partial.device)
+    with _on(partial.device) as stream:
+        err = lib.lidbox_logmel_reduce(partial.data_ptr(), out.data_ptr(),
+                                       partial.shape[0], out.numel(), stream)
+    if err != 0:
+        raise RuntimeError("log-Mel split reduction launch failed: "
+                           + lib.lidbox_logmel_error_string(err).decode())
+    split_reduce.launches += 1
+    return out
+
+
+split_reduce.launches = 0
+
+
+def split_reduce_plain(partial):
+    """``split_reduce`` in plain PyTorch: the same order of additions."""
+    total = partial[0].clone()
+    for part in partial[1:]:
+        total += part
+    return torch.log(total + 1e-6)
 
 
 def kernel_variant(precision):
