@@ -5,6 +5,13 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a):
 
     python3 chip_smoke.py
 
+The launch counts are the kernels' own: each launch of ``logmel_kernel``
+and ``logmel_reduce`` adds one to a counter on the card
+(``logmel.launch_counts``), eager or replayed from a CUDA graph. Where a
+part below is "zeroed just before and read just after"
+(``launch_window``), its prediction also counts the launches of the
+capture warm-ups: ``graphs.WARMUP_STEPS`` for each fused step captured.
+
 Phases, each of which fails the run:
 
 1. device and build: the card's name and power limit, then the fused
@@ -31,10 +38,13 @@ Phases, each of which fails the run:
    ``fit_fused`` trains it with ``stft_method: "pallas"`` for 3 epochs of 8
    batches of 32 class-separable 3 s noisy sines, validating on 2 batches.
    The launch count is zeroed just before and read just after: one launch
-   per train step and per validation batch (3 x 8 + 2). The epoch loss
+   per train step and per validation batch (3 x 8 + 2) and the warm-ups. The epoch loss
    must fall, val_loss and C_avg be finite, the checkpoints carry the JAX
    package's names, and the last one, restored into a fresh Trainer,
-   must evaluate exactly as the trained state does. The first 3 step
+   must evaluate exactly as the trained state does. Every step is one CUDA
+   graph replay (``train/graphs.py``); the same fit with the eager
+   functional steps (``fit_signals(..., eager=True)``) must give the same
+   step losses, epoch logs and final state bit for bit. The first 3 step
    losses must match a run with ``stft_method: "matmul"`` on the card and
    the first 2 those of a run on the CPU (the plain version), within rtol
    1e-3. cuDNN runs its deterministic algorithms in this phase;
@@ -46,11 +56,13 @@ Phases, each of which fails the run:
    cache_shuffle: rows}``, 3 epochs of 8 batches of 3 s sines with a
    0.35-0.8 s pause per row (a stream of its own, seed 1236) and 2 clean
    validation batches. The launch count is zeroed just before and read
-   just after (3 x 8 + 2: replayed epochs featurize every step); the
-   epoch loss must fall, validation be finite, epochs 2-3 transfer no
-   signals (they replay the cache), and the first 4 step losses equal,
-   bit for bit, those of a run with one step per dispatch. The kernel is
-   held to its plain version on the first augmented batch of each epoch;
+   just after (3 x 8 + 2: replayed epochs featurize every step, each step
+   one CUDA graph replay); the epoch loss must fall, validation be finite,
+   epochs 2-3 transfer no signals (they replay the cache), the eager
+   functional steps give the same losses, logs and state bit for bit, and
+   the first 4 step losses equal, bit for bit, those of a run with one
+   step per dispatch. The kernel is held to its plain version on the first
+   augmented batch of each epoch (kept from the eager run);
 6. the config-driven pipeline, the fourth main path: the configuration of
    docs/config.md (filters, RMS VAD, repeat, additive noise from a
    synthetic MUSAN-style directory and random resampling for the train
@@ -103,12 +115,15 @@ Phases, each of which fails the run:
    the CPU's with one launch. The kernel is held to its plain version on
    a zoo batch; each configuration prints its parameters, forward and
    train-step ms on CUDA events and device busy ms under torch.profiler
-   at [32, 298, 64];
+   at [32, 298, 64], the train step eager (``_train_step``) and graphed
+   (``_fit_step``, a CUDA graph replay);
 9. kernel vs plain at the main paths' shapes: ``fused_logmel`` against
    ``logmel_plain`` on the very batches kept in phase 3 (bucketed: a 3 s
    batch is padded to the 4 s bucket) and on a training batch, [32, 48000]
    (fixed-length crops, no bucket); kernel, plain and bound times per
-   shape, the largest one in the kernel table. The bound of "highest" is
+   shape, the largest one in the kernel table (its device time under
+   torch.profiler after a warm-up step, with the launches the profiler
+   saw, beside a window without the warm-up step). The bound of "highest" is
    its 3xTF32 tensor-core work (3 products at 495 TFLOP/s), with the
    float32 CUDA-core bound printed beside it; ``dft_gemm_ms`` is one cuBLAS
    product of the unfolded frames by the DFT basis (float32, and bfloat16
@@ -124,7 +139,10 @@ Phases, each of which fails the run:
    the kernel's time at that shape and its share of the step, and the
    device's busy time over 5 steps under ``torch.profiler`` with the
    kernel's own device time inside the step; then the
-   augmented step the same way, split at each stage of the chain;
+   augmented step the same way, split at each stage of the chain; then
+   each whole step (int16 packed for the augmented one) eager and graphed
+   in turns (eager, graphed, graphed, eager): median on CUDA events, host
+   wall and device busy ms, so the idle share of each form can be read;
 11. data parallelism (``lidbox_tpu_torch.parallel``): the full-width
    x-vector and crnn through ``ModelWrapper.from_config(..., mesh=)
    .fit_fused``, 3 steps of [32, 48000] and 1 validation batch (a stream
@@ -178,7 +196,22 @@ Phases, each of which fails the run:
    32. The launch count, zeroed before each driven part and read after,
    must equal the prediction (ORBAX_LAUNCHES). cuDNN runs its
    deterministic algorithms here;
-14. the kernel table as one JSON line (after phase 6's [64, 32000] kernel
+14. the one-program train step (``train/graphs.py``), after phase 10: one
+   generator registered with a CUDA graph and re-seeded before each
+   replay draws what ``keyed_generator`` draws; every optimizer of
+   ``optimizer_from_config`` (with and without a schedule) updates alike
+   with its per-step scalars in device buffers and as the host's floats;
+   xvector_2d and clstm's conv2d variant (BatchNorm; clstm also noise and
+   dropout) through ``fit_fused`` 2 epochs of 4 batches of [32, 48000] with
+   grouped dispatch and the rows replay and 1 validation batch (a stream
+   of its own, seed 1242), graphed (the launch count zeroed just before
+   and read just after: 9 each and the warm-ups) and eager, bit for bit;
+   3 replays of the clean and the augmented step under
+   ``set_sync_debug_mode("error")`` (deterministic cuDNN), then one
+   replay after the kernel's caches dropped the tiles the graph reads,
+   against the eager step, bit for bit;
+   the eager and graphed times of phases 10 and 8;
+15. the kernel table as one JSON line (after phase 6's [64, 32000] kernel
    line again), the card line, and the result line.
 
 Every comparison of the kernel with its plain version holds float32 within
@@ -192,6 +225,9 @@ TF32 is turned off for matmuls and cuDNN convolutions, so float32 means
 float32 throughout. Served utterances/s is a smoke figure, not a benchmark.
 Exits non-zero without a CUDA device or without the package beside it.
 """
+import contextlib
+import copy
+import functools
 import json
 import os
 import re
@@ -199,6 +235,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -438,11 +475,11 @@ def phase_geometry(logmel, rng):
         x = torch.as_tensor(noisy_sines(own, batch, 2.0, RATE), device="cuda")
         plan, _ = logmel.launch_plan(batch, x.shape[1], RATE)
         check(plan["splits"] > 1, f"{name}: the plan does not split")
-        before = logmel.split_reduce.launches
-        worst = max(worst, compare(logmel, name, x, RATE, {}))
-        check(logmel.split_reduce.launches == before + 2,
+        with launch_window() as counted:
+            worst = max(worst, compare(logmel, name, x, RATE, {}))
+        check(counted["logmel_reduce"] == 2,
               f"{name}: the split reduction ran "
-              f"{logmel.split_reduce.launches - before} times, not 2")
+              f"{counted['logmel_reduce']} times, not 2")
     # a row's log-Mel does not depend on its batch: [32, 48000] runs
     # unsplit, its first 16 rows split in 3, row 5 alone split in 8
     x = torch.as_tensor(noisy_sines(own, 32, 3.0, RATE), device="cuda")
@@ -494,9 +531,16 @@ def phase_path_kernel(logmel, batches):
                 g_ms = graph_ms(run)
                 run()
                 torch.cuda.synchronize()
-                ops = device_ops(run, calls=10)
-                dev = kernel_device_ms(ops, "logmel_kernel")
-                red = kernel_device_ms(ops, "logmel_reduce")
+                seen = {}
+                ops = device_ops(run, calls=10, counts=seen)
+                # the mean over the launches the profiler recorded: it
+                # may drop some, and the sum over 10 calls then reads low
+                n_seen, dev = kernel_launches_seen(seen, "logmel_kernel")
+                red = kernel_launches_seen(seen, "logmel_reduce")[1]
+                per_call = kernel_device_ms(ops, "logmel_kernel")
+                check(dev is None or 0 < n_seen <= 10,
+                      f"fused_logmel [{B}, {T}] {precision}: the profiler "
+                      f"saw {n_seen} launches of 10")
                 bound_ms, bound_by = logmel_bound(logmel, B, T, rate,
                                                   precision, KERNEL_KW)
                 timing[(B, T, precision)] = (ms, plain_ms, bound_ms, bound_by)
@@ -509,7 +553,9 @@ def phase_path_kernel(logmel, batches):
                       f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
                       f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} "
                       f"of bound{cores}; CUDA graph {g_ms:.4f} ms; device "
-                      f"{dev if dev is None else f'{dev:.4f}'} ms"
+                      f"{dev if dev is None else f'{dev:.4f}'} ms a launch "
+                      f"(torch.profiler recorded {n_seen} of 10; their sum "
+                      f"over 10 reads {per_call})"
                       + (f" + reduction {red:.4f} ms" if red else "")
                       + f"; plan: {st['blocks']} blocks on {st['sms_used']} "
                       f"SMs, {plan['nwg']} x 64-frame tiles a block, "
@@ -534,12 +580,13 @@ def phase_split_reduce(logmel, batches):
     for S, B, F in shapes:
         part = torch.as_tensor(rng.uniform(0.0, 4.0, (S, B, F, 64)).astype(
             np.float32), device="cuda")
-        before = logmel.split_reduce.launches
-        out = logmel.split_reduce(part)
+        with launch_window() as counted:
+            out = logmel.split_reduce(part)
         ref = logmel.split_reduce_plain(part)
         torch.cuda.synchronize()
-        check(logmel.split_reduce.launches == before + 1,
-              "split_reduce did not count its launch")
+        check(counted["logmel_reduce"] == 1,
+              f"split_reduce's kernel counted {counted['logmel_reduce']} "
+              "launches, not 1")
         err = (out - ref).abs().max().item()
         check(err <= 1e-6, f"split reduction [{S}, {B}, {F}, 64]: max abs "
                            f"error {err} beyond 1e-6 of its plain version")
@@ -608,8 +655,7 @@ def phase_serve(root, rng):
 
     DeviceFeatureExtractor.extract = keeping
     try:
-        logmel.fused_logmel.launches = 0
-        logmel.split_reduce.launches = 0
+        logmel.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = whole.classify(paths, ids=ids)
@@ -619,8 +665,9 @@ def phase_serve(root, rng):
         for block in np.array_split(signal, [1234, 20000, 20333]):
             stream.feed(block)
         torch.cuda.synchronize()
-        launches = logmel.fused_logmel.launches
-        reductions = logmel.split_reduce.launches
+        counts = logmel.launch_counts()
+        launches = counts["logmel_kernel"]
+        reductions = counts["logmel_reduce"]
     finally:
         DeviceFeatureExtractor.extract = extract
 
@@ -775,27 +822,17 @@ def phase_train(root, rng):
           f"{TRAIN_EPOCHS} epochs of {TRAIN_BATCHES} batches of "
           f"[{TRAIN_BATCH}, {int(RATE * TRAIN_SECONDS)}], {VAL_BATCHES} "
           "validation batches, Adam 1e-3")
-    step_losses = []
-    train_step = trainer._train_step
-
-    def recording(*args, **kw):
-        state, loss = train_step(*args, **kw)
-        step_losses.append(loss)
-        return state, loss
-
-    trainer._train_step = recording
-    try:
-        logmel.fused_logmel.launches = 0
+    recorded = []
+    with recording_losses(recorded), launch_window() as counted:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         history = wrapper.fit_fused(lambda: train, epochs=TRAIN_EPOCHS,
                                     val_signal_batches=lambda: val)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        launches = logmel.fused_logmel.launches
-    finally:
-        del trainer._train_step
-    expected = TRAIN_EPOCHS * TRAIN_BATCHES + VAL_BATCHES
+    launches, warmup = counted["logmel_kernel"], counted["warmup"]
+    step_losses = step_losses_of(recorded)
+    expected = TRAIN_EPOCHS * TRAIN_BATCHES + VAL_BATCHES + warmup
     check(launches == expected, f"training launched the log-Mel kernel "
                                 f"{launches} times, not {expected}")
     losses = [h["loss"] for h in history]
@@ -810,7 +847,8 @@ def phase_train(root, rng):
           + ", ".join(f"{h['val_loss']:.4f}" for h in history) + "; C_avg "
           + ", ".join(f"{h['val_C_avg']:.4f}" for h in history)
           + f"; kernel launches {launches} = {TRAIN_EPOCHS} x "
-          f"{TRAIN_BATCHES} steps + {VAL_BATCHES} validation batches")
+          f"{TRAIN_BATCHES} steps + {VAL_BATCHES} validation batches + "
+          f"{warmup} capture warm-up steps")
 
     ckpt_dir = os.path.join(experiment_cache_from_config(wrapper.config),
                             "checkpoints")
@@ -833,7 +871,19 @@ def phase_train(root, rng):
     print(f"checkpoints {names}; {names[-1]} restored into a fresh Trainer: "
           f"val_loss {restored['val_loss']!r} == {ours['val_loss']!r}")
 
-    main = [float(loss) for loss in step_losses[:3]]
+    # the graphed run against the eager (functional) steps, from the seed
+    eager = new_wrapper(os.path.join(root, "eager"), "cuda")
+    eager_recorded = []
+    with recording_losses(eager_recorded), eager_steps():
+        eager_history = eager.fit_fused(lambda: train, epochs=TRAIN_EPOCHS,
+                                        val_signal_batches=lambda: val)
+    n = check_same_run((step_losses, history, trainer),
+                       (step_losses_of(eager_recorded), eager_history,
+                        eager.trainer), "training")
+    print(f"training graphed == eager, bit for bit: {len(step_losses)} step "
+          f"losses, {TRAIN_EPOCHS} epochs' logs, {n} state tensors")
+
+    main = step_losses[:3]
     matmul = first_step_losses(root, "cuda", "matmul", train[:3])
     cpu = first_step_losses(root, "cpu", "pallas", train[:2])
     err_mm = max(abs(a - b) / abs(b) for a, b in zip(main, matmul))
@@ -847,22 +897,187 @@ def phase_train(root, rng):
     return launches, train[0], wrapper
 
 
-def device_ops(run, calls=5):
+def device_ops(run, calls=5, counts=None):
     """(ms per call, name) of each device op of ``calls`` calls of ``run``
     under torch.profiler, largest first: the device's own events only (a
-    CPU op's device time repeats its kernels')."""
+    CPU op's device time repeats its kernels'). ``counts`` (a dict)
+    receives each op's (events recorded, device ms in all): the profiler
+    may drop launches from a window, which a mean per call hides."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             run()
         torch.cuda.synchronize()
-    ops = [(getattr(e, "self_device_time_total",
-                    getattr(e, "self_cuda_time_total", 0.0)) / (calls * 1e3),
-            e.key)
-           for e in prof.key_averages()
-           if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
-    return sorted((op for op in ops if op[0] > 0), reverse=True)
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None)
+              == torch.autograd.DeviceType.CUDA]
+    totals = [getattr(e, "self_device_time_total",
+                      getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+              for e in events]
+    if counts is not None:
+        counts.update((e.key, (e.count, ms)) for e, ms in zip(events, totals))
+    return sorted(((ms / calls, e.key) for e, ms in zip(events, totals)
+                   if ms > 0), reverse=True)
+
+
+@contextlib.contextmanager
+def launch_window(device="cuda"):
+    """Counts the kernels' launches on ``device`` within the block. Yields a
+    dict that holds after it "logmel_kernel" and "logmel_reduce", the
+    counts the launches keep on the card (``logmel.launch_counts``, zeroed
+    before the block: eager launches and launches replayed from a CUDA
+    graph alike), and "warmup", the log-Mel launches that the capture
+    warm-ups within it make (``graphs.WARMUP_STEPS`` for each fused step
+    captured: each warm-up step featurizes its batch once), which the
+    predictions add."""
+    from lidbox_tpu_torch.ops import logmel
+    from lidbox_tpu_torch.train import graphs
+    counts = {}
+    captured = graphs.captures["fused"]
+    logmel.reset_launch_counts(device)
+    yield counts
+    counts.update(logmel.launch_counts(device))
+    counts["warmup"] = graphs.WARMUP_STEPS * (graphs.captures["fused"]
+                                              - captured)
+
+
+def kernel_launches_seen(counts, name):
+    """(events recorded, device ms per recorded event) of the device ops
+    whose name holds ``name`` in a ``device_ops`` window; (0, None) when
+    the profiler saw none."""
+    seen = [v for key, v in counts.items() if name in key]
+    n = sum(c for c, _ in seen)
+    return n, (sum(ms for _, ms in seen) / n if n else None)
+
+
+@contextlib.contextmanager
+def recording_losses(sink):
+    """Append every fused train step's loss (0-dim or [K] device tensors,
+    read after the run: ``step_losses_of``) to ``sink`` while the step
+    builders of ``on_device`` build the steps that fit_fused runs, graphed
+    or eager."""
+    from lidbox_tpu_torch.data import on_device
+    names = ("make_fused_train_step", "make_fused_multi_step",
+             "make_fused_replay_step", "make_fused_replay_rows_step")
+    originals = {name: getattr(on_device, name) for name in names}
+
+    def recorded(make):
+        @functools.wraps(make)
+        def build(*args, **kw):
+            step = make(*args, **kw)
+
+            def run(*a, **k):
+                state, loss = step(*a, **k)
+                sink.append(loss)
+                return state, loss
+            return run
+        return build
+
+    for name, make in originals.items():
+        setattr(on_device, name, recorded(make))
+    try:
+        yield sink
+    finally:
+        for name, make in originals.items():
+            setattr(on_device, name, make)
+
+
+def step_losses_of(sink):
+    """The step losses ``recording_losses`` kept, as floats in order."""
+    return [float(v) for loss in sink for v in loss.reshape(-1).cpu()]
+
+
+@contextlib.contextmanager
+def eager_steps():
+    """fit_fused with the functional eager steps (``fit_signals(...,
+    eager=True)``): the captured graphs' reference."""
+    from lidbox_tpu_torch.data import on_device
+    fit = on_device.fit_signals
+    on_device.fit_signals = functools.partial(fit, eager=True)
+    try:
+        yield
+    finally:
+        on_device.fit_signals = fit
+
+
+def check_same_run(graphed, eager, what):
+    """Two runs from one seed, (step losses, history, trainer) each, graphed
+    and eager: step losses, epoch logs and every tensor of the final state
+    bit for bit. Returns the number of state tensors compared."""
+    from lidbox_tpu_torch.train import graphs
+    (l_g, h_g, t_g), (l_e, h_e, t_e) = graphed, eager
+    check(len(l_g) == len(l_e) and l_g == l_e,
+          f"{what}: graphed step losses {l_g} != eager {l_e}")
+
+    def values(history):  # the epochs' results, without the throughputs
+        return [{k: v for k, v in h.items()
+                 if k not in ("examples_per_sec", "audio_rtf")}
+                if isinstance(h, dict) else h for h in history]
+    check(values(h_g) == values(h_e),
+          f"{what}: graphed epochs {values(h_g)} != eager {values(h_e)}")
+    a, b = graphs.state_tensors(t_g.state), graphs.state_tensors(t_e.state)
+    check(t_g.state.step == t_e.state.step and len(a) == len(b),
+          f"{what}: the states differ in step or structure")
+    diff = [i for i, (x, y) in enumerate(zip(a, b)) if not torch.equal(x, y)]
+    check(not diff, f"{what}: {len(diff)} of {len(a)} state tensors differ "
+                    "between the graphed and the eager run")
+    return len(a)
+
+
+def whole_step_times(step, state, inputs, steps=30, warmup=5):
+    """One fused train step form (``step(state, *inputs) -> (state,
+    loss)``, from ``make_fused_train_step``) on one batch: (median ms on
+    CUDA events, host wall ms a step, device busy ms a step over 5 steps
+    under torch.profiler, the log-Mel launches it recorded of those 5).
+    The warm-up captures a graphed step."""
+    holder = [state]
+
+    def one():
+        holder[0], _ = step(holder[0], *inputs)
+
+    for _ in range(warmup):
+        one()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(steps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        one()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    median = float(np.median([a.elapsed_time(b) for a, b in pairs]))
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        one()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / steps * 1e3
+    seen = {}
+    busy = sum(ms for ms, _ in device_ops(one, counts=seen))
+    return median, wall, busy, kernel_launches_seen(seen, "logmel_kernel")[0]
+
+
+def eager_and_graphed(trainer, feature_fn, inputs, what):
+    """The whole fused step eager (the functional step) and graphed (one
+    CUDA graph replay) on the same inputs, timed in turns (eager, graphed,
+    graphed, eager: whole_step_times): {"eager": [(median, wall, busy),
+    ...], "graphed": [...]}, printed with the idle shares."""
+    from lidbox_tpu_torch.data import on_device
+    forms = {"eager": on_device.make_fused_train_step(trainer, feature_fn,
+                                                      eager=True),
+             "graphed": on_device.make_fused_train_step(trainer, feature_fn)}
+    out = {"eager": [], "graphed": []}
+    for form in ("eager", "graphed", "graphed", "eager"):
+        out[form].append(whole_step_times(forms[form], trainer.state,
+                                          inputs))
+    for form, runs in out.items():
+        print(f"{what}, whole step {form}: " + "; ".join(
+            f"median {m:.4f} ms on CUDA events, host wall {w:.4f} ms, device "
+            f"busy {b:.4f} ms ({1 - b / m:.1%} of the median idle; the "
+            f"profiler recorded {n} of 5 kernel launches)"
+            for m, w, b, n in runs))
+    return out
 
 
 def phase_train_step_timing(wrapper, batch, kernel_ms, steps=30, warmup=5):
@@ -912,7 +1127,9 @@ def phase_train_step_timing(wrapper, batch, kernel_ms, steps=30, warmup=5):
 
     # device busy time: the kernels' own time in a short profiled window
     holder = [state]
-    kernels = device_ops(lambda: holder.__setitem__(0, step(holder[0])))
+    seen = {}
+    kernels = device_ops(lambda: holder.__setitem__(0, step(holder[0])),
+                         counts=seen)
     busy_ms = sum(ms for ms, _ in kernels)
 
     B, T = x.shape
@@ -929,7 +1146,7 @@ def phase_train_step_timing(wrapper, batch, kernel_ms, steps=30, warmup=5):
           f"{fb_flops / 1e9:.1f} GFLOP, float32 CUDA-core bound "
           f"{fb_flops / PEAK_F32_FLOPS * 1e3:.4f} ms")
     if busy_ms:
-        in_step = kernel_device_ms(kernels, "logmel_kernel")
+        n_in, in_step = kernel_launches_seen(seen, "logmel_kernel")
         print(f"train step profile (torch.profiler, 5 steps): device busy "
               f"{busy_ms:.4f} ms/step, {1 - busy_ms / parts['step']:.1%} of "
               f"the step median idle; {len(kernels)} device ops, the top: "
@@ -937,10 +1154,13 @@ def phase_train_step_timing(wrapper, batch, kernel_ms, steps=30, warmup=5):
                           for ms, name in kernels[:6]))
         print(f"fused_logmel inside the train step: "
               f"{in_step if in_step is None else f'{in_step:.4f}'} ms of "
-              f"device time a step (torch.profiler) against {kernel_ms:.4f} "
-              f"ms back to back (CUDA events, phase 9)")
+              f"device time a launch (torch.profiler, {n_in} of 5 launches "
+              f"recorded) against {kernel_ms:.4f} ms back to back (CUDA "
+              "events, phase 9)")
     else:
         print("train step profile: torch.profiler saw no device time")
+    parts["forms"] = eager_and_graphed(
+        trainer, feature_fn, (x, y, gen), f"train step [{B}, {T}]")
     return parts
 
 
@@ -1013,23 +1233,17 @@ def phase_augmented_train(root, rng, logmel):
           "10 taps -> fused_logmel -> SpecAugment 2 + 2 masks, augment_prob "
           f"0.5; feed {feed}")
 
-    step_losses, kept, transfers = [], [], {}
-    epoch = [0]
-    train_step, extract, to_device = (trainer._train_step,
-                                      features.extract_features,
-                                      on_device.to_device)
-
-    def recording(*args, **kw):
-        state, loss = train_step(*args, **kw)
-        step_losses.append(loss)
-        return state, loss
+    recorded, kept, transfers = [], [], {}
+    epoch, first = [0], [False]
+    extract, to_device = features.extract_features, on_device.to_device
 
     def keeping(signals, *args, **kw):
         # each epoch's first train batch (validation is featurized clean,
-        # without lengths)
-        if kw.get("lengths") is not None and \
-                len(step_losses) % TRAIN_BATCHES == 0:
+        # without lengths), in the eager run: a graph calls this only
+        # while it is captured
+        if kw.get("lengths") is not None and first[0]:
             kept.append(signals.clone())
+            first[0] = False
         return extract(signals, *args, **kw)
 
     def counting(value, device):
@@ -1039,26 +1253,23 @@ def phase_augmented_train(root, rng, logmel):
 
     class Epochs(Callback):
         def on_epoch_begin(self, trainer, e):
-            epoch[0] = e
+            epoch[0], first[0] = e, True
 
-    trainer._train_step = recording
     trainer.callbacks.append(Epochs())
-    features.extract_features = keeping
     on_device.to_device = counting
     try:
-        logmel.fused_logmel.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        history = wrapper.fit_fused(lambda: train, epochs=TRAIN_EPOCHS,
-                                    val_signal_batches=lambda: val)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        launches = logmel.fused_logmel.launches
+        with recording_losses(recorded), launch_window() as counted:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            history = wrapper.fit_fused(lambda: train, epochs=TRAIN_EPOCHS,
+                                        val_signal_batches=lambda: val)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
     finally:
-        del trainer._train_step
-        features.extract_features = extract
         on_device.to_device = to_device
-    expected = TRAIN_EPOCHS * TRAIN_BATCHES + VAL_BATCHES
+    launches, warmup = counted["logmel_kernel"], counted["warmup"]
+    step_losses = step_losses_of(recorded)
+    expected = TRAIN_EPOCHS * TRAIN_BATCHES + VAL_BATCHES + warmup
     check(launches == expected, f"augmented training launched the log-Mel "
                                 f"kernel {launches} times, not {expected}")
     losses = [h["loss"] for h in history]
@@ -1079,23 +1290,37 @@ def phase_augmented_train(root, rng, logmel):
           + ", ".join(f"{h['val_loss']:.4f}" for h in history) + "; C_avg "
           + ", ".join(f"{h['val_C_avg']:.4f}" for h in history)
           + f"; kernel launches {launches} = {TRAIN_EPOCHS} x {TRAIN_BATCHES}"
-          f" steps + {VAL_BATCHES} validation batches; signal transfers per "
+          f" steps + {VAL_BATCHES} validation batches + {warmup} capture "
+          "warm-up steps; signal transfers per "
           f"epoch {transfers} (epochs 2-{TRAIN_EPOCHS} from the cache)")
+
+    # the graphed run against the eager (functional) steps, from the seed,
+    # which also keeps each epoch's first augmented batch for the kernel
+    eager = augmented_wrapper(root, feed)
+    eager.trainer.callbacks.append(Epochs())
+    eager_recorded = []
+    features.extract_features = keeping
+    try:
+        with recording_losses(eager_recorded), eager_steps():
+            eager_history = eager.fit_fused(lambda: train,
+                                            epochs=TRAIN_EPOCHS,
+                                            val_signal_batches=lambda: val)
+    finally:
+        features.extract_features = extract
+    n = check_same_run((step_losses, history, trainer),
+                       (step_losses_of(eager_recorded), eager_history,
+                        eager.trainer), "augmented training")
+    print(f"augmented training graphed == eager, bit for bit: "
+          f"{len(step_losses)} step losses, {TRAIN_EPOCHS} epochs' logs, "
+          f"{n} state tensors")
 
     # grouped dispatch against one step per dispatch: bit for bit
     single = augmented_wrapper(root, {"stage_dtype": "int16"})
-    single_losses = []
-    single_step = single.trainer._train_step
-
-    def recording_single(*args, **kw):
-        state, loss = single_step(*args, **kw)
-        single_losses.append(loss)
-        return state, loss
-
-    single.trainer._train_step = recording_single
-    single.fit_fused(lambda: train[:4], epochs=1, verbose=False)
-    grouped = [float(l) for l in step_losses[:4]]
-    per_step = [float(l) for l in single_losses]
+    single_recorded = []
+    with recording_losses(single_recorded):
+        single.fit_fused(lambda: train[:4], epochs=1, verbose=False)
+    grouped = step_losses[:4]
+    per_step = step_losses_of(single_recorded)
     check(grouped == per_step, f"first step losses with steps_per_dispatch "
                                f"2 {grouped} != with 1 {per_step}")
     print(f"first 4 step losses, 2 steps per dispatch == 1 per dispatch, bit "
@@ -1288,19 +1513,21 @@ def phase_pipeline(root, rng, logmel, device="cuda"):
 
         wrapper = ModelWrapper.from_config(config, device=device)
         wrapper.model.init(torch.Generator().manual_seed(SEED))
-        logmel.fused_logmel.launches = 0
-        sync()
-        t0 = time.perf_counter()
-        history = wrapper.fit(batches_from_dataset(train_ds, PIPE_GROUP),
-                              batches_from_dataset(test_ds, PIPE_GROUP),
-                              epochs=TRAIN_EPOCHS)
-        sync()
-        fit_s = time.perf_counter() - t0
-        fit_launches = logmel.fused_logmel.launches
+        with launch_window(device) as counted:
+            sync()
+            t0 = time.perf_counter()
+            history = wrapper.fit(batches_from_dataset(train_ds, PIPE_GROUP),
+                                  batches_from_dataset(test_ds, PIPE_GROUP),
+                                  epochs=TRAIN_EPOCHS)
+            sync()
+            fit_s = time.perf_counter() - t0
+        fit_launches = counted["logmel_kernel"]
     finally:
         DeviceFeatureExtractor.extract = extract
         DeviceFeatureExtractor.__call__ = call
-    expected = TRAIN_EPOCHS * (groups["train"] + groups["test"])
+    # fit's steps take feature batches: their warm-ups launch no kernel
+    expected = (TRAIN_EPOCHS * (groups["train"] + groups["test"])
+                + counted["warmup"])
     if on_card:
         check(fit_launches == expected,
               f"fit launched the log-Mel kernel {fit_launches} times, not "
@@ -1326,11 +1553,11 @@ def phase_pipeline(root, rng, logmel, device="cuda"):
     # embeddings through the config's embeddings section, from the best
     # checkpoint; one batch against the restored model's extractor
     emb_config = dict(config, embeddings=embeddings_section(config))
-    logmel.fused_logmel.launches = 0
+    logmel.reset_launch_counts(device)
     sync()
     embedded = pipeline("test", cfg=emb_config).collect()
     sync()
-    emb_launches = logmel.fused_logmel.launches
+    emb_launches = logmel.launch_counts(device)["logmel_kernel"]
     if on_card:
         check(emb_launches == groups["test"],
               f"extraction launched the kernel {emb_launches} times, not "
@@ -1469,6 +1696,7 @@ def phase_cli(root, logmel, pipeline_data, device="cuda"):
 
     def check_launches(name, expected):
         if on_card:
+            expected += warmups[name]
             check(launches[name] == expected,
                   f"{name} launched the kernel {launches[name]} times, not "
                   f"{expected}")
@@ -1477,7 +1705,7 @@ def phase_cli(root, logmel, pipeline_data, device="cuda"):
     config, id2label = cli_config(root, init, noise_dir)
     path = write_json(config, os.path.join(root, "cli.json"))
     cache = experiment_cache_from_config(config)
-    walls, launches = {}, {}
+    walls, launches, warmups = {}, {}, {}
     kept = {}
     extract = DeviceFeatureExtractor.extract
 
@@ -1490,18 +1718,19 @@ def phase_cli(root, logmel, pipeline_data, device="cuda"):
     def command(name, argv):
         """Run one command; returns its standard output."""
         out = io.StringIO()
-        logmel.fused_logmel.launches = 0
-        sync()
-        t0 = time.perf_counter()
-        DeviceFeatureExtractor.extract = keeping
-        try:
-            with contextlib.redirect_stdout(out):
-                code = cli.main(argv, device=device)
-        finally:
-            DeviceFeatureExtractor.extract = extract
-        sync()
-        walls[name] = time.perf_counter() - t0
-        launches[name] = logmel.fused_logmel.launches
+        with launch_window(device) as counted:
+            sync()
+            t0 = time.perf_counter()
+            DeviceFeatureExtractor.extract = keeping
+            try:
+                with contextlib.redirect_stdout(out):
+                    code = cli.main(argv, device=device)
+            finally:
+                DeviceFeatureExtractor.extract = extract
+            sync()
+            walls[name] = time.perf_counter() - t0
+        launches[name] = counted["logmel_kernel"]
+        warmups[name] = counted["warmup"]
         check(code == 0, f"{name}: exit code {code}")
         return out.getvalue()
 
@@ -1780,9 +2009,11 @@ def zoo_first_loss(wrapper, signals, targets, train):
 
 
 def zoo_times(wrapper, feats, targets, reps=5, warmup=2):
-    """(forward ms, train step ms, device busy ms per step) at [32, 298,
-    64]: CUDA events around one eval forward and one train step (forward,
-    backward, update) on the features, medians of ``reps``; the busy time
+    """(forward ms, eager train step ms, its device busy ms, graphed train
+    step ms, its device busy ms) at [32, 298, 64]: CUDA events around one
+    eval forward and one train step (forward, backward, update) on the
+    features, the functional ``_train_step`` and fit's step (a CUDA graph
+    replay, ``Trainer._fit_step``), medians of ``reps``; the busy times
     from 3 steps under torch.profiler."""
     trainer, model = wrapper.trainer, wrapper.model
     batch = {"input": feats, "target": targets}
@@ -1791,12 +2022,16 @@ def zoo_times(wrapper, feats, targets, reps=5, warmup=2):
     def step():
         trainer._train_step(state, batch, trainer.generator)
 
+    def graphed():
+        trainer.state, _ = trainer._fit_step(trainer.state, batch,
+                                             trainer.generator)
+
     def forward():
         with torch.inference_mode():
             model.apply(feats)
 
     out = []
-    for fn in (forward, step):
+    for fn in (forward, step, graphed):
         for _ in range(warmup):
             fn()
         times = []
@@ -1810,7 +2045,8 @@ def zoo_times(wrapper, feats, targets, reps=5, warmup=2):
             times.append(start.elapsed_time(end))
         out.append(float(np.median(times)))
     busy = sum(ms for ms, _ in device_ops(step, calls=3))
-    return out[0], out[1], busy
+    graphed_busy = sum(ms for ms, _ in device_ops(graphed, calls=3))
+    return out[0], out[1], busy, out[2], graphed_busy
 
 
 def phase_zoo(root, rng, logmel, device="cuda"):
@@ -1859,15 +2095,16 @@ def phase_zoo(root, rng, logmel, device="cuda"):
               f"zoo {name}: first step loss {first} on the card, {cpu} on "
               f"the CPU (rel {loss_err}) beyond rtol {ZOO_RTOL}")
         init_stats = {k: v.clone() for k, v in trainer.state.batch_stats.items()}
-        logmel.fused_logmel.launches = 0
-        history = wrapper.fit_fused(lambda: train, epochs=1,
-                                    val_signal_batches=lambda: val,
-                                    verbose=False)
-        sync(device)
-        launches = logmel.fused_logmel.launches
-        check(launches == ZOO_BATCHES + ZOO_VAL_BATCHES or not on_card,
+        with launch_window(device) as counted:
+            history = wrapper.fit_fused(lambda: train, epochs=1,
+                                        val_signal_batches=lambda: val,
+                                        verbose=False)
+            sync(device)
+        launches = counted["logmel_kernel"]
+        expected = ZOO_BATCHES + ZOO_VAL_BATCHES + counted["warmup"]
+        check(launches == expected or not on_card,
               f"zoo {name}: {launches} kernel launches over fit_fused, not "
-              f"{ZOO_BATCHES + ZOO_VAL_BATCHES}")
+              f"{expected}")
         check(np.isfinite(history[0]["loss"])
               and np.isfinite(history[0]["val_loss"]),
               f"zoo {name}: loss not finite: {history}")
@@ -1882,11 +2119,11 @@ def phase_zoo(root, rng, logmel, device="cuda"):
             {k: v.cpu() for k, v in wrapper.model.module.state_dict().items()})
         clf_kw = {"feature_config": FEATURES_PALLAS,
                   "score_fn": wrapper.score_fn}
-        logmel.fused_logmel.launches = 0
+        logmel.reset_launch_counts(device)
         ours = serve.Classifier(wrapper.model, LABELS, device=device,
                                 **clf_kw).classify(paths)
         sync(device)
-        serve_launches = logmel.fused_logmel.launches
+        serve_launches = logmel.launch_counts(device)["logmel_kernel"]
         check(serve_launches == 1 or not on_card, f"zoo {name}: serving launched the kernel "
                                    f"{serve_launches} times, not 1")
         ref = serve.Classifier(cpu_model, LABELS, device="cpu",
@@ -1902,13 +2139,15 @@ def phase_zoo(root, rng, logmel, device="cuda"):
                    if k != "on_device_augment"}, device=trainer.device)
         feats = features(None, x)
         targets = to_device(train[0][1].astype(np.int64), trainer.device)
-        fwd_ms = step_ms = busy_ms = float("nan")
+        fwd_ms = step_ms = busy_ms = graphed_ms = graph_busy = float("nan")
         if on_card:
-            fwd_ms, step_ms, busy_ms = zoo_times(wrapper, feats, targets)
+            fwd_ms, step_ms, busy_ms, graphed_ms, graph_busy = zoo_times(
+                wrapper, feats, targets)
         total += launches + serve_launches
         row = {"config": name, "params": wrapper.count_params(),
                "forward_ms": fwd_ms, "train_step_ms": step_ms,
-               "busy_ms": busy_ms, "loss_rel_err": loss_err,
+               "busy_ms": busy_ms, "graphed_step_ms": graphed_ms,
+               "graphed_busy_ms": graph_busy, "loss_rel_err": loss_err,
                "serve_max_err": serve_err,
                "launches": launches + serve_launches,
                "batch_norms": len(init_stats) // 2,
@@ -1916,14 +2155,20 @@ def phase_zoo(root, rng, logmel, device="cuda"):
                else "train"}
         rows.append(row)
         print(f"zoo {name}: {row['params']} parameters; forward "
-              f"{fwd_ms:.3f} ms, train step {step_ms:.3f} ms, device busy "
-              f"{busy_ms:.3f} ms per step at [{ZOO_BATCH}, "
+              f"{fwd_ms:.3f} ms, train step eager {step_ms:.3f} ms (device "
+              f"busy {busy_ms:.3f} ms), graphed {graphed_ms:.3f} ms (busy "
+              f"{graph_busy:.3f} ms) per step at [{ZOO_BATCH}, "
               f"{feats.shape[1]}, {feats.shape[2]}]; first loss {first:.6f} "
               f"vs CPU {cpu:.6f} ({row['compared_in']} mode, rel "
               f"{loss_err:.2e}); served scores max |card - CPU| "
               f"{serve_err:.2e}; {len(moved)} BatchNorm statistics moved; "
               f"kernel launches {launches} fit + {serve_launches} serving")
+        freed = weakref.ref(trainer)
         del wrapper, trainer, cpu_model
+        # no reference cycle holds a trainer and its captured steps: they
+        # go with the last reference, without the cyclic collector
+        check(freed() is None, f"zoo {name}: the trainer outlived its "
+                               "last reference")
         if on_card:
             torch.cuda.empty_cache()
     print(f"zoo table ({card_line() if on_card else 'CPU rehearsal'}): "
@@ -2032,7 +2277,284 @@ def phase_augmented_step_timing(wrapper, batch, steps=30, warmup=5):
     else:
         print("augmented train step profile: torch.profiler saw no device "
               "time")
+    # the main path's form: int16 staging, the targets packed in a row
+    packed = to_device(on_device.pack_targets_int16(
+        on_device.stage_signals(batch[0], "int16"),
+        batch[1].astype(np.int64)), trainer.device)
+    parts["forms"] = eager_and_graphed(
+        trainer, feature_fn, (packed, None, trainer.generator),
+        f"augmented train step [{B}, {T}]")
     return parts
+
+
+# The graph phase (14): two BatchNorm zoo configurations through fit_fused
+# graphed and eager (clstm's conv2d variant also draws noise and dropout
+# from the trainer's generator), GRAPH_EPOCHS epochs of GRAPH_BATCHES
+# batches of [32, 48000] with grouped dispatch and the rows replay, and one
+# validation batch (a stream of its own, seed 1242).
+GRAPH_ZOO = (("xvector_2d", {}), ("clstm", {"use_conv2d": True}))
+GRAPH_FEED = {"steps_per_dispatch": 2, "cache_staged": True,
+              "cache_shuffle": "rows"}
+GRAPH_BATCHES, GRAPH_EPOCHS = 4, 2
+# every configuration optimizer_from_config builds, without and with a
+# schedule
+GRAPH_OPTIMIZERS = [("Adam", {}), ("AdamW", {"weight_decay": 0.05}),
+                    ("SGD", {}), ("SGD", {"momentum": 0.9, "nesterov": True}),
+                    ("RMSprop", {"momentum": 0.5}), ("Adagrad", {})]
+
+
+def graph_generator_check(augmented):
+    """The augmented phase's draws (draw_augmentation, draw_spec_augment
+    at [32, 48000] and [32, 298, 64]) from one generator registered with a
+    CUDA graph and re-seeded with ``key_seed`` before each replay, against
+    a fresh ``keyed_generator`` of the same key: the steps' draws of a
+    captured augmented step. Returns the keys checked."""
+    from lidbox_tpu_torch.data import on_device
+    from lidbox_tpu_torch.train.loop import key_seed, keyed_generator
+    aug = on_device.augment_config_from_dict(
+        augmented.config["features"]["on_device_augment"])
+    bank = torch.randn(4, 10 * RATE, device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(SEED))
+
+    def draws(generator):
+        d = on_device.draw_augmentation(generator, aug, TRAIN_BATCH,
+                                        int(RATE * TRAIN_SECONDS), bank,
+                                        "cuda")
+        spec = on_device.draw_spec_augment(generator, aug,
+                                           (TRAIN_BATCH, 298, 64), "cuda")
+        return [d["gate"], d["speed"], *d["noise"], d["fir"], *spec]
+
+    generator = torch.Generator(device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        draws(generator.manual_seed(1))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(generator)
+    with torch.cuda.graph(graph, stream=side):
+        static = draws(generator)
+    steps = (0, 1, 7, 23, 1000, 1)
+    for step in steps:
+        generator.manual_seed(key_seed(SEED, step, 7))
+        graph.replay()
+        fresh = draws(keyed_generator("cuda", SEED, step, 7))
+        check(all(torch.equal(a, b) for a, b in zip(static, fresh)),
+              f"the re-seeded registered generator's draws of step {step} "
+              "differ from keyed_generator's")
+    return steps
+
+
+def graph_optimizer_check(steps=4):
+    """Every optimizer (GRAPH_OPTIMIZERS, each with and without a decay
+    schedule) on x-vector-sized tensors on the card: ``update`` with the
+    per-step scalars as 0-dim float32 device tensors (a graph's buffers)
+    against ``update`` with them as the host's floats, ``steps`` updates,
+    bit for bit. Returns the number of configurations."""
+    from lidbox_tpu_torch.train import optimizers
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    shapes = {"w": (512, 1500), "b": (1500,), "v": (64, 5, 512)}
+    n = 0
+    for cls, kwargs in GRAPH_OPTIMIZERS:
+        for schedule in (None, {"cls": "ExponentialDecay", "kwargs": {
+                "initial_learning_rate": 1e-3, "decay_steps": 2,
+                "decay_rate": 0.7}}):
+            kw = dict(kwargs, learning_rate=1e-3)
+            if schedule is not None:
+                kw["lr_scheduler"] = schedule
+            opt, _ = optimizers.optimizer_from_config({"cls": cls,
+                                                       "kwargs": kw})
+            params = {k: torch.randn(v, device="cuda", generator=gen)
+                      for k, v in shapes.items()}
+            host = device = opt.init(params)
+            for _ in range(steps):
+                grads = {k: torch.randn(v.shape, device="cuda",
+                                        generator=gen)
+                         for k, v in params.items()}
+                scalars = [torch.tensor(v, dtype=torch.float32,
+                                        device="cuda")
+                           for v in opt.scalars(device)]
+                a, host = opt.update(grads, host, params)
+                b, device = opt.update(grads, device, params,
+                                       scalars=scalars)
+                check(all(torch.equal(a[k], b[k]) for k in a),
+                      f"{cls} {kw}: the update with device scalars differs "
+                      "from the update with the host's floats")
+            n += 1
+    return n
+
+
+def graph_operands_check(logmel, trainer, program, step, eager, args, what):
+    """A captured fused step (``program``'s, run by ``step``) holds the
+    addresses of the kernel's basis and mel tiles, which come from caches
+    that may drop them: its graphs must keep them. Drops the caches,
+    allocates the tiles' sizes filled with 0xFF bytes (NaN in float32 and
+    bfloat16; where freed tiles would be reused), then one replay against one ``eager`` step from
+    a copy of the state and the dropout generator, bit for bit. Returns the
+    number of tiles the graphs hold."""
+    from lidbox_tpu_torch.train import graphs
+    held = [t for entry in program._captured.values()
+            for pair in entry.operands for t in pair]
+    check(held, f"graphs: the captured {what} step holds no kernel operands")
+    sizes = [t.numel() * t.element_size() for t in held]
+    del held
+    logmel._launch_config.cache_clear()
+    logmel._device_bases.cache_clear()
+    junk = [torch.full((n,), 255, dtype=torch.uint8, device="cuda")
+            for n in sizes]
+    ref = graphs._clone_state(trainer.state)
+    gen = torch.Generator(device="cuda")
+    gen.set_state(trainer.generator.get_state())
+    ref, ref_loss = eager(ref, *args, gen)
+    trainer.state, loss = step(trainer.state, *args, trainer.generator)
+    same = torch.equal(loss, ref_loss) and all(
+        torch.equal(a, b) for a, b in zip(graphs.state_tensors(trainer.state),
+                                          graphs.state_tensors(ref)))
+    check(same, f"graphs: with the kernel's caches dropped the {what} "
+                "step's replay differs from the eager step")
+    del junk
+    return len(sizes)
+
+
+def phase_graphs(root, rng, logmel, clean, augmented, timings, zoo_rows):
+    """Phase 14: the one-program train step. (a) The re-seeded registered
+    generator against keyed_generator; (b) every optimizer's update with
+    device scalars against the host's floats; (c) GRAPH_ZOO through
+    fit_fused graphed (the launch count zeroed just before and read just
+    after) and eager from one seed, bit for bit (losses, logs, state; a
+    second eager run tells a nondeterministic model from a graph fault);
+    (d) 3 replays each of the clean and the augmented x-vector step under
+    ``torch.cuda.set_sync_debug_mode("error")``: no host synchronization;
+    (e) the eager and graphed step times of phases 10 and 8. Returns the
+    kernel's launches in (c)'s graphed runs."""
+    from lidbox_tpu_torch.data import on_device
+    from lidbox_tpu_torch.models.model_utils import ModelWrapper
+    from lidbox_tpu_torch.train.loop import to_device
+
+    keys = graph_generator_check(augmented)
+    print(f"graphs: one generator registered with a CUDA graph, re-seeded "
+          f"before each replay, draws what keyed_generator(device, {SEED}, "
+          f"step, 7) draws for steps {keys} (gate, speed, noise, FIR, "
+          "SpecAugment)")
+    n_opt = graph_optimizer_check()
+    print(f"graphs: {n_opt} optimizer configurations, 4 updates each with "
+          "the per-step scalars in device buffers == with the host's floats, "
+          "bit for bit")
+
+    train = class_sines(rng, GRAPH_BATCHES)
+    val = class_sines(rng, 1)
+    launches = 0
+    torch.backends.cudnn.deterministic = True
+    try:
+        for key, kw in GRAPH_ZOO:
+            name = zoo_name(key, kw)
+            runs = []
+            for form in ("graphed", "eager", "eager again"):
+                config = zoo_config(os.path.join(root, "graphs", form), key,
+                                    kw)
+                config["experiment"]["feed"] = dict(GRAPH_FEED)
+                wrapper = ModelWrapper.from_config(config, device="cuda")
+                wrapper.model.init(torch.Generator().manual_seed(SEED))
+                recorded = []
+                with contextlib.ExitStack() as stack:
+                    stack.enter_context(recording_losses(recorded))
+                    if form != "graphed":
+                        stack.enter_context(eager_steps())
+                    counted = stack.enter_context(launch_window())
+                    history = wrapper.fit_fused(
+                        lambda: train, epochs=GRAPH_EPOCHS,
+                        val_signal_batches=lambda: val, verbose=False)
+                    torch.cuda.synchronize()
+                if form == "graphed":
+                    n = counted["logmel_kernel"]
+                    expected = (GRAPH_EPOCHS * GRAPH_BATCHES + 1
+                                + counted["warmup"])
+                    check(n == expected, f"graphs {name}: {n} kernel "
+                          f"launches over the graphed fit, not {expected}")
+                    launches += n
+                runs.append((step_losses_of(recorded), history,
+                             wrapper.trainer))
+                if form == "eager":
+                    try:
+                        n_state = check_same_run(runs[0], runs[1],
+                                                 f"graphs {name}")
+                        break
+                    except RuntimeError as fault:
+                        failure = fault  # decided after another eager run
+            else:
+                same = runs[1][0] == runs[2][0]
+                raise RuntimeError(
+                    f"{failure}; a second eager run "
+                    + ("gives the first one's losses: the graph differs"
+                       if same else "differs from the first: the model's "
+                       "eager steps are not deterministic"))
+            losses = runs[0][0]
+            print(f"graphs {name}: fit_fused {GRAPH_EPOCHS} epochs of "
+                  f"{GRAPH_BATCHES} batches ({GRAPH_FEED}) graphed == eager "
+                  f"bit for bit: {len(losses)} step losses (last "
+                  f"{losses[-1]!r}), epoch logs, {n_state} state tensors "
+                  f"(BatchNorm statistics included); {expected} kernel "
+                  "launches")
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    # deterministic cuDNN: the graphs below are held to eager steps bit for
+    # bit (graph_operands_check)
+    torch.backends.cudnn.deterministic = True
+    try:
+        for what, wrapper, inputs in (
+                ("clean", clean, lambda t: (
+                    to_device(timings["clean_batch"][0], t.device),
+                    to_device(timings["clean_batch"][1].astype(np.int64),
+                              t.device))),
+                ("augmented", augmented, lambda t: (
+                    to_device(on_device.pack_targets_int16(
+                        on_device.stage_signals(
+                            timings["augmented_batch"][0], "int16"),
+                        timings["augmented_batch"][1].astype(np.int64)),
+                        t.device), None))):
+            trainer = wrapper.trainer
+            feature_fn = on_device.feature_fn_from_config(
+                RATE, wrapper.config["features"], device=trainer.device)
+            step = on_device.make_fused_train_step(trainer, feature_fn)
+            program = trainer._programs["fused"][2]
+            args = inputs(trainer)
+            for _ in range(2):  # capture
+                trainer.state, _ = step(trainer.state, *args,
+                                        trainer.generator)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for _ in range(3):
+                    trainer.state, loss = step(trainer.state, *args,
+                                               trainer.generator)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            check(np.isfinite(float(loss)),
+                  f"graphs: {what} replays not finite")
+            print(f"graphs: 3 replays of the {what} step under "
+                  "set_sync_debug_mode('error'): no host synchronization")
+            eager = on_device.make_fused_train_step(trainer, feature_fn,
+                                                    eager=True)
+            n_held = graph_operands_check(logmel, trainer, program, step,
+                                          eager, args, what)
+            print(f"graphs: the captured {what} step holds the kernel's "
+                  f"{n_held} cached operand tiles; with the caches dropped "
+                  "and their sizes allocated anew (0xFF bytes), a replay "
+                  "equals the eager step bit for bit")
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    for what in ("clean", "augmented"):
+        forms = timings[what]["forms"]
+        print(f"graphs, phase 10 {what} step [32, 48000] ({card_line()}): "
+              + "; ".join(f"{form} " + ", ".join(
+                  f"{m:.4f} ms ({1 - b / m:.1%} idle)" for m, _, b, _ in runs)
+                          for form, runs in forms.items()))
+    print("graphs, phase 8 train steps at [32, 298, 64], eager -> graphed "
+          "ms: " + "; ".join(f"{r['config']} {r['train_step_ms']:.3f} -> "
+                            f"{r['graphed_step_ms']:.3f}" for r in zoo_rows))
+    return launches
 
 
 # Data parallelism (phase 11): the x-vector and crnn through fit_fused, 3
@@ -2077,31 +2599,23 @@ def fit_wrapper(wrapper, train, val, mesh, device):
     ranks each rank feeds its rows of every batch
     (``parallel.local_batches``)."""
     from lidbox_tpu_torch import parallel
-    from lidbox_tpu_torch.ops import logmel
     wrapper.model.init(torch.Generator().manual_seed(SEED))
-    trainer = wrapper.trainer
     losses = []
-    train_step = trainer._train_step
-
-    def recording(*args, **kw):
-        state, loss = train_step(*args, **kw)
-        losses.append(loss)
-        return state, loss
-
     feed, val_feed = (lambda: train), (lambda: val)
     if parallel.mesh_spans_processes(mesh):
         feed = parallel.local_batches(train, mesh)
         val_feed = parallel.local_batches(val, mesh)
-    trainer._train_step = recording
-    try:
-        logmel.fused_logmel.launches = 0
+    with recording_losses(losses), launch_window(device) as counted:
         history = wrapper.fit_fused(feed, epochs=1, verbose=False,
                                     val_signal_batches=val_feed)
         sync(device)
-        launches = logmel.fused_logmel.launches
-    finally:
-        del trainer._train_step
-    return [float(v) for v in losses], history[0], launches, wrapper
+    launches = counted["logmel_kernel"]
+    # a step and a validation batch each, and the capture warm-ups (a
+    # mesh's steps run eagerly: none)
+    expected = len(train) + len(val) + counted["warmup"]
+    check(launches == expected or device != "cuda",
+          f"fit_fused launched the kernel {launches} times, not {expected}")
+    return step_losses_of(losses), history[0], launches, wrapper
 
 
 def dp_digest(tensors):
@@ -2217,10 +2731,10 @@ def dp_rank_main(workdir):
                 dp_allreduce_ms(mesh, numel)
     clf = dp_classifier(mesh, device)
     paths = [os.path.join(workdir, f"dp{i}.wav") for i in range(DP_WAVS)]
-    logmel.fused_logmel.launches = 0
+    logmel.reset_launch_counts(device)
     scores = clf.scores(paths, ids=[f"dp{i}" for i in range(DP_WAVS)])
     sync(device)
-    out["serve_launches"] = logmel.fused_logmel.launches
+    out["serve_launches"] = logmel.launch_counts(device)["logmel_kernel"]
     out["scores"] = np.asarray(scores["prediction"]).tolist()
     if on_card:
         out["kernel_err"] = compare(
@@ -2338,9 +2852,7 @@ def phase_data_parallel(root, rng, logmel, device="cuda"):
     ref, launches = {}, 0
     for key in DP_KEYS:
         ref[key] = dp_fit(root, key, f"dp0_{key}", train, val, None, device)
-        launches += ref[key][2]
-        check(ref[key][2] == DP_STEPS + 1 or not on_card,
-              f"{key}: {ref[key][2]} kernel launches, not {DP_STEPS + 1}")
+        launches += ref[key][2]  # checked by fit_wrapper
     mesh = parallel.get_mesh(device=device)
     check(mesh.size == 1, f"a {mesh.size}-rank group in this process")
     losses1, logs1, launches1, wrapper1 = dp_fit(
@@ -2650,8 +3162,7 @@ def phase_tensor_parallel(root, rng, logmel, device="cuda"):
     # (a) mesh-less, a 1 x 1 mesh, remat, the split modes
     losses0, logs0, launches, wrapper0 = tp_fit(root, "tp0", train, val,
                                                 None, device)
-    check(launches == TP_STEPS + 1 or not on_card,
-          f"mesh-less: {launches} kernel launches, not {TP_STEPS + 1}")
+    # fit_wrapper checked the launches: TP_STEPS + 1 and the warm-ups
     # the comparison's floor: one process on signals one ulp away
     nudged = [(x * np.float32(1 + 2 ** -23), y) for x, y in train]
     losses_u, logs_u, n, _ = tp_fit(root, "tp_ulp", nudged, val, None,
@@ -2690,10 +3201,10 @@ def phase_tensor_parallel(root, rng, logmel, device="cuda"):
                   melspectrogram=KERNEL_KW)
         out = features.extract_features(x, RATE, stft_method="matmul", **kw)
         if mode != "highest":
-            before = logmel.fused_logmel.launches
+            logmel.reset_launch_counts(device)
             routed = features.extract_features(x, RATE, stft_method="pallas",
                                                **kw)
-            check(logmel.fused_logmel.launches == before
+            check(logmel.launch_counts(device)["logmel_kernel"] == 0
                   and torch.equal(routed, out),
                   f"{mode}: the pallas request did not take the matmul path")
         if on_card:
@@ -2887,8 +3398,6 @@ def phase_orbax(root, rng, logmel, device="cuda"):
     ``device="cpu"`` rehearses it on the plain version (set ORBAX_BATCH
     and ORBAX_SECONDS small first); the launch count, the kernel check,
     the cuda platform and the timing need the card."""
-    import contextlib
-    import copy
     import importlib.util
     import io
     from lidbox_tpu_torch import cli, export, serve
@@ -2933,27 +3442,26 @@ def phase_orbax(root, rng, logmel, device="cuda"):
         return wrapper
 
     class Snapshots(Callback):
-        """The live state at each epoch's end (states are never written
-        in place)."""
+        """A copy of the live state at each epoch's end (the train steps
+        write the state in place)."""
         def __init__(self):
             self.states = {}
 
         def on_epoch_end(self, trainer, epoch, logs):
-            self.states[epoch] = trainer.state
+            self.states[epoch] = copy.deepcopy(trainer.state)
 
     wrapper = wrapper_for(config)
     snaps = Snapshots()
     msgpack_dir = os.path.join(root, "orbax_msgpack")
     wrapper.trainer.callbacks += [ModelCheckpoint(msgpack_dir), snaps]
-    launches = 0
-    logmel.fused_logmel.launches = 0
-    sync()
-    t0 = time.perf_counter()
-    history = wrapper.fit_fused(lambda: train, epochs=ORBAX_EPOCHS,
-                                val_signal_batches=lambda: val)
-    sync()
-    fit_s = time.perf_counter() - t0
-    launches += logmel.fused_logmel.launches
+    with launch_window(device) as counted:
+        sync()
+        t0 = time.perf_counter()
+        history = wrapper.fit_fused(lambda: train, epochs=ORBAX_EPOCHS,
+                                    val_signal_batches=lambda: val)
+        sync()
+        fit_s = time.perf_counter() - t0
+    launches, warmup = counted["logmel_kernel"], counted["warmup"]
     ckpt_dir = os.path.join(experiment_cache_from_config(config),
                             "checkpoints")
     names = sorted(os.listdir(ckpt_dir))
@@ -2979,14 +3487,17 @@ def phase_orbax(root, rng, logmel, device="cuda"):
     last = os.path.join(ckpt_dir, names[-1])
     resumed = wrapper_for(resumed_config)
     resumed.trainer.restore(last)
-    logmel.fused_logmel.launches = 0
-    wrapper.trainer.initial_epoch = ORBAX_EPOCHS
-    live_next = wrapper.fit_fused(lambda: train, epochs=ORBAX_EPOCHS + 1,
-                                  val_signal_batches=lambda: val)
-    resumed_next = resumed.fit_fused(lambda: train, epochs=ORBAX_EPOCHS + 1,
-                                     val_signal_batches=lambda: val)
-    sync()
-    launches += logmel.fused_logmel.launches
+    with launch_window(device) as counted:
+        wrapper.trainer.initial_epoch = ORBAX_EPOCHS
+        live_next = wrapper.fit_fused(lambda: train,
+                                      epochs=ORBAX_EPOCHS + 1,
+                                      val_signal_batches=lambda: val)
+        resumed_next = resumed.fit_fused(lambda: train,
+                                         epochs=ORBAX_EPOCHS + 1,
+                                         val_signal_batches=lambda: val)
+        sync()
+    launches += counted["logmel_kernel"]
+    warmup += counted["warmup"]
     check(len(live_next) == len(resumed_next) == 1
           and live_next[0]["loss"] == resumed_next[0]["loss"]
           and live_next[0]["val_loss"] == resumed_next[0]["val_loss"],
@@ -3057,14 +3568,14 @@ def phase_orbax(root, rng, logmel, device="cuda"):
     model.module.load_state_dict({**jax_state["params"],
                                   **jax_state["batch_stats"]})
     paths = write_wavs(audio_io, root, rng, ORBAX_WAVS, ORBAX_SECONDS)
-    logmel.fused_logmel.launches = 0
+    logmel.reset_launch_counts(device)
     sync()
     scores = serve.Classifier(model, LABELS,
                               feature_config=ORBAX_FIXTURE_FEATURES,
                               batch_size=ORBAX_WAVS,
                               device=device).classify(paths)
     sync()
-    launches += logmel.fused_logmel.launches
+    launches += logmel.launch_counts(device)["logmel_kernel"]
     table = np.stack([scores[f"score_{label}"] for label in LABELS], axis=1)
     cpu_model = narrow_xvector("cpu")
     cpu_model.module.load_state_dict(model.module.state_dict())
@@ -3128,15 +3639,16 @@ def phase_orbax(root, rng, logmel, device="cuda"):
 
     errors = []
     if on_card:
-        check(launches == ORBAX_LAUNCHES,
+        check(launches == ORBAX_LAUNCHES + warmup,
               f"phase 13 launched the kernel {launches} times, not the "
-              f"predicted {ORBAX_LAUNCHES}")
+              f"predicted {ORBAX_LAUNCHES} + {warmup} capture warm-up "
+              "steps")
         with torch.inference_mode():
             errors.append(compare(logmel, "orbax_train",
                                   torch.as_tensor(train[0][0], device=device),
                                   RATE, KERNEL_KW))
         print(f"orbax: kernel launches {launches} (predicted "
-              f"{ORBAX_LAUNCHES})")
+              f"{ORBAX_LAUNCHES} + {warmup} capture warm-up steps)")
     return launches, max(errors, default=0.0)
 
 
@@ -3175,15 +3687,20 @@ def main():
             cli_launches, cli_err, _ = phase_cli(root, logmel, pipe_data)
         finally:
             torch.backends.cudnn.deterministic = False
-        zoo_launches, zoo_err, _ = phase_zoo(
+        zoo_launches, zoo_err, zoo_rows = phase_zoo(
             root, np.random.default_rng(SEED + 4), logmel)
         train_x = torch.as_tensor(train_batch[0], device="cuda")
         path_err, timing = phase_path_kernel(logmel,
                                              batches + [(train_x, RATE)])
         reduce_fields = phase_split_reduce(logmel, batches)
-        phase_train_step_timing(
+        clean_parts = phase_train_step_timing(
             wrapper, train_batch, timing[(*train_x.shape, "highest")][0])
-        phase_augmented_step_timing(aug_wrapper, aug_batch)
+        aug_parts = phase_augmented_step_timing(aug_wrapper, aug_batch)
+        graph_launches = phase_graphs(
+            root, np.random.default_rng(SEED + 8), logmel, wrapper,
+            aug_wrapper, {"clean": clean_parts, "augmented": aug_parts,
+                          "clean_batch": train_batch,
+                          "augmented_batch": aug_batch}, zoo_rows)
         torch.backends.cudnn.deterministic = True
         try:
             dp_launches, dp_err = phase_data_parallel(
@@ -3207,9 +3724,10 @@ def main():
           f"{serve_launches} serving + {train_launches} training + "
           f"{aug_launches} augmented training + {pipe_launches} pipeline "
           f"(fit and embedding extraction) + {cli_launches} CLI + "
-          f"{zoo_launches} model zoo + {dp_launches} data parallel + "
-          f"{tp_launches} tensor parallel + {orbax_launches} Orbax; split "
-          f"reductions {serve_reductions} in serving")
+          f"{zoo_launches} model zoo + {graph_launches} graphs + "
+          f"{dp_launches} data parallel + {tp_launches} tensor parallel + "
+          f"{orbax_launches} Orbax; split reductions {serve_reductions} in "
+          "serving")
 
     print(json.dumps({"kernels": [{
         "name": "fused_logmel",
@@ -3218,7 +3736,8 @@ def main():
         "replaces": "lidbox_tpu/ops/logmel.py:154",
         "launches": (serve_launches + train_launches + aug_launches
                      + pipe_launches + cli_launches + zoo_launches
-                     + dp_launches + tp_launches + orbax_launches),
+                     + graph_launches + dp_launches + tp_launches
+                     + orbax_launches),
         "max_abs_err": max(geometry_err, path_err, aug_err, pipe_err,
                            cli_err, zoo_err, dp_err, tp_err, orbax_err),
         "ms": ms,

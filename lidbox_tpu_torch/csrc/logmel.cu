@@ -139,10 +139,19 @@ struct Params {
   const char* mtiles;
   float* out;
   float* partial;
+  unsigned long long* launches;  // [2] launch counts (count_launch)
   int B, T, F, step, K, nchunks, passes, pps, splits, n_mel, mc, rounds,
       tiles_per_row, total_tiles, nwg, pitch, rows, cols, span_floats, smem;
 };
 constexpr int kGeoInts = 20;  // the ints of Params, in order, from the host
+
+// Adds one to *counter once per launch (the first thread of block 0), so
+// that a launch replayed from a CUDA graph counts as an eager one does.
+__device__ __forceinline__ void count_launch(unsigned long long* counter) {
+  if (counter != nullptr && threadIdx.x == 0 && blockIdx.x == 0 &&
+      blockIdx.y == 0 && blockIdx.z == 0)
+    atomicAdd(counter, 1ull);
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -602,6 +611,7 @@ __global__ void __launch_bounds__(kThreads, 1) logmel_kernel(const Params p) {
   const int active = min(p.nwg, p.total_tiles - tile0);
   const int split = blockIdx.y, round = blockIdx.z;
   const int pass0 = split * p.pps, pass1 = min(p.passes, pass0 + p.pps);
+  count_launch(p.launches);
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < S; ++i) {
@@ -898,7 +908,9 @@ __global__ void __launch_bounds__(kThreads, 1) logmel_kernel(const Params p) {
 // of a split launch (the first split's, then each later pass's), added as
 // an unsplit block adds its passes
 __global__ void logmel_reduce(const float* __restrict__ partial,
-                              float* __restrict__ out, int splits, size_t n) {
+                              float* __restrict__ out, int splits, size_t n,
+                              unsigned long long* launches) {
+  count_launch(launches);
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (size_t)gridDim.x * blockDim.x) {
     float v = partial[i];
@@ -908,10 +920,10 @@ __global__ void logmel_reduce(const float* __restrict__ partial,
 }
 
 cudaError_t reduce(const float* partial, float* out, int splits, size_t n,
-                   cudaStream_t stream) {
+                   unsigned long long* launches, cudaStream_t stream) {
   const size_t threads = 256, blocks = (n + threads - 1) / threads;
   logmel_reduce<<<(unsigned)(blocks < 4096 ? blocks : 4096), threads, 0,
-                  stream>>>(partial, out, splits, n);
+                  stream>>>(partial, out, splits, n, launches);
   return cudaGetLastError();
 }
 
@@ -928,14 +940,19 @@ size_t smem_bytes(const Params& p) {
 
 template <bool BF16, int MC>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  auto kernel = logmel_kernel<BF16, MC>;
-  // Above 48 KB the launch is refused unless the kernel opts in.
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
-  if (err != cudaSuccess) return err;
   const dim3 grid((p.total_tiles + p.nwg - 1) / p.nwg, p.splits, p.rounds);
-  kernel<<<grid, 128 * (1 + p.nwg), p.smem, stream>>>(p);
+  logmel_kernel<BF16, MC><<<grid, 128 * (1 + p.nwg), p.smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+// Above 48 KB a launch is refused unless the kernel opts in: done once per
+// device for every instance (lidbox_logmel_setup), so a launch makes no
+// other runtime call and a CUDA graph can capture it.
+template <bool BF16, int MC>
+cudaError_t opt_in(int max_smem) {
+  return cudaFuncSetAttribute(logmel_kernel<BF16, MC>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              max_smem);
 }
 
 template <bool BF16>
@@ -966,49 +983,68 @@ int lidbox_logmel_device(int* sms, int* max_smem) {
   return err;
 }
 
+// Let every instance of logmel_kernel use up to max_smem bytes of dynamic
+// shared memory on the current device (its opt-in limit, from
+// lidbox_logmel_device). Once per device, before its first launch.
+int lidbox_logmel_setup(int max_smem) {
+  const cudaError_t errs[] = {
+      opt_in<false, 1>(max_smem), opt_in<false, 2>(max_smem),
+      opt_in<false, 3>(max_smem), opt_in<false, 4>(max_smem),
+      opt_in<true, 1>(max_smem),  opt_in<true, 2>(max_smem),
+      opt_in<true, 3>(max_smem),  opt_in<true, 4>(max_smem)};
+  for (cudaError_t err : errs)
+    if (err != cudaSuccess) return err;
+  return cudaSuccess;
+}
+
 // signal [B, T] float32; wtiles and mtiles from ops/logmel.py::basis_tiles
 // and mel_tiles (float32 hi|lo for "highest", bfloat16 for "bf16"); out
 // [B, F, n_mel] float32; partial [passes - pps + 1, B, F, n_mel] float32
 // (unused when splits is 1); all contiguous, on the current device. geo: the kGeoInts
-// ints of kernel_plan, in Params' order. Launches the kernel and, when
-// splits > 1, logmel_reduce after it on the same stream. Returns the CUDA
-// error of the launches, cudaErrorInvalidValue when the plan is
-// inconsistent or its shared memory exceeds the device's.
+// ints of kernel_plan, in Params' order; max_smem the device's opt-in limit
+// (lidbox_logmel_setup ran with it); launches null or int64 [2] on the
+// device, to which each launch of logmel_kernel adds one in [0] and each of
+// logmel_reduce in [1]. Launches the kernel and, when
+// splits > 1, logmel_reduce after it on the same stream, and makes no other
+// runtime call: legal inside a stream capture. Returns the CUDA error of
+// the launches, cudaErrorInvalidValue when the plan is inconsistent or its
+// shared memory exceeds the device's.
 int lidbox_logmel(const float* signal, const void* wtiles, const void* mtiles,
                   float* out, float* partial, const int* geo, int bf16,
-                  void* stream) {
+                  int max_smem, void* launches, void* stream) {
   Params p;
   p.signal = signal;
   p.wtiles = static_cast<const char*>(wtiles);
   p.mtiles = static_cast<const char*>(mtiles);
   p.out = out;
   p.partial = partial;
+  p.launches = static_cast<unsigned long long*>(launches);
   int* const fields[kGeoInts] = {
       &p.B, &p.T, &p.F, &p.step, &p.K, &p.nchunks, &p.passes, &p.pps,
       &p.splits, &p.n_mel, &p.mc, &p.rounds, &p.tiles_per_row,
       &p.total_tiles, &p.nwg, &p.pitch, &p.rows, &p.cols, &p.span_floats,
       &p.smem};
   for (int i = 0; i < kGeoInts; ++i) *fields[i] = geo[i];
-  int sms, max_smem;
-  cudaError_t err = static_cast<cudaError_t>(lidbox_logmel_device(&sms, &max_smem));
-  if (err != cudaSuccess) return err;
   const size_t need = bf16 ? smem_bytes<true>(p) : smem_bytes<false>(p);
   if (need != (size_t)p.smem || p.smem > max_smem || p.nwg < 1 ||
       p.nwg > kMaxConsumers || (p.splits > 1 && partial == nullptr) ||
       p.span_floats % 4 != 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = bf16 ? pick<true>(p, s) : pick<false>(p, s);
+  const cudaError_t err = bf16 ? pick<true>(p, s) : pick<false>(p, s);
   if (err != cudaSuccess || p.splits == 1) return err;
   return reduce(partial, out, p.passes - p.pps + 1,
-                (size_t)p.B * p.F * p.n_mel, s);
+                (size_t)p.B * p.F * p.n_mel,
+                p.launches == nullptr ? nullptr : p.launches + 1, s);
 }
 
 // out [n] = log(sum over the `splits` slices of partial [splits, n] + 1e-6),
-// the slices added in order.
+// the slices added in order; launch null or an int64 on the device that the
+// launch adds one to.
 int lidbox_logmel_reduce(const float* partial, float* out, int splits,
-                         long long n, void* stream) {
+                         long long n, void* launch, void* stream) {
   return reduce(partial, out, splits, (size_t)n,
+                static_cast<unsigned long long*>(launch),
                 static_cast<cudaStream_t>(stream));
 }
 

@@ -8,7 +8,10 @@ the chain declared in the config's ``features`` section there: energy VAD
 FIR filtering -> features (with ``stft_method: "pallas"`` the fused log-Mel
 CUDA kernel of ``ops/logmel.py``, launched once per step) -> SpecAugment,
 then the model's forward and backward and the optimizer update. The host
-only feeds waveform batches; the chain runs under ``torch.no_grad``.
+only feeds waveform batches; the chain runs under ``torch.no_grad``. On the
+card the whole step is one CUDA graph replay that updates the train state
+in place (``train/graphs.py``, the JAX package's jitted step with
+``donate=True``): grouped dispatch and a cached epoch are K replays.
 
 Every stochastic stage is split in two: a draw (``draw_augmentation``,
 ``draw_spec_augment``) of its random values from an explicit
@@ -18,7 +21,8 @@ streams, so the applies are what the parity tests hold to the JAX package,
 fed its draws. A train step seeds its generator from (the trainer's seed,
 ``state.step``) alone (``keyed_generator``), as the JAX package folds the
 step into its key: grouped dispatch, cached replay and a restored run take
-the same draws as per-step training.
+the same draws as per-step training. A captured step draws from one
+generator re-seeded with that key before each replay.
 
 Feed options: int16/bfloat16 staging with the targets packed into the int16
 waveform stack, grouped dispatch (``steps_per_dispatch``), and cached replay
@@ -42,6 +46,7 @@ import lidbox_tpu_torch.features as F
 from lidbox_tpu_torch import RANDOM_SEED, get_device, get_logger, parallel
 from lidbox_tpu_torch.features import audio
 from lidbox_tpu_torch.features import io as audio_io
+from lidbox_tpu_torch.train import graphs
 from lidbox_tpu_torch.train.loop import (_signature_runs_contiguous,
                                          _tree_device_nbytes, keyed_generator,
                                          to_device, torch_dtype)
@@ -427,6 +432,7 @@ def make_augmented_feature_fn(sample_rate, feature_config, augment: AugmentConfi
             return feats, frame_mask
         return feats
     fn.sample_rate = int(sample_rate)  # observability: fit_signals RTF
+    fn.tracks_lengths = augment.tracks_lengths  # its features carry a mask
     return fn
 
 
@@ -491,7 +497,57 @@ def signals_to_float(signals):
 
 # -- steps ---------------------------------------------------------------------
 
-def make_fused_train_step(trainer, feature_fn):
+def _fused_batch(feature_fn):
+    """``batch(trainer, inputs, augment_generator)``: the feature batch of
+    one fused step, augmentation and features of ``inputs["signals"]``
+    drawn from ``augment_generator`` (``inputs["targets"]`` None: the
+    packed layout, int16 [B + 1, T] with the targets in row B's first B
+    slots)."""
+    def batch(trainer, inputs, augment_generator):
+        signals, targets = inputs["signals"], inputs["targets"]
+        if targets is None:  # packed layout: the last row carries targets
+            b = signals.shape[0] - 1
+            targets = signals[-1, :b].to(torch.int64)
+            signals = signals[:-1]
+        with parallel.data_parallel(trainer.mesh):
+            feats = feature_fn(augment_generator, signals_to_float(signals))
+        out = {"target": targets}
+        if isinstance(feats, tuple):  # length-tracking fn: (feats, mask)
+            out["input"], out["input_mask"] = feats
+        else:
+            out["input"] = feats
+        if inputs["example_mask"] is not None:
+            out["example_mask"] = inputs["example_mask"]
+        return out
+    return batch
+
+
+def _fused_program(trainer, feature_fn, eager=False):
+    """The trainer's ``graphs.StepProgram`` of fused steps on
+    ``feature_fn``, shared by the step builders below: it draws from a
+    generator keyed (trainer seed, state.step, 7)."""
+    return trainer.step_program(
+        "fused", feature_fn, eager, batch=_fused_batch(feature_fn),
+        augment=True,
+        masked=bool(getattr(feature_fn, "tracks_lengths", False)))
+
+
+def _inputs(signals, targets, example_mask):
+    return {"signals": signals, "targets": targets,
+            "example_mask": example_mask}
+
+
+def _run_steps(trainer, program, state, inputs, generator):
+    """The program's steps over ``inputs`` (an iterable of step inputs) ->
+    (state, losses [K]); no host read between the steps."""
+    losses = []
+    for step_inputs in inputs:
+        state, loss = program(trainer, state, step_inputs, generator)
+        losses.append(loss)
+    return state, torch.stack(losses)
+
+
+def make_fused_train_step(trainer, feature_fn, eager=False):
     """One train step from raw waveforms: augmentation and features (on the
     device) -> model forward/backward -> optimizer update.
 
@@ -501,81 +557,74 @@ def make_fused_train_step(trainer, feature_fn):
     (trainer.seed, state.step) alone. ``targets=None`` selects the packed
     staging layout: ``signals`` is int16 [B + 1, T] with the targets in row
     B's first B slots. Under the trainer's mesh the step runs inside
-    ``parallel.data_parallel``: the draws are the global batch's."""
+    ``parallel.data_parallel``: the draws are the global batch's.
+
+    On the card the step is a CUDA graph replay that writes the new state
+    into ``state``'s tensors (``graphs.StepProgram``; the CPU runs that
+    donating step eagerly); ``eager=True`` builds the functional step,
+    whose new state is new tensors (the graph's reference)."""
+    program = _fused_program(trainer, feature_fn, eager)
+
     def step(state, signals, targets, generator=None, example_mask=None):
-        if targets is None:  # packed layout: the last row carries targets
-            b = signals.shape[0] - 1
-            targets = signals[-1, :b].to(torch.int64)
-            signals = signals[:-1]
-        augment_gen = keyed_generator(signals.device, trainer.seed,
-                                      state.step, 7)
-        with parallel.data_parallel(trainer.mesh):
-            feats = feature_fn(augment_gen, signals_to_float(signals))
-        batch = {"target": targets}
-        if isinstance(feats, tuple):  # length-tracking fn: (feats, mask)
-            batch["input"], batch["input_mask"] = feats
-        else:
-            batch["input"] = feats
-        if example_mask is not None:
-            batch["example_mask"] = example_mask
-        return trainer._train_step(state, batch, generator)
+        return program(trainer, state,
+                       _inputs(signals, targets, example_mask), generator)
     return step
 
 
-def make_fused_replay_step(trainer, feature_fn):
+def make_fused_replay_step(trainer, feature_fn, eager=False):
     """Whole-epoch cached replay: fused train steps over the device-resident
-    stacked batches in ``order`` (a host permutation of range(K)).
-    Augmentation stays fresh per epoch: each step's draws follow
-    state.step.
+    stacked batches in ``order`` (a host permutation of range(K)): K
+    replays of one captured step on the card. Augmentation stays fresh per
+    epoch: each step's draws follow state.step.
 
     step(state, signals_all [K, B(+1), T], targets_all ([K, B] or None for
     the packed layout), generator, order [K], masks_all=None ([K, B]
     example masks)) -> (state, losses [K])."""
-    single = make_fused_train_step(trainer, feature_fn)
+    program = _fused_program(trainer, feature_fn, eager)
 
     def replay(state, signals_all, targets_all, generator, order,
                masks_all=None):
-        losses = []
-        for i in np.asarray(order).tolist():
-            state, loss = single(state, signals_all[i],
-                                 None if targets_all is None
-                                 else targets_all[i], generator,
-                                 None if masks_all is None else masks_all[i])
-            losses.append(loss)
-        return state, torch.stack(losses)
+        return _run_steps(trainer, program, state, (
+            _inputs(signals_all[i],
+                    None if targets_all is None else targets_all[i],
+                    None if masks_all is None else masks_all[i])
+            for i in np.asarray(order).tolist()), generator)
     return replay
 
 
-def make_fused_multi_step(trainer, feature_fn):
+def make_fused_multi_step(trainer, feature_fn, eager=False):
     """Grouped dispatch: K fused train steps over a [K, ...] stack of
     staged batches that crossed to the device as one transfer; per-step
-    numerics identical to K single steps.
+    numerics identical to K single steps (K replays on the card).
 
     step(state, signals_k, targets_k, generator=None, masks_k=None) ->
     (state, losses [K]); ``targets_k=None`` selects the packed layout
     ([K, B + 1, T])."""
-    replay = make_fused_replay_step(trainer, feature_fn)
+    program = _fused_program(trainer, feature_fn, eager)
 
     def multi(state, signals_k, targets_k, generator=None, masks_k=None):
-        return replay(state, signals_k, targets_k, generator,
-                      np.arange(signals_k.shape[0]), masks_k)
+        return _run_steps(trainer, program, state, (
+            _inputs(signals_k[i], None if targets_k is None else targets_k[i],
+                    None if masks_k is None else masks_k[i])
+            for i in range(signals_k.shape[0])), generator)
     return multi
 
 
-def make_fused_replay_rows_step(trainer, feature_fn):
+def make_fused_replay_rows_step(trainer, feature_fn, eager=False):
     """Whole-epoch cached replay with a row-level reshuffle
     (cache_shuffle="rows"): ``idx`` is a host [K, B] permutation of the K*B
     cached waveform rows, so every epoch re-draws batch composition (the
     reference re-shuffled elements every epoch,
     lidbox/data/steps.py:997-999). Each step gathers its B rows on the
-    device from the stack seen as [K * rows, T] (no permuted copy); the
-    only transfer is the [K, B] index. Under a mesh the stack is the global
-    one and ``idx`` this rank's columns of the global index.
+    device from the stack seen as [K * rows, T] (no permuted copy; on the
+    card straight into the captured step's input buffer); the only
+    transfer is the [K, B] index. Under a mesh the stack is the global one
+    and ``idx`` this rank's columns of the global index.
 
     step(state, signals_all [K, B(+1), T], targets_all ([K, B] or None for
     the packed layout), generator, idx [K, b], masks_all=None) -> (state,
     losses [K])."""
-    single = make_fused_train_step(trainer, feature_fn)
+    program = _fused_program(trainer, feature_fn, eager)
 
     def replay_rows(state, signals_all, targets_all, generator, idx,
                     masks_all=None):
@@ -594,15 +643,12 @@ def make_fused_replay_rows_step(trainer, feature_fn):
         sig_rows = to_device((idx // B) * rows_per_batch + idx % B,
                              signals_all.device)
         tgt_rows = to_device(idx, signals_all.device)
-        losses = []
-        for k in range(K):
-            state, loss = single(
-                state, sig_flat.index_select(0, sig_rows[k]),
-                tgt_flat.index_select(0, tgt_rows[k]), generator,
-                None if mask_flat is None
-                else mask_flat.index_select(0, tgt_rows[k]))
-            losses.append(loss)
-        return state, torch.stack(losses)
+        return _run_steps(trainer, program, state, (
+            _inputs(graphs.Gather(sig_flat, sig_rows[k]),
+                    graphs.Gather(tgt_flat, tgt_rows[k]),
+                    None if mask_flat is None
+                    else graphs.Gather(mask_flat, tgt_rows[k]))
+            for k in range(K)), generator)
     return replay_rows
 
 
@@ -696,10 +742,13 @@ def _featurize_val(val_feats, val_batches, device, mesh=None):
 def fit_signals(trainer, feature_fn, signal_batches, epochs=1, verbose=True,
                 val_batches=None, val_feature_fn=None,
                 val_feature_batches=None, steps_per_dispatch=1,
-                cache_staged=None, cache_shuffle=True):
+                cache_staged=None, cache_shuffle=True, eager=False):
     """Train directly from raw waveform batches through the fused path:
     every step augments and featurizes its batch on the device and trains
-    on it (make_fused_train_step), with no per-step host readback.
+    on it (make_fused_train_step), with no per-step host readback. On the
+    card each step is one CUDA graph replay updating ``trainer.state`` in
+    place; ``eager=True`` runs the functional steps instead (the graphs'
+    reference).
 
     ``signal_batches``: callable or re-iterable collection of
     (signals [B, T], targets [B]) numpy pairs, or (signals, targets,
@@ -739,9 +788,10 @@ def fit_signals(trainer, feature_fn, signal_batches, epochs=1, verbose=True,
     guard, every step is the global batch's (``Trainer._loss_and_grads``,
     ``parallel.data_parallel``), and cache_shuffle="rows" replays from the
     global cache, gathered onto every rank after epoch 1."""
-    step = make_fused_train_step(trainer, feature_fn)
+    step = make_fused_train_step(trainer, feature_fn, eager)
     spd = max(1, int(steps_per_dispatch))
-    multi = make_fused_multi_step(trainer, feature_fn) if spd > 1 else None
+    multi = (make_fused_multi_step(trainer, feature_fn, eager) if spd > 1
+             else None)
     if cache_staged is None:
         cache_staged = trainer.cache_staged
     # every rank caches the global corpus for a mesh's rows replay
@@ -837,7 +887,8 @@ def fit_signals(trainer, feature_fn, signal_batches, epochs=1, verbose=True,
             if replay is None:
                 replay = (make_fused_replay_rows_step
                           if cache_shuffle == "rows"
-                          else make_fused_replay_step)(trainer, feature_fn)
+                          else make_fused_replay_step)(trainer, feature_fn,
+                                                       eager)
             rng_epoch = np.random.default_rng(RANDOM_SEED + epoch)
             gorder = (rng_epoch.permutation(len(replay_groups))
                       if cache_shuffle else np.arange(len(replay_groups)))
@@ -988,6 +1039,7 @@ def fit_signals(trainer, feature_fn, signal_batches, epochs=1, verbose=True,
             logger.info("fused epoch %d/%d: %s", epoch, epochs, logs)
         if trainer.stop_training:
             break
+    trainer.release_graphs()
     trainer.sync_model_variables()
     for cb in trainer.callbacks:
         cb.on_train_end(trainer)

@@ -31,7 +31,9 @@ shared memory.
 ``fused_logmel`` is the wrapper: on a CPU tensor it computes the plain
 version, ``logmel_plain``; on a CUDA tensor it launches the kernel (and,
 when the plan splits, ``split_reduce``'s kernel) or raises. There is no
-fallback from one to the other. The kernels are built with ``nvcc`` for
+fallback from one to the other. Every launch of either kernel adds one to
+a counter on its device, in the kernel itself, so a launch that a CUDA
+graph replays counts as an eager one does (``launch_counts``). The kernels are built with ``nvcc`` for
 ``sm_90a`` into ``lidbox_tpu_torch/_build/`` at first use and loaded with
 ctypes; a missing ``nvcc`` or a failed build raises.
 """
@@ -42,6 +44,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 
 import numpy as np
 import torch
@@ -119,13 +122,15 @@ def _load_library():
     if _lib is None:
         lib = ctypes.CDLL(build())
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.lidbox_logmel.argtypes = [ptr] * 6 + [i32, ptr]
+        lib.lidbox_logmel.argtypes = [ptr] * 6 + [i32, i32, ptr, ptr]
         lib.lidbox_logmel.restype = i32
         lib.lidbox_logmel_reduce.argtypes = [ptr, ptr, i32, ctypes.c_longlong,
-                                             ptr]
+                                             ptr, ptr]
         lib.lidbox_logmel_reduce.restype = i32
         lib.lidbox_logmel_device.argtypes = [ptr, ptr]
         lib.lidbox_logmel_device.restype = i32
+        lib.lidbox_logmel_setup.argtypes = [i32]
+        lib.lidbox_logmel_setup.restype = i32
         lib.lidbox_logmel_variant.argtypes = [i32]
         lib.lidbox_logmel_variant.restype = ctypes.c_char_p
         lib.lidbox_logmel_error_string.argtypes = [i32]
@@ -374,16 +379,74 @@ def _device_bases(key, device):
 @functools.lru_cache(maxsize=16)
 def device_limits(device):
     """(SM count, shared memory a block may opt in to) of a CUDA device,
-    as the kernel's library reads them."""
+    as the kernel's library reads them. The first call for a device also
+    lets the kernel use that shared memory there (``lidbox_logmel_setup``):
+    the one runtime call besides the launch, kept out of the launch path so
+    that a CUDA graph can capture a launch."""
+    lib = _load_library()
     sms, smem = ctypes.c_int(), ctypes.c_int()
     with torch.cuda.device(device):
-        err = _load_library().lidbox_logmel_device(ctypes.byref(sms),
-                                                   ctypes.byref(smem))
+        err = lib.lidbox_logmel_device(ctypes.byref(sms), ctypes.byref(smem))
+        if err == 0:
+            err = lib.lidbox_logmel_setup(smem.value)
     if err != 0:
-        raise RuntimeError("log-Mel kernel: cannot read the device: "
-                           + _load_library().lidbox_logmel_error_string(
-                               err).decode())
+        raise RuntimeError("log-Mel kernel: cannot set up the device: "
+                           + lib.lidbox_logmel_error_string(err).decode())
     return sms.value, smem.value
+
+
+# the kernels that count their launches, in the order of their counters
+KERNELS = ("logmel_kernel", "logmel_reduce")
+
+
+def _cuda_device(device):
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_counter(device):
+    """int64 [len(KERNELS)] on ``device``: every launch of ``KERNELS[i]``
+    adds one to element i on the card. Kept for the process, since a
+    captured CUDA graph holds its address."""
+    return torch.zeros(len(KERNELS), dtype=torch.int64, device=device)
+
+
+def launch_counts(device="cuda"):
+    """{kernel name: its launches on ``device``} since the last
+    ``reset_launch_counts``, as the launches counted themselves on the card
+    (eager, or replayed from a CUDA graph). Reads the device: a sync. The
+    CPU runs no kernel, so counts nothing."""
+    device = _cuda_device(device)
+    if device.type != "cuda":
+        return dict.fromkeys(KERNELS, 0)
+    return dict(zip(KERNELS, _launch_counter(device).tolist()))
+
+
+def reset_launch_counts(device="cuda"):
+    """Set the launch counts of ``device`` to 0 (in its stream order)."""
+    device = _cuda_device(device)
+    if device.type == "cuda":
+        _launch_counter(device).zero_()
+
+
+_captures = threading.local()
+
+
+@contextlib.contextmanager
+def holding_operands(held):
+    """Within it, every launch on this thread appends the cached constant
+    operands it reads (the basis and mel tiles) to the list ``held``. A
+    CUDA graph captured within holds their addresses: keeping ``held`` as
+    long as the graph keeps them alive when the caches here drop them."""
+    outer = getattr(_captures, "held", None)
+    _captures.held = held
+    try:
+        yield held
+    finally:
+        _captures.held = outer
 
 
 def _key(sample_rate, frame_length, fft_length, num_mel_bins, fmin, fmax,
@@ -394,15 +457,29 @@ def _key(sample_rate, frame_length, fft_length, num_mel_bins, fmin, fmax,
 
 @functools.lru_cache(maxsize=64)
 def _launch_config(key, batch, samples, frame_step, device):
-    """(basis tiles, mel tiles, plan, the plan's ints for the library) of
-    one launch shape."""
+    """(basis tiles, mel tiles, plan, the plan's ints for the library, the
+    device's shared memory limit, its launch counter) of one launch shape.
+    Its first call for a shape uploads the bases and sets the device up,
+    which no stream capture may do: a captured step's warm-up makes that
+    call (``train/graphs.py``), and the capture holds the tiles
+    (``holding_operands``)."""
     W, M, L, NB = _device_bases(key, device)
     sms, max_smem = device_limits(device)
     plan = kernel_plan(batch, samples,
                        audio.num_frames(samples, key[0], frame_step),
                        frame_step, L, NB, key[2], key[-1], sms, max_smem)
     return W, M, plan, (ctypes.c_int * len(GEO_FIELDS))(
-        *(plan[f] for f in GEO_FIELDS))
+        *(plan[f] for f in GEO_FIELDS)), max_smem, _launch_counter(device)
+
+
+def _operands(key, batch, samples, frame_step, device):
+    """``_launch_config``, its tiles appended to the operands held on this
+    thread (``holding_operands``)."""
+    config = _launch_config(key, batch, samples, frame_step, device)
+    held = getattr(_captures, "held", None)
+    if held is not None:
+        held.append(config[:2])
+    return config
 
 
 def launch_plan(batch, samples, sample_rate, frame_length_ms=25,
@@ -424,8 +501,8 @@ def fused_logmel(signals, sample_rate, frame_length_ms=25, frame_step_ms=10,
                  precision="highest"):
     """[B, T] float32 waveforms -> [B, frames, num_mel_bins] float32 log-Mel.
 
-    CPU tensor: ``logmel_plain``. CUDA tensor: the CUDA kernel (counted in
-    ``fused_logmel.launches``), or an exception. Either way a signal that
+    CPU tensor: ``logmel_plain``. CUDA tensor: the CUDA kernel (counted on
+    the card: ``launch_counts``), or an exception. Either way a signal that
     requires grad raises: the kernel has no backward. ``precision`` is
     ``"highest"`` (float32) or ``"bf16"`` (bfloat16 operands, float32
     accumulation, power rounded to bfloat16 before the mel product)."""
@@ -463,7 +540,8 @@ def fused_logmel(signals, sample_rate, frame_length_ms=25, frame_step_ms=10,
         raise ValueError("signals must be contiguous")
     key = _key(sample_rate, frame_length, fft_length, num_mel_bins, fmin,
                fmax, precision)
-    W, M, plan, geo = _launch_config(key, B, T, frame_step, signals.device)
+    W, M, plan, geo, max_smem, counter = _operands(key, B, T, frame_step,
+                                                   signals.device)
     out = torch.empty((B, num_frames, num_mel_bins), dtype=torch.float32,
                       device=signals.device)
     partial = (torch.empty((partial_slices(plan),) + out.shape,
@@ -473,17 +551,11 @@ def fused_logmel(signals, sample_rate, frame_length_ms=25, frame_step_ms=10,
         err = lib.lidbox_logmel(
             signals.data_ptr(), W.data_ptr(), M.data_ptr(), out.data_ptr(),
             None if partial is None else partial.data_ptr(), geo,
-            int(key[-1]), stream)
+            int(key[-1]), max_smem, counter.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"log-Mel kernel launch failed (plan {plan}): "
                            + lib.lidbox_logmel_error_string(err).decode())
-    fused_logmel.launches += 1
-    if partial is not None:  # the library launched logmel_reduce after it
-        split_reduce.launches += 1
     return out
-
-
-fused_logmel.launches = 0
 
 
 @contextlib.contextmanager
@@ -501,10 +573,9 @@ def split_reduce(partial, out=None):
     """[n, B, F, n_mel] partial mel sums -> [B, F, n_mel] ``log(sum +
     1e-6)``, the n slices added in order: the second kernel of a split
     ``fused_logmel`` (``partial_slices``: the slices add up as an unsplit
-    launch adds its passes), which launches it from the library and counts
-    it here too.
+    launch adds its passes), which launches it from the library.
     CPU tensor: ``split_reduce_plain``. CUDA tensor: the kernel
-    ``logmel_reduce`` (counted in ``split_reduce.launches``), or an
+    ``logmel_reduce`` (counted on the card: ``launch_counts``), or an
     exception."""
     if partial.dim() != 4 or partial.dtype != torch.float32:
         raise ValueError("partial must be a float32 [n, batch, frames, mel] "
@@ -518,16 +589,14 @@ def split_reduce(partial, out=None):
         out = torch.empty(partial.shape[1:], dtype=torch.float32,
                           device=partial.device)
     with _on(partial.device) as stream:
-        err = lib.lidbox_logmel_reduce(partial.data_ptr(), out.data_ptr(),
-                                       partial.shape[0], out.numel(), stream)
+        err = lib.lidbox_logmel_reduce(
+            partial.data_ptr(), out.data_ptr(), partial.shape[0],
+            out.numel(), _launch_counter(partial.device)[1].data_ptr(),
+            stream)
     if err != 0:
         raise RuntimeError("log-Mel split reduction launch failed: "
                            + lib.lidbox_logmel_error_string(err).decode())
-    split_reduce.launches += 1
     return out
-
-
-split_reduce.launches = 0
 
 
 def split_reduce_plain(partial):

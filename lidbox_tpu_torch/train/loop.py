@@ -7,11 +7,18 @@ Replaces the reference's Keras ``compile``/``fit`` path
 functional loop, as the JAX package does:
 
 - TrainState (step, params, batch_stats, opt_state): the float32 master
-  parameters are a dict name -> tensor apart from the module's own, and
-  every step makes new tensors (nothing in a state is written in place),
+  parameters are a dict name -> tensor apart from the module's own,
 - one train step: the forward runs on the state's tensors through
   ``torch.func.functional_call``, ``torch.autograd.grad`` takes the
-  gradients, the optimizer (``train/optimizers.py``) the update,
+  gradients, the optimizer (``train/optimizers.py``) the update. ``fit``
+  runs the donating form of the step through a ``graphs.StepProgram``,
+  the JAX package's jitted step with ``donate_argnums``: on the card one
+  CUDA graph replay a step, which writes the new state into the tensors of
+  the old one; on the CPU the same step eagerly, as a mesh, ``remat`` and
+  host-length recurrent models run it on the card. A state ``fit`` trained
+  is therefore written in place: copy what must outlive the next step.
+  ``_train_step`` is the functional form (new tensors every step), the
+  donating step's reference,
 - eval steps stream the C_avg metric as counter tensors on the device,
   read back once per evaluation,
 - Python callback hooks (ModelCheckpoint, EarlyStopping, LR logger) with
@@ -63,8 +70,9 @@ from lidbox_tpu_torch import RANDOM_SEED, get_device, get_logger, parallel
 from lidbox_tpu_torch.data.dataset import padded_batch
 from lidbox_tpu_torch.models.model_api import functional_forward
 from lidbox_tpu_torch.train import checkpoint as ckpt_lib
+from lidbox_tpu_torch.train import graphs
 from lidbox_tpu_torch.train.observability import MetricsLogger, ThroughputMeter
-from lidbox_tpu_torch.train.optimizers import apply_updates
+from lidbox_tpu_torch.train.optimizers import apply_updates, copy_state_
 
 logger = get_logger("train.loop")
 
@@ -168,8 +176,8 @@ class EarlyStopping(Callback):
     train begin.
 
     ``restore_best_weights``: when stopping, restore the params and
-    batch_stats of the best-monitored epoch. Holding that epoch's state
-    tensors is enough: no train step writes into a state's tensors."""
+    batch_stats of the best-monitored epoch, copied when it ended (the
+    train steps write into the state's tensors)."""
 
     def __init__(self, monitor="val_loss", mode="min", patience=5,
                  min_delta=0.0, restore_best_weights=False):
@@ -193,8 +201,10 @@ class EarlyStopping(Callback):
         if improved:
             self.best, self.wait = value, 0
             if self.restore_best_weights:
-                self._best_state = (trainer.state.params,
-                                    trainer.state.batch_stats)
+                self._best_state = tuple(
+                    {k: v.clone() for k, v in part.items()}
+                    for part in (trainer.state.params,
+                                 trainer.state.batch_stats))
             return
         self.wait += 1
         if self.wait >= self.patience:
@@ -219,14 +229,21 @@ class LearningRateDateLogger(Callback):
                     time.strftime("%Y-%m-%d %H:%M:%S"), lr)
 
 
+def key_seed(*key):
+    """The seed of ``keyed_generator(device, *key)``: numpy's SeedSequence
+    of the non-negative integers ``key``."""
+    return int(np.random.SeedSequence([int(k) for k in key]).generate_state(
+        1, np.uint64)[0])
+
+
 def keyed_generator(device, *key):
     """A ``torch.Generator`` on ``device`` whose seed depends on the
     non-negative integers ``key`` alone (numpy's SeedSequence mixes them),
     as ``jax.random.fold_in`` keys a stream: a train step's augmentation
-    generator is keyed (trainer seed, step, 7) and needs no device read."""
-    seed = np.random.SeedSequence([int(k) for k in key]).generate_state(
-        1, np.uint64)[0]
-    return torch.Generator(device=device).manual_seed(int(seed))
+    generator is keyed (trainer seed, step, 7) and needs no device read.
+    A captured step re-seeds one generator with ``key_seed(*key)``
+    instead (``graphs.StepProgram``)."""
+    return torch.Generator(device=device).manual_seed(key_seed(*key))
 
 
 def torch_dtype(dtype):
@@ -388,6 +405,7 @@ class Trainer:
             MetricsLogger(log_dir, tensorboard=tensorboard)
             if log_dir and (mesh is None or mesh.rank == 0) else None)
         self.state = None
+        self._programs = {}  # kind -> (owner, eager, graphs.StepProgram)
 
     # -- state --------------------------------------------------------------
 
@@ -603,18 +621,70 @@ class Trainer:
 
     def _train_step(self, state, batch, generator=None):
         """One step: forward, loss (example-mask mean), gradients, update.
-        Returns (new state, loss as a 0-dim device tensor)."""
+        Returns (new state, loss as a 0-dim device tensor); the functional
+        form, whose new state is new tensors."""
         loss, grads, new_bs = self._loss_and_grads(state, batch, generator)
         return self._apply_gradients(state, grads, new_bs), loss
+
+    def _donating_step(self, state, batch, generator, scalars, loss_out):
+        """``_train_step`` written into ``state``'s tensors: the new
+        parameters, batch statistics and optimizer moments go into the
+        tensors they replace and the loss into ``loss_out``, a 0-dim
+        buffer; ``scalars`` are the optimizer's per-step scalars as 0-dim
+        tensors (``GradientTransformation.scalars``). The counts are left
+        to the caller (``graphs.advance``). Reads nothing back from the
+        device, so a CUDA graph captures it (``graphs.StepProgram``); the
+        same operations in the same order as ``_train_step``, so the same
+        bits."""
+        loss, grads, new_bs = self._loss_and_grads(state, batch, generator)
+        with parallel.tensor_parallel(self.mesh, self.param_specs):
+            updates, new_opt_state = self.optimizer.update(
+                grads, state.opt_state, state.params, scalars=scalars)
+        torch._foreach_add_(list(state.params.values()),
+                            list(updates.values()))
+        pairs = [(state.batch_stats[k], v) for k, v in new_bs.items()
+                 if v is not state.batch_stats[k]]
+        if pairs:
+            torch._foreach_copy_([d for d, _ in pairs], [v for _, v in pairs])
+        copy_state_(state.opt_state, new_opt_state)
+        loss_out.copy_(loss)
+
+    def step_program(self, kind, owner=None, eager=False, **options):
+        """The ``graphs.StepProgram(kind, eager=eager, **options)`` of
+        ``kind`` ("features" for fit's feature batches, "fused" for the
+        waveform steps of ``on_device``) for ``owner`` (the fused step's
+        feature fn): one per kind, replaced when the owner or ``eager``
+        changes, so a later fit's graphs free an earlier's."""
+        cached = self._programs.get(kind)
+        if cached is None or cached[0] is not owner or cached[1] != eager:
+            cached = (owner, eager,
+                      graphs.StepProgram(kind, eager=eager, **options))
+            self._programs[kind] = cached
+        return cached[2]
+
+    def release_graphs(self):
+        """Free the captured train steps (graphs, memory pools, buffers):
+        ``fit`` and ``fit_signals`` do when they end, and a later step
+        captures anew."""
+        for _, _, program in self._programs.values():
+            program.release()
+        self._programs.clear()
+
+    def _fit_step(self, state, batch, generator=None):
+        """One of fit's train steps on feature batches, through a
+        ``graphs.StepProgram``: a CUDA graph replay on the card, which
+        writes the new state into ``state``'s tensors. Returns (state,
+        loss)."""
+        return self.step_program("features")(self, state, batch, generator)
 
     def _replay_train_step(self, state, stacked, generator, order):
         """Whole-epoch cached replay: train steps over the device-resident
         stacked batch dict [K, B, ...] in ``order`` (a host permutation of
-        range(K)) -> (state, losses [K]); the stack is indexed, never
-        copied."""
+        range(K)) -> (state, losses [K]); each step's batch is a view of
+        the stack, copied into the step's input buffers on the card."""
         losses = []
         for i in np.asarray(order).tolist():
-            state, loss = self._train_step(
+            state, loss = self._fit_step(
                 state, {k: v[i] for k, v in stacked.items()}, generator)
             losses.append(loss)
         return state, torch.stack(losses)
@@ -632,15 +702,16 @@ class Trainer:
         K*B cached example rows, so every epoch re-draws batch composition
         (the reference re-shuffled elements every epoch,
         lidbox/data/steps.py:997-999). Each step gathers its rows on the
-        device from the [K * B, ...] view of the stack; masks and targets
-        travel with their rows."""
+        device from the [K * B, ...] view of the stack (into the step's
+        input buffers on the card); masks and targets travel with their
+        rows."""
         flat = {k: v.reshape((-1,) + tuple(v.shape[2:]))
                 for k, v in stacked.items()}
         rows_all = to_device(np.asarray(idx, np.int64), self.device)
         losses = []
         for rows in rows_all:
-            state, loss = self._train_step(
-                state, {k: v.index_select(0, rows) for k, v in flat.items()},
+            state, loss = self._fit_step(
+                state, {k: graphs.Gather(v, rows) for k, v in flat.items()},
                 generator)
             losses.append(loss)
         return state, torch.stack(losses)
@@ -1024,7 +1095,7 @@ class Trainer:
                                 self.state, batch, self.generator)
                             meter.update(int(sum(n)))
                         else:
-                            self.state, loss = self._train_step(
+                            self.state, loss = self._fit_step(
                                 self.state, batch, self.generator)
                             meter.update(n)
                         losses.append(loss)
@@ -1077,7 +1148,7 @@ class Trainer:
                             steps_done += len(n)
                             meter.update(int(sum(n)))
                         else:
-                            self.state, loss = self._train_step(
+                            self.state, loss = self._fit_step(
                                 self.state, batch, self.generator)
                             steps_done += 1
                             meter.update(n)
@@ -1140,6 +1211,7 @@ class Trainer:
                             " ".join(f"{k}={v:.6g}" for k, v in logs.items()))
             for cb in self.callbacks:
                 cb.on_epoch_end(self, epoch, logs)
+        self.release_graphs()
         self.sync_model_variables()
         for cb in self.callbacks:
             cb.on_train_end(self)

@@ -24,7 +24,18 @@ field names (``count``, ``mu``, ``nu``, ``trace``, ``sum_of_squares``); a
 chain's state is the tuple of its parts' states, so
 :func:`opt_state_from_optax` carries a JAX optimizer state across.
 Schedules are evaluated on the host at the step count before the update.
-Nothing is updated in place.
+No update writes in place (:func:`copy_state_` is the one function here
+that does).
+
+The values an update derives from its step counts (Adam's two bias
+corrections, a schedule's step size) are the transform's ``scalars(state)``,
+Python floats computed on the host. ``update(..., scalars=)`` takes them as
+0-dim float32 tensors instead, so that a step captured once as a CUDA graph
+(``train/graphs.py``) reads them from device buffers filled before each
+replay; the buffers hold the very floats ``scalars`` returns, so both forms
+compute the same bits. The counts stay host ints: :func:`advance_counts`
+is what one update does to them, and :func:`copy_state_` writes an update's
+moments into the tensors of the state it started from.
 """
 import math
 from typing import Callable, NamedTuple
@@ -35,9 +46,19 @@ import torch
 from lidbox_tpu_torch import parallel
 
 
+def _no_scalars(state):
+    return ()
+
+
 class GradientTransformation(NamedTuple):
+    """``init(params) -> state``; ``update(updates, state, params=None,
+    scalars=None) -> (updates, state)``; ``scalars(state)`` -> the floats
+    this update derives from the state's step counts, in the order
+    ``update`` takes them as tensors through ``scalars=`` (None: computed
+    from the state on the host)."""
     init: Callable
     update: Callable
+    scalars: Callable = _no_scalars
 
 
 def _lists(tree):
@@ -50,22 +71,31 @@ def _like(tree, values):
 
 def identity():
     return GradientTransformation(lambda params: {},
-                                  lambda updates, state, params=None:
-                                  (updates, state))
+                                  lambda updates, state, params=None,
+                                  scalars=None: (updates, state))
 
 
 def chain(*transforms):
-    """Apply ``transforms`` in order; the state is the tuple of theirs."""
+    """Apply ``transforms`` in order; the state is the tuple of theirs and
+    the scalars the concatenation of theirs."""
     def init(params):
         return tuple(t.init(params) for t in transforms)
 
-    def update(updates, state, params=None):
+    def update(updates, state, params=None, scalars=None):
         new_state = []
         for t, s in zip(transforms, state):
-            updates, s = t.update(updates, s, params)
+            mine = None
+            if scalars is not None:
+                n = len(t.scalars(s))
+                mine, scalars = scalars[:n], scalars[n:]
+            updates, s = t.update(updates, s, params, scalars=mine)
             new_state.append(s)
         return updates, tuple(new_state)
-    return GradientTransformation(init, update)
+
+    def step_scalars(state):
+        return tuple(v for t, s in zip(transforms, state)
+                     for v in t.scalars(s))
+    return GradientTransformation(init, update, step_scalars)
 
 
 def _ema(g, moments, decay):
@@ -80,24 +110,40 @@ def _bias_correction(decay, count):
     return float(np.float32(1.0) - np.float32(decay) ** np.float32(count))
 
 
+def _divide(tensors, divisor):
+    """``tensors`` / ``divisor``, a Python float or a 0-dim tensor, rounded
+    alike. By a float torch divides on the CPU but multiplies by the
+    float32 reciprocal on CUDA (as ``torch.div`` by a CPU scalar does); by
+    a 0-dim tensor it divides on both, so on CUDA the tensor's reciprocal,
+    computed there in float32, is what multiplies."""
+    if isinstance(divisor, torch.Tensor) and divisor.device.type == "cuda":
+        return torch._foreach_mul(tensors, torch.reciprocal(divisor))
+    return torch._foreach_div(tensors, divisor)
+
+
 def scale_by_adam(b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0):
+    """Scalars: the two bias corrections of the step's count."""
     def init(params):
         return {"count": 0,
                 "mu": [torch.zeros_like(p) for p in params.values()],
                 "nu": [torch.zeros_like(p) for p in params.values()]}
 
-    def update(updates, state, params=None):
+    def step_scalars(state):
+        count = state["count"] + 1
+        return _bias_correction(b1, count), _bias_correction(b2, count)
+
+    def update(updates, state, params=None, scalars=None):
+        c1, c2 = step_scalars(state) if scalars is None else scalars
         g = _lists(updates)
         mu = _ema(g, state["mu"], b1)
         nu = _ema(torch._foreach_mul(g, g), state["nu"], b2)
-        count = state["count"] + 1
-        mu_hat = torch._foreach_div(mu, _bias_correction(b1, count))
-        nu_hat = torch._foreach_div(nu, _bias_correction(b2, count))
+        mu_hat = _divide(mu, c1)
+        nu_hat = _divide(nu, c2)
         denom = torch._foreach_add(
             torch._foreach_sqrt(torch._foreach_add(nu_hat, eps_root)), eps)
         return (_like(updates, torch._foreach_div(mu_hat, denom)),
-                {"count": count, "mu": mu, "nu": nu})
-    return GradientTransformation(init, update)
+                {"count": state["count"] + 1, "mu": mu, "nu": nu})
+    return GradientTransformation(init, update, step_scalars)
 
 
 def scale_by_rms(decay=0.9, eps=1e-8, initial_scale=0.0):
@@ -106,7 +152,7 @@ def scale_by_rms(decay=0.9, eps=1e-8, initial_scale=0.0):
         return {"nu": [torch.full_like(p, initial_scale)
                        for p in params.values()]}
 
-    def update(updates, state, params=None):
+    def update(updates, state, params=None, scalars=None):
         g = _lists(updates)
         nu = _ema(torch._foreach_mul(g, g), state["nu"], decay)
         scaling = torch._foreach_rsqrt(torch._foreach_add(nu, eps))
@@ -121,7 +167,7 @@ def scale_by_rss(initial_accumulator_value=0.1, eps=1e-7):
         return {"sum_of_squares": [torch.full_like(p, initial_accumulator_value)
                                    for p in params.values()]}
 
-    def update(updates, state, params=None):
+    def update(updates, state, params=None, scalars=None):
         g = _lists(updates)
         sos = torch._foreach_add(torch._foreach_mul(g, g),
                                  state["sum_of_squares"])
@@ -136,7 +182,7 @@ def trace(decay, nesterov=False):
     def init(params):
         return {"trace": [torch.zeros_like(p) for p in params.values()]}
 
-    def update(updates, state, params=None):
+    def update(updates, state, params=None, scalars=None):
         g = _lists(updates)
         new_trace = torch._foreach_add(g, torch._foreach_mul(state["trace"],
                                                              decay))
@@ -154,7 +200,7 @@ def add_decayed_weights(weight_decay=0.0, mask=None):
     such a dict; only the names it marks True decay, the others pass
     unchanged, and the state is optax's ``MaskedState``,
     ``{"inner_state": {}}``."""
-    def update(updates, state, params=None):
+    def update(updates, state, params=None, scalars=None):
         if params is None:
             raise ValueError("add_decayed_weights needs the params")
         chosen = list(updates)
@@ -173,16 +219,21 @@ def add_decayed_weights(weight_decay=0.0, mask=None):
 
 def scale_by_learning_rate(learning_rate):
     """Multiply by -learning_rate; a schedule is called with its own step
-    count, which starts at 0, so it sees the count before the update."""
+    count, which starts at 0, so it sees the count before the update. A
+    schedule's step size is the transform's scalar."""
     if callable(learning_rate):
-        def update(updates, state, params=None):
-            step_size = -float(learning_rate(state["count"]))
+        def step_scalars(state):
+            return (-float(learning_rate(state["count"])),)
+
+        def update(updates, state, params=None, scalars=None):
+            step_size, = step_scalars(state) if scalars is None else scalars
             return (_like(updates, torch._foreach_mul(_lists(updates),
                                                       step_size)),
                     {"count": state["count"] + 1})
-        return GradientTransformation(lambda params: {"count": 0}, update)
+        return GradientTransformation(lambda params: {"count": 0}, update,
+                                      step_scalars)
 
-    def update(updates, state, params=None):
+    def update(updates, state, params=None, scalars=None):
         return (_like(updates, torch._foreach_mul(_lists(updates),
                                                   -learning_rate)), state)
     return GradientTransformation(lambda params: {}, update)
@@ -193,7 +244,7 @@ def clip_by_global_norm(max_norm):
     max_norm, t unchanged below it; decided on the device, without a
     readback. Under tensor parallelism the norm is the whole parameters'
     (``parallel.sum_of_squares``)."""
-    def update(updates, state, params=None):
+    def update(updates, state, params=None, scalars=None):
         g = _lists(updates)
         g_norm = torch.sqrt(parallel.sum_of_squares(updates))
         keep = g_norm < max_norm
@@ -204,7 +255,7 @@ def clip_by_global_norm(max_norm):
 
 def clip(max_delta):
     """Clamp every element to [-max_delta, max_delta]."""
-    def update(updates, state, params=None):
+    def update(updates, state, params=None, scalars=None):
         out = [torch.clamp(t, -max_delta, max_delta) for t in _lists(updates)]
         return _like(updates, out), state
     return GradientTransformation(lambda params: {}, update)
@@ -213,6 +264,35 @@ def clip(max_delta):
 def apply_updates(params, updates):
     """params + updates, as new tensors."""
     return _like(params, torch._foreach_add(_lists(params), _lists(updates)))
+
+
+def advance_counts(opt_state):
+    """The state's step counts one update on: every int of a state here is
+    a count that each update adds one to (Adam's ``count``, a schedule's
+    ``count``). Tensors and the structure are the same objects."""
+    if isinstance(opt_state, dict):
+        return {k: advance_counts(v) for k, v in opt_state.items()}
+    if isinstance(opt_state, tuple):
+        return tuple(advance_counts(v) for v in opt_state)
+    if isinstance(opt_state, int):
+        return opt_state + 1
+    return opt_state
+
+
+def copy_state_(dst, src):
+    """Write every tensor of ``src`` into the tensor at the same place in
+    ``dst`` (two optimizer states of one structure; a donating step's new
+    moments into the state it started from). Counts are left alone."""
+    if isinstance(dst, dict):
+        for k in dst:
+            copy_state_(dst[k], src[k])
+    elif isinstance(dst, tuple):
+        for d, s in zip(dst, src):
+            copy_state_(d, s)
+    elif isinstance(dst, list) and dst:
+        pairs = [(d, s) for d, s in zip(dst, src) if d is not s]
+        if pairs:
+            torch._foreach_copy_([d for d, _ in pairs], [s for _, s in pairs])
 
 
 def adam(learning_rate, b1=0.9, b2=0.999, eps=1e-8):

@@ -109,14 +109,18 @@ def phases(logmel):
     subprocess.run([logmel._find_nvcc(), *logmel.NVCC_FLAGS, "-o", so, cu],
                    check=True)
     lib = ctypes.CDLL(so)
-    lib.lidbox_logmel.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int,
-                                                          ctypes.c_void_p]
+    lib.lidbox_logmel.argtypes = [ctypes.c_void_p] * 6 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    max_smem = logmel.device_limits(torch.device("cuda", 0))[1]
+    if lib.lidbox_logmel_setup(max_smem):
+        raise RuntimeError("probe library: lidbox_logmel_setup failed")
     B, T = 32, 64000
     x = torch.as_tensor(cs.noisy_sines(np.random.default_rng(cs.SEED + 11),
                                        B, T / cs.RATE, cs.RATE), device="cuda")
     for precision in ("highest", "bf16"):
         key = logmel._key(cs.RATE, 400, 512, 64, 0.0, 8000.0, precision)
-        W, M, plan, geo = logmel._launch_config(key, B, T, 160, x.device)
+        W, M, plan, geo = logmel._launch_config(key, B, T, 160,
+                                                x.device)[:4]
         n = plan["nchunks"]
         if plan["splits"] != 1 or plan["nwg"] != 2 or n * STAMP_SLOTS > 128:
             raise RuntimeError(f"--phases expects one unsplit launch: {plan}")
@@ -127,7 +131,7 @@ def phases(logmel):
         for _ in range(3):
             err = lib.lidbox_logmel(
                 x.data_ptr(), W.data_ptr(), M.data_ptr(), out.data_ptr(),
-                stamps.data_ptr(), geo, int(key[-1]),
+                stamps.data_ptr(), geo, int(key[-1]), max_smem, None,
                 torch.cuda.current_stream().cuda_stream)
             torch.cuda.synchronize()
             if err:
