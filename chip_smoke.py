@@ -10,7 +10,10 @@ and ``logmel_reduce`` adds one to a counter on the card
 (``logmel.launch_counts``), eager or replayed from a CUDA graph. Where a
 part below is "zeroed just before and read just after"
 (``launch_window``), its prediction also counts the launches of the
-capture warm-ups: ``graphs.WARMUP_STEPS`` for each fused step captured.
+capture warm-ups: ``graphs.WARMUP_STEPS`` for each fused step or log-Mel
+feature program captured, tallied on the host as they launch. Phases 3,
+6, 7, 8, 11, 12, 13 and 16 predict their captures from the shapes they
+feed, and fail unless the tally equals the warm-ups of those captures.
 
 Phases, each of which fails the run:
 
@@ -27,11 +30,13 @@ Phases, each of which fails the run:
 3. serving, the main path: a full-width x-vector (random weights from a
    seed) behind ``serve.Classifier`` with ``stft_method: "pallas"``
    classifies 32 whole 3 s wavs and the same wavs in 2 s / 1 s chunks, and
-   ``StreamingClassifier`` scores one of them online. The launch count is
-   zeroed just before and read just after, and every signal batch the
-   feature extractor hands on is kept. Scores must match the matmul
-   feature path on the card and the plain CPU path, and streaming must
-   match the offline chunked scores;
+   ``StreamingClassifier`` scores one of them online, each a CUDA graph
+   replay per shape (``graphs.ForwardProgram``). The launch count is
+   zeroed just before and read just after (one launch per signal batch
+   and the capture warm-ups), and every signal batch the feature
+   programs hand on is kept. Scores must match the matmul feature path
+   on the card and the plain CPU path, and streaming must match the
+   offline chunked scores;
 4. training, the second main path: ``ModelWrapper.from_config`` builds the
    full-width x-vector (weights from the seed), Adam 1e-3, the NLL loss, a
    C_avg metric, ``ModelCheckpoint`` and ``EarlyStopping``, and
@@ -213,6 +218,20 @@ Phases, each of which fails the run:
    the eager and graphed times of phases 10 and 8;
 15. the kernel table as one JSON line (after phase 6's [64, 32000] kernel
    line again), the card line, and the result line.
+16. the one-program served path (``graphs.ForwardProgram``), right after
+   phase 4 under deterministic cuDNN: the full-width x-vector (weights
+   from the seed) behind ``Classifier`` on 32 whole 3 s wavs and on 2 s
+   chunks and behind ``StreamingClassifier`` (a stream of its own, seed
+   1244), graphed and with ``eager=True``: scores bit for bit, the stream
+   within STREAM_ATOL of the offline chunks, the launches of each part
+   (zeroed just before, read just after) equal to a prediction printed
+   first, warm-ups included, and the kernel held to its plain version on
+   the batches the captured programs handed it; phase 4's
+   ``Trainer.evaluate`` graphed and eager bit for bit; a weight changed
+   in place served by the next replay, a replaced one captured anew; the
+   served forward [32, 298, 64], a stream chunk [1, 32000], features +
+   forward of 32 decoded 3 s signals and ``evaluate`` timed eager and
+   graphed in turns on CUDA events, the host clock and torch.profiler.
 
 Every comparison of the kernel with its plain version holds float32 within
 atol 1e-4 + rtol 1e-4 (the allclose of the tests; the distance of each from
@@ -613,11 +632,40 @@ def write_wavs(io, root, rng, n, seconds):
     return paths
 
 
+def keep_served_batches():
+    """Keep every signal batch the feature programs hand the kernel: the
+    extractor's (``DeviceFeatureExtractor.extract``) and the streaming
+    chunk program's (``StreamingClassifier._score_chunk``), each copied to
+    the card before its call. Returns (the list of (signals, rate) it
+    fills, a function that undoes it)."""
+    from lidbox_tpu_torch import serve
+    from lidbox_tpu_torch.data.device_pipeline import DeviceFeatureExtractor
+    batches = []
+    extract = DeviceFeatureExtractor.extract
+    score_chunk = serve.StreamingClassifier._score_chunk
+
+    def keeping(self, signals, sample_rate, **kw):
+        batches.append((signals.to("cuda", copy=True), int(sample_rate)))
+        return extract(self, signals, sample_rate, **kw)
+
+    def keeping_chunk(self, chunk):
+        batches.append((torch.as_tensor(chunk[None, :], device="cuda"),
+                        self.sample_rate))
+        return score_chunk(self, chunk)
+
+    def restore():
+        DeviceFeatureExtractor.extract = extract
+        serve.StreamingClassifier._score_chunk = score_chunk
+
+    DeviceFeatureExtractor.extract = keeping
+    serve.StreamingClassifier._score_chunk = keeping_chunk
+    return batches, restore
+
+
 def phase_serve(root, rng):
     """Drives the main path; returns the kernel's launch count over it and
     the signal batches the feature extractor handed on."""
     from lidbox_tpu_torch import models, serve
-    from lidbox_tpu_torch.data.device_pipeline import DeviceFeatureExtractor
     from lidbox_tpu_torch.features import io
     from lidbox_tpu_torch.ops import logmel
 
@@ -646,39 +694,36 @@ def phase_serve(root, rng):
     signal, _ = io.read_wav(paths[0])
     whole.classify(paths[:4], ids=ids[:4])  # warm-up: cuDNN, allocator
 
-    batches = []
-    extract = DeviceFeatureExtractor.extract
-
-    def keeping(self, signals, sample_rate, **kw):
-        batches.append((signals.clone(), int(sample_rate)))
-        return extract(self, signals, sample_rate, **kw)
-
-    DeviceFeatureExtractor.extract = keeping
+    # one feature program for each new shape (the whole wavs' and the
+    # chunks'), and the stream's chunk program
+    captures = [served_shape(n, 3 * RATE), (n, 2 * RATE), (1, 2 * RATE)]
+    batches, restore = keep_served_batches()
     try:
-        logmel.reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = whole.classify(paths, ids=ids)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        out_chunked = chunked.classify(paths, ids=ids)
-        for block in np.array_split(signal, [1234, 20000, 20333]):
-            stream.feed(block)
-        torch.cuda.synchronize()
-        counts = logmel.launch_counts()
-        launches = counts["logmel_kernel"]
-        reductions = counts["logmel_reduce"]
+        with launch_window(captures=captures) as counted:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = whole.classify(paths, ids=ids)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out_chunked = chunked.classify(paths, ids=ids)
+            for block in np.array_split(signal, [1234, 20000, 20333]):
+                stream.feed(block)
+            torch.cuda.synchronize()
+        launches = counted["logmel_kernel"]
+        reductions = counted["logmel_reduce"]
     finally:
-        DeviceFeatureExtractor.extract = extract
+        restore()
 
     check(launches > 0, "serving never launched the log-Mel kernel")
-    check(launches == len(batches),
-          f"{launches} kernel launches for {len(batches)} feature batches")
+    check(launches == len(batches) + counted["warmup"],
+          f"{launches} kernel launches for {len(batches)} feature batches "
+          f"and {counted['warmup']} capture warm-up launches")
     split = sum(logmel.launch_plan(*x.shape, rate)[0]["splits"] > 1
                 for x, rate in batches)
-    check(reductions > 0 and reductions == split,
+    check(reductions > 0 and reductions == split + counted["warmup_reduce"],
           f"serving ran the split reduction {reductions} times, not once for "
-          f"each of the {split} split batches")
+          f"each of the {split} split batches and "
+          f"{counted['warmup_reduce']} warm-up launches")
     check(out["id"] == ids and out_chunked["id"] == ids, "ids lost or reordered")
     scores = np.stack([out[f"score_{l}"] for l in LABELS], axis=1)
     scores_chunked = np.stack([out_chunked[f"score_{l}"] for l in LABELS], axis=1)
@@ -689,9 +734,11 @@ def phase_serve(root, rng):
               f"{name}: log-probabilities do not sum to 1")
     shapes = [tuple(x.shape) for x, _ in batches]
     print(f"serving: {n} whole 3 s utterances in {t1 - t0:.4f} s "
-          f"({n / (t1 - t0):.1f} utt/s, smoke figure, not a benchmark); "
-          f"kernel launches over whole + chunked + streaming: {launches}, "
-          f"split reductions {reductions}, signal batches {shapes}")
+          f"({n / (t1 - t0):.1f} utt/s with the captures, smoke figure, not "
+          f"a benchmark); kernel launches over whole + chunked + streaming: "
+          f"{launches} ({counted['warmup']} of them capture warm-ups), split "
+          f"reductions {reductions} ({counted['warmup_reduce']} warm-ups), "
+          f"signal batches {shapes}")
 
     matmul_cfg = dict(FEATURES_PALLAS, stft_method="matmul")
     ref = serve.Classifier(gpu_model, LABELS, feature_config=matmul_cfg,
@@ -894,7 +941,7 @@ def phase_train(root, rng):
     print(f"first step losses: kernel {main}, matmul path {matmul} (max rel "
           f"diff {err_mm:.3e}), CPU plain path {cpu} (max rel diff "
           f"{err_cpu:.3e}), rtol {TRAIN_RTOL}")
-    return launches, train[0], wrapper
+    return launches, train[0], wrapper, val_features
 
 
 def device_ops(run, calls=5, counts=None):
@@ -921,25 +968,72 @@ def device_ops(run, calls=5, counts=None):
                    if ms > 0), reverse=True)
 
 
+def capture_warmups(captures):
+    """(logmel_kernel, logmel_reduce) launches that the capture warm-ups of
+    one program for each entry of ``captures`` make: ``graphs.WARMUP_STEPS``
+    each, and as many of the reduction where the kernel's launch at that
+    shape splits. An entry is the [B, T] signal shape a program
+    featurizes at RATE, or (B, T, the kernel's keyword arguments), by
+    default KERNEL_KW."""
+    from lidbox_tpu_torch.ops import logmel
+    from lidbox_tpu_torch.train import graphs
+    split = 0
+    for entry in captures:
+        b, t, kw = (*entry, KERNEL_KW)[:3]
+        split += logmel.launch_plan(b, t, RATE, **kw)[0]["splits"] > 1
+    return graphs.WARMUP_STEPS * len(captures), graphs.WARMUP_STEPS * split
+
+
 @contextlib.contextmanager
-def launch_window(device="cuda"):
+def launch_window(device="cuda", captures=None):
     """Counts the kernels' launches on ``device`` within the block. Yields a
     dict that holds after it "logmel_kernel" and "logmel_reduce", the
     counts the launches keep on the card (``logmel.launch_counts``, zeroed
     before the block: eager launches and launches replayed from a CUDA
-    graph alike), and "warmup", the log-Mel launches that the capture
-    warm-ups within it make (``graphs.WARMUP_STEPS`` for each fused step
-    captured: each warm-up step featurizes its batch once), which the
-    predictions add."""
+    graph alike), and "warmup" and "warmup_reduce", the launches of each
+    that the capture warm-ups within it made (``graphs.WARMUP_STEPS`` for
+    each fused step or log-Mel feature program captured: each warm-up step
+    featurizes its batch once), which the predictions add. The host
+    tallies them as they launch (``graphs.warmup_launches``).
+    ``captures``: the programs predicted to be captured within the block,
+    one entry of ``capture_warmups`` each; on the card the block then
+    fails unless the tally equals their warm-ups."""
     from lidbox_tpu_torch.ops import logmel
     from lidbox_tpu_torch.train import graphs
     counts = {}
-    captured = graphs.captures["fused"]
+    before = dict(graphs.warmup_launches)
     logmel.reset_launch_counts(device)
     yield counts
     counts.update(logmel.launch_counts(device))
-    counts["warmup"] = graphs.WARMUP_STEPS * (graphs.captures["fused"]
-                                              - captured)
+    tally = tuple(graphs.warmup_launches[name] - before.get(name, 0)
+                  for name in ("logmel_kernel", "logmel_reduce"))
+    if captures is not None and torch.device(device).type == "cuda":
+        predicted = capture_warmups(captures)
+        check(tally == predicted,
+              f"capture warm-ups launched (logmel_kernel, logmel_reduce) "
+              f"{tally}, predicted {predicted} for one capture of each of "
+              f"{list(captures)}")
+    counts["warmup"], counts["warmup_reduce"] = tally
+
+
+def served_shape(n, samples):
+    """The [B, T] signal batch the feature extractor hands the kernel for
+    ``n`` signals of ``samples`` samples: both padded to the extractor's
+    default buckets."""
+    from lidbox_tpu_torch.data.dataset import pick_bucket
+    from lidbox_tpu_torch.data.device_pipeline import (
+        DEFAULT_BATCH_BUCKETS, DEFAULT_SIGNAL_BUCKETS)
+    return (pick_bucket(n, DEFAULT_BATCH_BUCKETS),
+            pick_bucket(samples, DEFAULT_SIGNAL_BUCKETS))
+
+
+def group_shapes(elements, samples):
+    """The ``capture_warmups`` entries of the distinct [B, T] shapes of
+    ``group_by_input_length`` groups of at most PIPE_GROUP of ``elements``
+    equal signals, the pipeline's features: one feature program each."""
+    sizes = {min(PIPE_GROUP, elements - i)
+             for i in range(0, elements, PIPE_GROUP)}
+    return [(b, samples, PIPE_KW) for b in sorted(sizes)]
 
 
 def kernel_launches_seen(counts, name):
@@ -1078,6 +1172,222 @@ def eager_and_graphed(trainer, feature_fn, inputs, what):
             f"profiler recorded {n} of 5 kernel launches)"
             for m, w, b, n in runs))
     return out
+
+
+def served_times(run, reps=20, warmup=3):
+    """(median ms on CUDA events, host wall ms a call, device busy ms a call
+    over 5 calls under torch.profiler) of one served call ``run()``, which
+    ends in its readback."""
+    for _ in range(warmup):
+        run()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        run()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    median = float(np.median([a.elapsed_time(b) for a, b in pairs]))
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / reps * 1e3
+    busy = sum(ms for ms, _ in device_ops(run))
+    return median, wall, busy
+
+
+def served_turns(what, forms, card, per_call=None):
+    """``forms["eager"]`` and ``forms["graphed"]`` timed in turns (eager,
+    graphed, graphed, eager: ``served_times``) and printed with the card
+    line and each form's idle share; ``per_call`` (utterances a call)
+    adds utt/s. Returns {form: [(median, wall, busy), ...]}."""
+    out = {"eager": [], "graphed": []}
+    for form in ("eager", "graphed", "graphed", "eager"):
+        out[form].append(served_times(forms[form]))
+    for form, runs in out.items():
+        print(f"served graphs, {what} {form} ({card}): " + "; ".join(
+            f"median {m:.4f} ms on CUDA events, host wall {w:.4f} ms, "
+            f"device busy {b:.4f} ms ({1 - b / m:.1%} of the median idle)"
+            + (f", {per_call / m * 1e3:.1f} utt/s" if per_call else "")
+            for m, w, b in runs))
+    return out
+
+
+def phase_served_graphs(root, logmel, trainer, val_features):
+    """The one-program served path (phase 16, after phase 4): the
+    full-width x-vector (weights from the seed) behind ``serve.Classifier``
+    (32 whole 3 s wavs, and the same in 2 s chunks) and
+    ``StreamingClassifier`` (one of them online), graphed and with
+    ``eager=True``, and phase 4's ``Trainer.evaluate``, graphed and eager.
+    The kernel's launches of each part are predicted and printed first,
+    warm-ups included, and read on the card; graphed equals eager bit for
+    bit; the stream equals the offline chunked scores within STREAM_ATOL;
+    the kernel is held to its plain version on the batches the captured
+    programs handed it; a weight changed in place is served by the next
+    replay, replaced weights are captured anew. Then each served form is
+    timed eager and graphed in turns. Returns the launches of each kernel
+    read on the card over the driven parts, and the worst float32 error."""
+    from lidbox_tpu_torch import models, serve
+    from lidbox_tpu_torch.features import io
+    from lidbox_tpu_torch.train import graphs
+
+    card = card_line()
+    rng = np.random.default_rng(SEED + 10)
+    served = os.path.join(root, "served")
+    os.makedirs(served)
+    n = 32
+    paths = write_wavs(io, served, rng, n, 3.0)
+    ids = [f"utt{i:03d}" for i in range(n)]
+    frames = 1 + (3 * RATE - 400) // 160
+    model = models.create("xvector", (frames, 64), len(LABELS),
+                          device="cuda").init(
+        torch.Generator().manual_seed(SEED))
+
+    def services(eager):
+        kw = dict(feature_config=FEATURES_PALLAS, batch_size=n,
+                  device="cuda", eager=eager)
+        return {"whole": serve.Classifier(model, LABELS, **kw),
+                "chunked": serve.Classifier(model, LABELS,
+                                            chunk_length_ms=2000,
+                                            chunk_step_ms=1000, **kw),
+                "stream": serve.StreamingClassifier(
+                    model, LABELS, feature_config=FEATURES_PALLAS,
+                    sample_rate=RATE, chunk_seconds=2.0, hop_seconds=1.0,
+                    device="cuda", eager=eager)}
+    signal, _ = io.read_wav(paths[0])
+
+    def drive(part, service):
+        if part == "stream":
+            service.reset()
+            for block in np.array_split(signal, [1234, 20000, 20333]):
+                service.feed(block)
+            return service.scores()
+        return service.scores(paths, ids=ids)["prediction"]
+
+    # the prediction, from the shapes alone: 3 s wavs pad to the 4 s
+    # signal bucket, 2 s chunks at a 1 s hop give 2 a wav (64: 2 batches of
+    # 32) and 2 of the stream; a captured program's warm-ups launch too
+    chunks = (3 * RATE - 2 * RATE) // RATE + 1
+    calls = {"whole": ((n, 4 * RATE), 1),
+             "chunked": ((n, 2 * RATE), chunks),  # n * chunks in batches of n
+             "stream": ((1, 2 * RATE), chunks)}
+    predicted = {}
+    for part, (shape, k) in calls.items():
+        split = logmel.launch_plan(*shape, RATE)[0]["splits"] > 1
+        for form, warm in (("graphed", graphs.WARMUP_STEPS), ("eager", 0)):
+            predicted[part, form] = (k + warm, (k + warm) * split)
+    print("served graphs: predicted launches (logmel_kernel, logmel_reduce),"
+          " warm-ups included: " + ", ".join(
+              f"{part} {form} {v}" for (part, form), v in predicted.items()))
+
+    forms = {"graphed": services(False), "eager": services(True)}
+    results, kept = {}, {}
+    launched = np.zeros(2, np.int64)
+    batches, restore = keep_served_batches()
+    try:
+        for form in ("graphed", "eager"):
+            for part in ("whole", "chunked", "stream"):
+                start = len(batches)
+                # the graphed forms capture one program for their shape
+                captures = [calls[part][0]] if form == "graphed" else []
+                with launch_window(captures=captures) as counted:
+                    results[part, form] = drive(part, forms[form][part])
+                    torch.cuda.synchronize()
+                got = (counted["logmel_kernel"], counted["logmel_reduce"])
+                check(got == predicted[part, form],
+                      f"served {part} {form}: launches {got}, predicted "
+                      f"{predicted[part, form]}")
+                launched += got
+                kept[part, form] = batches[start:]
+    finally:
+        restore()
+    for part in ("whole", "chunked", "stream"):
+        g, e = results[part, "graphed"], results[part, "eager"]
+        check(np.isfinite(g).all() and np.array_equal(g, e),
+              f"served {part}: graphed scores differ from eager by "
+              f"{np.abs(g - e).max()}")
+    err_stream = np.abs(results["stream", "graphed"]
+                        - results["chunked", "graphed"][0]).max()
+    check(err_stream <= STREAM_ATOL,
+          f"graphed stream vs offline chunked scores differ by {err_stream}")
+    print(f"served graphs: Classifier whole {results['whole', 'graphed'].shape}"
+          f" and chunked, StreamingClassifier ({chunks} chunks) graphed == "
+          f"eager bit for bit; launches as predicted; stream vs offline "
+          f"chunked {err_stream:.3e} (tolerance {STREAM_ATOL})")
+
+    # the kernel against its plain version on what the programs handed it
+    worst = 0.0
+    shapes = {}
+    for part in ("whole", "chunked", "stream"):
+        for x, rate in kept[part, "graphed"]:
+            shapes.setdefault(tuple(x.shape), (part, x, rate))
+    with torch.inference_mode():
+        for shape, (part, x, rate) in shapes.items():
+            worst = max(worst, compare(logmel, f"served_{part}_{shape[0]}x"
+                                       f"{shape[1]}", x, rate, KERNEL_KW))
+
+    # evaluation: phase 4's validation batches, graphed and eager
+    with launch_window(captures=[]) as counted:  # features: no kernel
+        graphed_eval = trainer.evaluate(val_features)
+    check(counted["logmel_kernel"] == 0,
+          "evaluate on feature batches launched the kernel")
+    eager_eval = trainer.evaluate(val_features, eager=True)
+    check(graphed_eval == eager_eval,
+          f"graphed evaluate {graphed_eval} != eager {eager_eval}")
+    print(f"served graphs: Trainer.evaluate of {len(val_features)} batches "
+          f"graphed == eager bit for bit: {graphed_eval}")
+
+    # the timed forms
+    x = val_features[0]["input"].cpu().numpy()
+    predict = {f: forms[f]["whole"]._predict_fn for f in forms}
+    served_turns(f"forward {list(x.shape)}",
+                 {f: functools.partial(predict[f], x) for f in forms}, card)
+    chunk = np.ascontiguousarray(signal[:2 * RATE], np.float32)
+    served_turns(f"stream chunk [1, {2 * RATE}]",
+                 {f: functools.partial(forms[f]["stream"]._score_chunk, chunk)
+                  for f in forms}, card)
+    signals = [io.read_wav(p)[0] for p in paths]
+
+    def features_and_forward(form):
+        feats = forms[form]["whole"].extractor.extract_ragged(signals, RATE)
+        return predict[form](np.stack(feats))
+    served_turns(f"features + forward of {n} decoded 3 s signals",
+                 {f: functools.partial(features_and_forward, f)
+                  for f in forms}, card, per_call=n)
+    served_turns(f"evaluate of {len(val_features)} batches",
+                 {"graphed": lambda: trainer.evaluate(val_features),
+                  "eager": lambda: trainer.evaluate(val_features,
+                                                    eager=True)}, card)
+
+    # weights: changed in place, then replaced
+    before = predict["graphed"](x)
+    check(np.array_equal(before, predict["eager"](x)),
+          "graphed forward differs from eager")
+    name, weight = next((k, v) for k, v in model.module.named_parameters()
+                        if v.dim() > 1)
+    with torch.no_grad():
+        weight.mul_(0.5)
+    captured = graphs.captures["forward"]
+    changed = predict["graphed"](x)
+    check(not np.array_equal(changed, before)
+          and np.array_equal(changed, predict["eager"](x))
+          and graphs.captures["forward"] == captured,
+          "a weight changed in place was not served by the next replay")
+    owner, attr = name.rsplit(".", 1)
+    sub = model.module.get_submodule(owner)
+    setattr(sub, attr, torch.nn.Parameter(weight.detach() * 4.0))
+    replaced = predict["graphed"](x)
+    check(np.array_equal(replaced, predict["eager"](x))
+          and not np.array_equal(replaced, changed)
+          and graphs.captures["forward"] == captured + 1,
+          "replaced weights were not captured anew")
+    print(f"served graphs: {name} halved in place served by the next replay "
+          "(no capture); replaced by a new tensor, captured anew; both "
+          "equal eager bit for bit")
+    return int(launched[0]), int(launched[1]), worst
 
 
 def phase_train_step_timing(wrapper, batch, kernel_ms, steps=30, warmup=5):
@@ -1470,7 +1780,7 @@ def phase_pipeline(root, rng, logmel, device="cuda"):
     # the group count, independently of the feature step: the host steps
     # alone (up to the chunks) give the elements; one length and one rate,
     # so ceil(elements / max_batch_size) groups
-    groups, elements = {}, {}
+    groups, elements, shapes = {}, {}, {}
     for split in ("train", "test"):
         steps = create_dataset(split, LABELS, init[split], config)
         host = steps[:[s.key for s in steps].index("extract_features")]
@@ -1479,6 +1789,7 @@ def phase_pipeline(root, rng, logmel, device="cuda"):
         check(keys == {(2 * RATE, RATE)}, f"{split}: chunk keys {keys}")
         elements[split] = len(chunks)
         groups[split] = -(-len(chunks) // PIPE_GROUP)
+        shapes[split] = group_shapes(len(chunks), 2 * RATE)
     print(f"pipeline: {PIPE_TRAIN} train / {PIPE_TEST} test wavs of 3-5 s -> "
           f"{elements['train']} / {elements['test']} chunks of 2 s -> "
           f"{groups['train']} / {groups['test']} groups of at most "
@@ -1490,7 +1801,7 @@ def phase_pipeline(root, rng, logmel, device="cuda"):
     def keeping(self, signals, sample_rate, **kw):
         key = (tuple(signals.shape), int(sample_rate))
         if key not in kept and not kw:
-            kept[key] = signals.clone()
+            kept[key] = signals.to(device, copy=True)
         return extract(self, signals, sample_rate, **kw)
 
     def timed_call(self, signals, sample_rate):
@@ -1513,7 +1824,8 @@ def phase_pipeline(root, rng, logmel, device="cuda"):
 
         wrapper = ModelWrapper.from_config(config, device=device)
         wrapper.model.init(torch.Generator().manual_seed(SEED))
-        with launch_window(device) as counted:
+        # the timed pass captured the train split's feature programs
+        with launch_window(device, captures=shapes["test"]) as counted:
             sync()
             t0 = time.perf_counter()
             history = wrapper.fit(batches_from_dataset(train_ds, PIPE_GROUP),
@@ -1525,13 +1837,15 @@ def phase_pipeline(root, rng, logmel, device="cuda"):
     finally:
         DeviceFeatureExtractor.extract = extract
         DeviceFeatureExtractor.__call__ = call
-    # fit's steps take feature batches: their warm-ups launch no kernel
+    # fit's steps take feature batches: their warm-ups launch no kernel;
+    # the pipelines' feature programs do
     expected = (TRAIN_EPOCHS * (groups["train"] + groups["test"])
                 + counted["warmup"])
     if on_card:
         check(fit_launches == expected,
               f"fit launched the log-Mel kernel {fit_launches} times, not "
-              f"{TRAIN_EPOCHS} x ({groups['train']} + {groups['test']})")
+              f"{TRAIN_EPOCHS} x ({groups['train']} + {groups['test']}) + "
+              f"{counted['warmup']} capture warm-ups")
     losses = [h["loss"] for h in history]
     check(len(history) == TRAIN_EPOCHS, f"{len(history)} epochs trained")
     check(losses[-1] < losses[0], f"pipeline epoch loss did not fall: {losses}")
@@ -1547,21 +1861,22 @@ def phase_pipeline(root, rng, logmel, device="cuda"):
           + "; val_loss " + ", ".join(f"{h['val_loss']:.4f}" for h in history)
           + "; C_avg " + ", ".join(f"{h['val_C_avg']:.4f}" for h in history)
           + f"; kernel launches {fit_launches} = {TRAIN_EPOCHS} x "
-          f"({groups['train']} train + {groups['test']} test groups); "
+          f"({groups['train']} train + {groups['test']} test groups) + "
+          f"{counted['warmup']} capture warm-ups; "
           f"checkpoints {names}")
 
     # embeddings through the config's embeddings section, from the best
     # checkpoint; one batch against the restored model's extractor
     emb_config = dict(config, embeddings=embeddings_section(config))
-    logmel.reset_launch_counts(device)
-    sync()
-    embedded = pipeline("test", cfg=emb_config).collect()
-    sync()
-    emb_launches = logmel.launch_counts(device)["logmel_kernel"]
+    with launch_window(device, captures=shapes["test"]) as counted:
+        sync()
+        embedded = pipeline("test", cfg=emb_config).collect()
+        sync()
+    emb_launches = counted["logmel_kernel"]
     if on_card:
-        check(emb_launches == groups["test"],
+        check(emb_launches == groups["test"] + counted["warmup"],
               f"extraction launched the kernel {emb_launches} times, not "
-              f"{groups['test']}")
+              f"{groups['test']} + {counted['warmup']} capture warm-ups")
     emb = np.stack([x["embedding"] for x in embedded])
     check(emb.shape == (elements["test"], 512) and np.isfinite(emb).all(),
           f"embeddings of shape {emb.shape}, finite {np.isfinite(emb).all()}")
@@ -1576,7 +1891,8 @@ def phase_pipeline(root, rng, logmel, device="cuda"):
           "extract_embeddings differs from the restored best checkpoint's "
           f"extractor by {np.abs(direct - emb[:len(first)]).max()}")
     print(f"pipeline embeddings: {emb.shape} finite from {os.path.basename(best)}"
-          f"; kernel launches {emb_launches} = {groups['test']} test groups; the "
+          f"; kernel launches {emb_launches} = {groups['test']} test groups "
+          f"+ {counted['warmup']} capture warm-ups; the "
           f"first batch of {len(first)} equals as_embedding_extractor(restored "
           "best).apply bit for bit")
 
@@ -1633,7 +1949,7 @@ def phase_pipeline(root, rng, logmel, device="cuda"):
               f"(transfer, kernel, normalization, readback) {group_call_ms:.3f}"
               f" ms median, the kernel alone {ms:.4f} ms")
     return (fit_launches + emb_launches, max(errors, default=0.0), timing,
-            (init, noise_dir, groups))
+            (init, noise_dir, groups, shapes))
 
 
 def cli_config(root, init, noise_dir):
@@ -1701,7 +2017,7 @@ def phase_cli(root, logmel, pipeline_data, device="cuda"):
                   f"{name} launched the kernel {launches[name]} times, not "
                   f"{expected}")
 
-    init, noise_dir, groups = pipeline_data
+    init, noise_dir, groups, shapes = pipeline_data
     config, id2label = cli_config(root, init, noise_dir)
     path = write_json(config, os.path.join(root, "cli.json"))
     cache = experiment_cache_from_config(config)
@@ -1712,13 +2028,15 @@ def phase_cli(root, logmel, pipeline_data, device="cuda"):
     def keeping(self, signals, sample_rate, **kw):
         key = (tuple(signals.shape), int(sample_rate))
         if key not in kept and not kw:
-            kept[key] = signals.clone()
+            kept[key] = signals.to(device, copy=True)
         return extract(self, signals, sample_rate, **kw)
 
-    def command(name, argv):
-        """Run one command; returns its standard output."""
+    def command(name, argv, captures=None):
+        """Run one command, which captures the feature programs of
+        ``captures`` (``launch_window``); returns its standard output. Each
+        command builds its datasets, and their programs, anew."""
         out = io.StringIO()
-        with launch_window(device) as counted:
+        with launch_window(device, captures=captures) as counted:
             sync()
             t0 = time.perf_counter()
             DeviceFeatureExtractor.extract = keeping
@@ -1742,13 +2060,15 @@ def phase_cli(root, logmel, pipeline_data, device="cuda"):
     check(out.strip() == "config ok", f"validate-config printed {out!r}")
 
     per_epoch = groups["train"] + groups["test"]
-    command("train", ["train", path])
+    command("train", ["train", path],
+            captures=shapes["train"] + shapes["test"])
     check_launches("train", 2 * per_epoch)
     check([r["step"] for r in epoch_logs()] == [1, 2],
           f"train ran epochs {[r['step'] for r in epoch_logs()]}, not 1, 2")
     path = write_json(dict(config, experiment=dict(config["experiment"],
                                                    epochs=3)), path)
-    command("train --resume", ["train", path, "--resume"])
+    command("train --resume", ["train", path, "--resume"],
+            captures=shapes["train"] + shapes["test"])
     check_launches("train --resume", per_epoch)
     logs = epoch_logs()
     losses = [r["metrics"]["loss"] for r in logs]
@@ -1774,7 +2094,8 @@ def phase_cli(root, logmel, pipeline_data, device="cuda"):
         return classification_report(true, pred, *args, **kw)
     util.classification_report = catching
     try:
-        report = json.loads(command("evaluate", ["evaluate", path]))
+        report = json.loads(command("evaluate", ["evaluate", path],
+                                    captures=shapes["test"]))
         meta, label2target = generate_label2target(cli.load_metadata(config)[0])
         rows = [i for i, s in enumerate(meta["split"]) if s == "test"]
         test_meta = {"id": [meta["id"][i] for i in rows],
@@ -1814,7 +2135,7 @@ def phase_cli(root, logmel, pipeline_data, device="cuda"):
         name = f"extract-embeddings {split}"
         npz[split] = os.path.join(root, f"cli_{split}.npz")
         command(name, ["extract-embeddings", emb_path, npz[split],
-                       "--split", split])
+                       "--split", split], captures=shapes[split])
         check_launches(name, groups[split])
     data = {s: np.load(p) for s, p in npz.items()}
     direct = steps_mod.extract_embeddings(
@@ -2066,6 +2387,7 @@ def phase_zoo(root, rng, logmel, device="cuda"):
     from lidbox_tpu_torch import serve
     from lidbox_tpu_torch.data import on_device
     from lidbox_tpu_torch.features import io
+    from lidbox_tpu_torch.train import graphs
     from lidbox_tpu_torch.train.loop import to_device
 
     on_card = device == "cuda"
@@ -2095,7 +2417,9 @@ def phase_zoo(root, rng, logmel, device="cuda"):
               f"zoo {name}: first step loss {first} on the card, {cpu} on "
               f"the CPU (rel {loss_err}) beyond rtol {ZOO_RTOL}")
         init_stats = {k: v.clone() for k, v in trainer.state.batch_stats.items()}
-        with launch_window(device) as counted:
+        with launch_window(device, captures=[] if graphs.eager_reason(
+                trainer, False) else [(ZOO_BATCH, int(RATE * ZOO_SECONDS))]
+                           ) as counted:
             history = wrapper.fit_fused(lambda: train, epochs=1,
                                         val_signal_batches=lambda: val,
                                         verbose=False)
@@ -2119,13 +2443,15 @@ def phase_zoo(root, rng, logmel, device="cuda"):
             {k: v.cpu() for k, v in wrapper.model.module.state_dict().items()})
         clf_kw = {"feature_config": FEATURES_PALLAS,
                   "score_fn": wrapper.score_fn}
-        logmel.reset_launch_counts(device)
-        ours = serve.Classifier(wrapper.model, LABELS, device=device,
-                                **clf_kw).classify(paths)
-        sync(device)
-        serve_launches = logmel.launch_counts(device)["logmel_kernel"]
-        check(serve_launches == 1 or not on_card, f"zoo {name}: serving launched the kernel "
-                                   f"{serve_launches} times, not 1")
+        with launch_window(device, captures=[served_shape(
+                ZOO_WAVS, int(RATE * ZOO_SECONDS))]) as counted:
+            ours = serve.Classifier(wrapper.model, LABELS, device=device,
+                                    **clf_kw).classify(paths)
+            sync(device)
+        serve_launches = counted["logmel_kernel"]
+        check(serve_launches == 1 + counted["warmup"] or not on_card,
+              f"zoo {name}: serving launched the kernel {serve_launches} "
+              f"times, not 1 + {counted['warmup']} capture warm-ups")
         ref = serve.Classifier(cpu_model, LABELS, device="cpu",
                                **clf_kw).classify(paths)
         serve_err = max(float(np.abs(ours[f"score_{lab}"]
@@ -2599,13 +2925,19 @@ def fit_wrapper(wrapper, train, val, mesh, device):
     ranks each rank feeds its rows of every batch
     (``parallel.local_batches``)."""
     from lidbox_tpu_torch import parallel
+    from lidbox_tpu_torch.train import graphs
     wrapper.model.init(torch.Generator().manual_seed(SEED))
     losses = []
+    # the fused step is captured once, unless it runs eagerly by rule (a
+    # mesh, remat)
+    captures = ([] if graphs.eager_reason(wrapper.trainer, False)
+                else [np.shape(train[0][0])])
     feed, val_feed = (lambda: train), (lambda: val)
     if parallel.mesh_spans_processes(mesh):
         feed = parallel.local_batches(train, mesh)
         val_feed = parallel.local_batches(val, mesh)
-    with recording_losses(losses), launch_window(device) as counted:
+    with recording_losses(losses), launch_window(
+            device, captures=captures) as counted:
         history = wrapper.fit_fused(feed, epochs=1, verbose=False,
                                     val_signal_batches=val_feed)
         sync(device)
@@ -2731,10 +3063,12 @@ def dp_rank_main(workdir):
                 dp_allreduce_ms(mesh, numel)
     clf = dp_classifier(mesh, device)
     paths = [os.path.join(workdir, f"dp{i}.wav") for i in range(DP_WAVS)]
-    logmel.reset_launch_counts(device)
-    scores = clf.scores(paths, ids=[f"dp{i}" for i in range(DP_WAVS)])
-    sync(device)
-    out["serve_launches"] = logmel.launch_counts(device)["logmel_kernel"]
+    with launch_window(device, captures=[served_shape(DP_WAVS, 3 * RATE)]
+                       ) as counted:
+        scores = clf.scores(paths, ids=[f"dp{i}" for i in range(DP_WAVS)])
+        sync(device)
+    out["serve_launches"] = counted["logmel_kernel"]
+    out["serve_warmup"] = counted["warmup"]
     out["scores"] = np.asarray(scores["prediction"]).tolist()
     if on_card:
         out["kernel_err"] = compare(
@@ -2938,8 +3272,10 @@ def phase_data_parallel(root, rng, logmel, device="cuda"):
         s_err = np.abs(np.asarray(out["scores"]) - scores0).max()
         check(s_err <= SERVE_ATOL, f"rank {out['rank']}: Classifier(mesh=) "
                                    f"scores {s_err} from the mesh-less ones")
-        check(out["serve_launches"] == 1 or not on_card,
-              f"serving launched the kernel {out['serve_launches']} times")
+        check(out["serve_launches"] == 1 + out["serve_warmup"]
+              or not on_card,
+              f"serving launched the kernel {out['serve_launches']} times, "
+              f"not 1 + {out['serve_warmup']} capture warm-ups")
         launches += out["serve_launches"]
         check("uneven multi-process training feed" in out["uneven"]
               and "after 2 batches" in out["uneven"],
@@ -3454,7 +3790,8 @@ def phase_orbax(root, rng, logmel, device="cuda"):
     snaps = Snapshots()
     msgpack_dir = os.path.join(root, "orbax_msgpack")
     wrapper.trainer.callbacks += [ModelCheckpoint(msgpack_dir), snaps]
-    with launch_window(device) as counted:
+    step_shape = (ORBAX_BATCH, int(RATE * ORBAX_SECONDS))
+    with launch_window(device, captures=[step_shape]) as counted:
         sync()
         t0 = time.perf_counter()
         history = wrapper.fit_fused(lambda: train, epochs=ORBAX_EPOCHS,
@@ -3487,7 +3824,8 @@ def phase_orbax(root, rng, logmel, device="cuda"):
     last = os.path.join(ckpt_dir, names[-1])
     resumed = wrapper_for(resumed_config)
     resumed.trainer.restore(last)
-    with launch_window(device) as counted:
+    # each fit_fused captures its step anew (fit_signals frees its graphs)
+    with launch_window(device, captures=[step_shape] * 2) as counted:
         wrapper.trainer.initial_epoch = ORBAX_EPOCHS
         live_next = wrapper.fit_fused(lambda: train,
                                       epochs=ORBAX_EPOCHS + 1,
@@ -3568,14 +3906,17 @@ def phase_orbax(root, rng, logmel, device="cuda"):
     model.module.load_state_dict({**jax_state["params"],
                                   **jax_state["batch_stats"]})
     paths = write_wavs(audio_io, root, rng, ORBAX_WAVS, ORBAX_SECONDS)
-    logmel.reset_launch_counts(device)
-    sync()
-    scores = serve.Classifier(model, LABELS,
-                              feature_config=ORBAX_FIXTURE_FEATURES,
-                              batch_size=ORBAX_WAVS,
-                              device=device).classify(paths)
-    sync()
-    launches += logmel.launch_counts(device)["logmel_kernel"]
+    with launch_window(device, captures=[(
+            *served_shape(ORBAX_WAVS, int(RATE * ORBAX_SECONDS)),
+            {"num_mel_bins": 40})]) as counted:
+        sync()
+        scores = serve.Classifier(model, LABELS,
+                                  feature_config=ORBAX_FIXTURE_FEATURES,
+                                  batch_size=ORBAX_WAVS,
+                                  device=device).classify(paths)
+        sync()
+    launches += counted["logmel_kernel"]
+    warmup += counted["warmup"]
     table = np.stack([scores[f"score_{label}"] for label in LABELS], axis=1)
     cpu_model = narrow_xvector("cpu")
     cpu_model.module.load_state_dict(model.module.state_dict())
@@ -3677,8 +4018,11 @@ def main():
         # shift its draw
         torch.backends.cudnn.deterministic = True
         try:
-            train_launches, train_batch, wrapper = phase_train(
-                root, np.random.default_rng(SEED + 1))
+            train_launches, train_batch, wrapper, val_features = \
+                phase_train(root, np.random.default_rng(SEED + 1))
+            served_launches, served_reductions, served_err = \
+                phase_served_graphs(root, logmel, wrapper.trainer,
+                                    val_features)
             aug_launches, aug_err, aug_batch, aug_wrapper = \
                 phase_augmented_train(root, np.random.default_rng(SEED + 2),
                                       logmel)
@@ -3721,25 +4065,28 @@ def main():
                   key=lambda k: k[0] * k[1])
     ms, plain_ms, bound_ms, bound_by = timing[largest]
     print(f"kernel line: [{largest[0]}, {largest[1]}] highest; launches "
-          f"{serve_launches} serving + {train_launches} training + "
+          f"{serve_launches} serving + {served_launches} served graphs + "
+          f"{train_launches} training + "
           f"{aug_launches} augmented training + {pipe_launches} pipeline "
           f"(fit and embedding extraction) + {cli_launches} CLI + "
           f"{zoo_launches} model zoo + {graph_launches} graphs + "
           f"{dp_launches} data parallel + {tp_launches} tensor parallel + "
           f"{orbax_launches} Orbax; split reductions {serve_reductions} in "
-          "serving")
+          f"serving + {served_reductions} in served graphs")
 
     print(json.dumps({"kernels": [{
-        "name": "fused_logmel",
+        "name": "logmel_kernel",
         "route": "cuda",
         "source": "lidbox_tpu_torch/csrc/logmel.cu",
         "replaces": "lidbox_tpu/ops/logmel.py:154",
-        "launches": (serve_launches + train_launches + aug_launches
+        "launches": (serve_launches + served_launches + train_launches
+                     + aug_launches
                      + pipe_launches + cli_launches + zoo_launches
                      + graph_launches + dp_launches + tp_launches
                      + orbax_launches),
-        "max_abs_err": max(geometry_err, path_err, aug_err, pipe_err,
-                           cli_err, zoo_err, dp_err, tp_err, orbax_err),
+        "max_abs_err": max(geometry_err, path_err, served_err, aug_err,
+                           pipe_err, cli_err, zoo_err, dp_err, tp_err,
+                           orbax_err),
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
@@ -3750,7 +4097,7 @@ def main():
         "route": "cuda",
         "source": "lidbox_tpu_torch/csrc/logmel.cu",
         "replaces": "lidbox_tpu/ops/logmel.py:154",
-        "launches": serve_reductions,
+        "launches": serve_reductions + served_reductions,
         "max_abs_err": reduce_fields[0],
         "ms": reduce_fields[1],
         "plain_ms": reduce_fields[2],

@@ -67,6 +67,19 @@ def get_logger(name=None):
     return _logger if name is None else _logger.getChild(name)
 
 
+def reset_global_loglevel(level):
+    """Set the loglevel of the package's logger (a ``logging`` level or
+    its name, e.g. ``"debug"``); its children follow it."""
+    if isinstance(level, str):
+        level = getattr(logging, level.upper())
+    _logger.setLevel(level)
+
+
+def get_package_root():
+    """The directory of this package."""
+    return os.path.dirname(os.path.abspath(__file__))
+
+
 def iter_metadata_file(path, num_columns):
     """Iterate rows of a space-separated metadata file, yielding tuples of
     the first ``num_columns`` columns (reference lidbox/__init__.py:41-46)."""

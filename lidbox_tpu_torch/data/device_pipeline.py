@@ -5,8 +5,15 @@ Batched feature extraction on the device (counterpart of
 Host numpy signals are padded to a (batch, length) bucket, moved to
 ``device`` and run through ``features.extract_features`` with their true
 lengths, so per-sample statistics see only real frames; the features come
-back sliced to each signal's true frame count. PyTorch runs eagerly, so
-the JAX package's per-bucket jit cache has no counterpart here.
+back sliced to each signal's true frame count.
+
+The JAX package jits one program per (sample rate, masked) and shape
+(``_jit_by_rate``); here the extraction is one CUDA graph per (sample
+rate, masked, batch and signal shape), replayed
+(``graphs.ForwardProgram``, kind "features"): the fused log-Mel kernel
+and its split reduction run inside it. The signals are copied into the
+graph's input buffer from pinned host memory. On the CPU, or with
+``eager=True``, the extraction runs eagerly.
 """
 import functools
 
@@ -17,6 +24,7 @@ import lidbox_tpu_torch.features as F
 from lidbox_tpu_torch import get_device
 from lidbox_tpu_torch.data.dataset import pick_bucket
 from lidbox_tpu_torch.features import audio
+from lidbox_tpu_torch.train import graphs
 
 # Signal-length buckets in samples (@16 kHz: 0.5 s .. 64 s, x2 growth)
 DEFAULT_SIGNAL_BUCKETS = tuple(8000 * 2 ** i for i in range(8))
@@ -28,11 +36,13 @@ FEATURE_KWARG_KEYS = ("spectrogram", "melspectrogram", "mfcc", "db_spectrogram",
 
 class DeviceFeatureExtractor:
     """Maps numpy signal batches to numpy feature batches computed on
-    ``device``."""
+    ``device``, one graph replay per shape (``eager=True``: eagerly, the
+    graphs' reference)."""
 
-    def __init__(self, config, device="cuda"):
+    def __init__(self, config, device="cuda", eager=False):
         config = dict(config)
         self.device = get_device(device)
+        self.program = graphs.ForwardProgram("features", eager=eager)
         self.feature_type = config.get("type", "logmelspectrogram")
         # opt-in host check of every extracted batch (the reference's
         # assert_all_finite, lidbox/data/tf_utils.py:173-191)
@@ -49,14 +59,30 @@ class DeviceFeatureExtractor:
         self.feature_kwargs = {k: dict(config[k]) for k in FEATURE_KWARG_KEYS
                                if config.get(k)}
 
-    def extract(self, signals, sample_rate, lengths=None):
-        """[B, T] float32 tensor on ``device`` -> [B, frames, C] features
-        on ``device`` (no host round trip)."""
+    def features(self, signals, sample_rate, lengths=None):
+        """The extraction itself, eagerly: [B, T] float32 signals (and
+        their [B] lengths) on ``device`` -> [B, frames, C] features."""
         return F.extract_features(signals, int(sample_rate),
                                   feature_type=self.feature_type,
                                   stft_method=self.stft_method,
                                   precision=self.precision, lengths=lengths,
                                   **self.feature_kwargs)
+
+    def extract(self, signals, sample_rate, lengths=None):
+        """[B, T] float32 tensor on ``device`` or in (pinned) host memory,
+        [B] int64 ``lengths`` likewise -> [B, frames, C] features on
+        ``device`` (no host round trip): one graph replay per (sample
+        rate, masked, shapes)."""
+        rate = int(sample_rate)
+        return self.program(
+            functools.partial(self.features, sample_rate=rate),
+            {"signals": signals, "lengths": lengths}, self.device, key=rate)
+
+    def host_tensor(self, array):
+        """A host array as a tensor the extraction copies without a sync:
+        pinned when the extraction runs on the card."""
+        x = torch.from_numpy(np.ascontiguousarray(array))
+        return x.pin_memory() if self.device.type == "cuda" else x
 
     def to_host(self, feats):
         out = feats.cpu().numpy()
@@ -75,8 +101,8 @@ class DeviceFeatureExtractor:
     @torch.inference_mode()
     def __call__(self, signals, sample_rate):
         """signals: numpy [B, T] (equal length). -> numpy [B, frames, C]."""
-        x = torch.as_tensor(np.asarray(signals, np.float32), device=self.device)
-        return self.to_host(self.extract(x, sample_rate))
+        return self.to_host(self.extract(
+            self.host_tensor(np.asarray(signals, np.float32)), sample_rate))
 
     @torch.inference_mode()
     def extract_ragged(self, signal_list, sample_rate):
@@ -91,9 +117,8 @@ class DeviceFeatureExtractor:
         for i, s in enumerate(signal_list):
             clipped[i] = min(len(s), t_bucket)
             batch[i, :clipped[i]] = s[:t_bucket]
-        feats = self.to_host(self.extract(
-            torch.as_tensor(batch, device=self.device), sample_rate,
-            lengths=torch.as_tensor(clipped, device=self.device)))
+        feats = self.to_host(self.extract(self.host_tensor(batch), sample_rate,
+                                          lengths=self.host_tensor(clipped)))
         return [feats[i, :self.num_frames(min(n, t_bucket), sample_rate)]
                 for i, n in enumerate(lengths)]
 

@@ -747,8 +747,9 @@ def fit_signals(trainer, feature_fn, signal_batches, epochs=1, verbose=True,
     every step augments and featurizes its batch on the device and trains
     on it (make_fused_train_step), with no per-step host readback. On the
     card each step is one CUDA graph replay updating ``trainer.state`` in
-    place; ``eager=True`` runs the functional steps instead (the graphs'
-    reference).
+    place, and each validation step one replay (``Trainer.evaluate``);
+    ``eager=True`` runs the functional steps instead, in training and in
+    validation (the graphs' reference).
 
     ``signal_batches``: callable or re-iterable collection of
     (signals [B, T], targets [B]) numpy pairs, or (signals, targets,
@@ -991,7 +992,7 @@ def fit_signals(trainer, feature_fn, signal_batches, epochs=1, verbose=True,
                 break
             continue
         if cache_staged and val_staged not in (None, False):
-            val_logs = trainer.evaluate(val_staged, staged=True)
+            val_logs = trainer.evaluate(val_staged, staged=True, eager=eager)
         else:
             if val_feature_batches is not None:
                 eval_batches = list(val_feature_batches()
@@ -1022,13 +1023,14 @@ def fit_signals(trainer, feature_fn, signal_batches, epochs=1, verbose=True,
                         cache_state["bytes"] / 1e6,
                         cache_state["budget"] / 1e6)
                     val_staged = False
-                    val_logs = trainer.evaluate(eval_batches)
+                    val_logs = trainer.evaluate(eval_batches, eager=eager)
                 else:
                     val_staged = trainer._consolidate_cache(entries,
                                                             grouped=False)
-                    val_logs = trainer.evaluate(val_staged, staged=True)
+                    val_logs = trainer.evaluate(val_staged, staged=True,
+                                                eager=eager)
             else:
-                val_logs = trainer.evaluate(eval_batches)
+                val_logs = trainer.evaluate(eval_batches, eager=eager)
         logs = {"loss": mean_loss, **meter.rates(), **val_logs}
         history.append(logs)
         if trainer.metrics_logger:

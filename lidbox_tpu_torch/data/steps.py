@@ -456,11 +456,16 @@ def group_by_axis_length(ds, element_key, max_batch_size, min_batch_size=0,
     return Dataset(gen)
 
 
-def extract_features(ds, config, device="cuda"):
+def extract_features(ds, config, device="cuda", extractor=None):
     """Extract features from ``signal`` into ``input`` on ``device``
     (reference: lidbox/data/steps.py:708-736). With ``stft_method:
     "pallas"`` log-Mel and MFCC run through the fused log-Mel kernel on a
-    CUDA device (its plain version on the CPU).
+    CUDA device (its plain version on the CPU). On the card each
+    extraction is one CUDA graph replay per shape
+    (``DeviceFeatureExtractor``). ``extractor``: a
+    ``DeviceFeatureExtractor`` of this config to run, whose captured
+    graphs a caller keeps across datasets (a service); one built with
+    ``eager=True`` runs the extractions eagerly.
 
     Two batching modes, as in the reference:
     - ``group_by_input_length``: equal-length groups of at most
@@ -471,7 +476,8 @@ def extract_features(ds, config, device="cuda"):
     """
     config = dict(config)
     feature_type = config.get("type", "logmelspectrogram")
-    extractor = DeviceFeatureExtractor(config, device=device)
+    if extractor is None:
+        extractor = DeviceFeatureExtractor(config, device=device)
 
     if "group_by_input_length" in config:
         max_bs = config["group_by_input_length"]["max_batch_size"]

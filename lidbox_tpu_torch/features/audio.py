@@ -25,7 +25,9 @@ Precision modes of the matmul DSP path (``precision=``):
   float32. The JAX package's budget for 3x is a log-Mel error of about
   1.5e-3 against float64 (``lidbox_tpu/features/audio.py:199-210``).
 """
+import contextlib
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -34,6 +36,47 @@ import torch.nn.functional as F
 from lidbox_tpu_torch import get_device, parallel
 
 from . import mel_ops
+
+_holding = threading.local()
+
+
+@contextlib.contextmanager
+def holding_constants(held):
+    """Within it, every cached device constant read on this thread (a
+    ``device_constant`` function's result, the log-Mel kernel's tiles) is
+    appended to the list ``held``. A CUDA graph captured within reads
+    their addresses: keeping ``held`` as long as the graph keeps them
+    alive when their caches drop them."""
+    outer = getattr(_holding, "held", None)
+    _holding.held = held
+    try:
+        yield held
+    finally:
+        _holding.held = outer
+
+
+def hold(value):
+    """``value``, appended to the list of the enclosing
+    ``holding_constants`` on this thread, if any."""
+    held = getattr(_holding, "held", None)
+    if held is not None:
+        held.append(value)
+    return value
+
+
+def device_constant(fn):
+    """``functools.lru_cache(maxsize=16)`` of ``fn``, a function returning
+    a constant tensor on a device, whose every result is also ``hold``-ed:
+    a captured graph keeps what it reads alive after an eviction."""
+    cached = functools.lru_cache(maxsize=16)(fn)
+
+    @functools.wraps(fn)
+    def wrapper(*args):
+        return hold(cached(*args))
+    wrapper.cache_clear = cached.cache_clear
+    wrapper.cache_info = cached.cache_info
+    return wrapper
+
 
 # precision mode -> (pieces per operand, (i, j) piece products summed,
 # smallest first)
@@ -202,7 +245,7 @@ def _windowed_dft_basis(frame_length, fft_length):
     return cos_b, sin_b
 
 
-@functools.lru_cache(maxsize=16)
+@device_constant
 def _basis_tensor(frame_length, fft_length, device):
     """[L, 2 * num_bins] cos|sin basis on ``device``, cut to the
     L = min(frame_length, fft_length) rows that can be nonzero."""
@@ -251,7 +294,7 @@ def spectrograms(signals, sample_rate, frame_length_ms=25, frame_step_ms=10,
     return torch.pow(torch.abs(S), power)
 
 
-@functools.lru_cache(maxsize=16)
+@device_constant
 def _mel_tensor(num_mel_bins, num_spectrogram_bins, sample_rate, fmin, fmax,
                 device):
     return torch.as_tensor(mel_ops.linear_to_mel_weight_matrix(
@@ -291,7 +334,7 @@ def drop_frequency_bins(S, sample_rate, fft_length, fmin, fmax):
     return torch.index_select(S, 2, torch.as_tensor(keep, device=S.device))
 
 
-@functools.lru_cache(maxsize=16)
+@device_constant
 def _dct_tensor(num_mel, device):
     # tf.signal's type-II DCT scale 1/sqrt(2N), with NO sqrt(2)
     # correction of coefficient 0 (unlike scipy's 'ortho' norm)

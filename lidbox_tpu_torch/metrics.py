@@ -14,7 +14,6 @@ shards merge with ``merge_states``; the ranks of a data-parallel mesh sum
 theirs with ``psum_state``.
 """
 import dataclasses
-import functools
 
 import numpy as np
 import torch
@@ -22,9 +21,10 @@ import torch.nn.functional as F
 
 from lidbox_tpu_torch import parallel
 from lidbox_tpu_torch.features import divide_no_nan as _divide_no_nan
+from lidbox_tpu_torch.features.audio import device_constant
 
 
-@functools.lru_cache(maxsize=16)
+@device_constant
 def _thresholds_on(thresholds, device):
     """The threshold grid as a float32 tensor on ``device``, copied there
     once rather than on every update."""

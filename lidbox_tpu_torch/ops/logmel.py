@@ -435,18 +435,30 @@ def reset_launch_counts(device="cuda"):
 _captures = threading.local()
 
 
+# within it, every launch on this thread appends the cached constant
+# operands it reads (the basis and mel tiles) to ``held``, beside the
+# feature functions' cached constants: a graph captured within holds them
+holding_operands = audio.holding_constants
+
+
 @contextlib.contextmanager
-def holding_operands(held):
-    """Within it, every launch on this thread appends the cached constant
-    operands it reads (the basis and mel tiles) to the list ``held``. A
-    CUDA graph captured within holds their addresses: keeping ``held`` as
-    long as the graph keeps them alive when the caches here drop them."""
-    outer = getattr(_captures, "held", None)
-    _captures.held = held
+def tallying_launches(tally):
+    """Within it, every launch on this thread also adds one to
+    ``tally[kernel name]`` (a ``collections.Counter``) on the host: what a
+    capture's warm-up steps launched, which ``train/graphs.py`` adds up
+    beside the counts the card keeps."""
+    outer = getattr(_captures, "tally", None)
+    _captures.tally = tally
     try:
-        yield held
+        yield tally
     finally:
-        _captures.held = outer
+        _captures.tally = outer
+
+
+def _tally(kernel):
+    tally = getattr(_captures, "tally", None)
+    if tally is not None:
+        tally[kernel] += 1
 
 
 def _key(sample_rate, frame_length, fft_length, num_mel_bins, fmin, fmax,
@@ -476,9 +488,7 @@ def _operands(key, batch, samples, frame_step, device):
     """``_launch_config``, its tiles appended to the operands held on this
     thread (``holding_operands``)."""
     config = _launch_config(key, batch, samples, frame_step, device)
-    held = getattr(_captures, "held", None)
-    if held is not None:
-        held.append(config[:2])
+    audio.hold(config[:2])
     return config
 
 
@@ -555,6 +565,9 @@ def fused_logmel(signals, sample_rate, frame_length_ms=25, frame_step_ms=10,
     if err != 0:
         raise RuntimeError(f"log-Mel kernel launch failed (plan {plan}): "
                            + lib.lidbox_logmel_error_string(err).decode())
+    _tally(KERNELS[0])
+    if partial is not None:  # the library launched the reduction too
+        _tally(KERNELS[1])
     return out
 
 
@@ -596,6 +609,7 @@ def split_reduce(partial, out=None):
     if err != 0:
         raise RuntimeError("log-Mel split reduction launch failed: "
                            + lib.lidbox_logmel_error_string(err).decode())
+    _tally(KERNELS[1])
     return out
 
 

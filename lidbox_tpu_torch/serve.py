@@ -5,6 +5,12 @@ of ``lidbox_tpu.serve``).
 decode -> optional chunking -> features on the device (the fused log-Mel
 kernel with ``stft_method: "pallas"``) -> model forward -> chunk-score merge.
 Results are plain tables (``util``): dicts of columns sorted by id.
+
+On the card each step is one CUDA graph replay per shape
+(``graphs.ForwardProgram``), the JAX package's jitted programs: the
+extractor's features, the batch forward (``util.make_batch_predict_fn``)
+and, for a stream, the features and forward of a chunk fused into one.
+``eager=True`` runs them eagerly, the graphs' reference.
 """
 import numpy as np
 import torch
@@ -15,6 +21,7 @@ from lidbox_tpu_torch.data import steps as steps_mod
 from lidbox_tpu_torch.data.dataset import Dataset
 from lidbox_tpu_torch.data.device_pipeline import DeviceFeatureExtractor
 from lidbox_tpu_torch.features import io as audio_io
+from lidbox_tpu_torch.train import graphs
 
 DEFAULT_FEATURE_CONFIG = {"type": "logmelspectrogram",
                           "melspectrogram": {"num_mel_bins": 64}}
@@ -33,7 +40,8 @@ class Classifier:
 
     def __init__(self, model, labels, feature_config=None, chunk_length_ms=None,
                  chunk_step_ms=None, batch_size=32, compute_dtype=None,
-                 mesh=None, score_fn=None, stage_dtype=None, device="cuda"):
+                 mesh=None, score_fn=None, stage_dtype=None, device="cuda",
+                 eager=False):
         """Args:
             model: a lidbox_tpu_torch Model on ``device``.
             labels: ordered label list (index = model output).
@@ -55,18 +63,24 @@ class Classifier:
                 its rows of each batch (``batch_size`` must divide over
                 the mesh) and returns the whole table
                 (``util.make_batch_predict_fn``).
+            eager: run the features and the forward eagerly instead of as
+                graph replays (the graphs' reference).
         """
         self.device = _check_device(model, device)
         self.model = model
         self.labels = list(labels)
         self.feature_config = dict(feature_config or DEFAULT_FEATURE_CONFIG)
+        # one extractor for every call: its graphs serve them all
+        self.extractor = DeviceFeatureExtractor(self.feature_config,
+                                                device=self.device,
+                                                eager=eager)
         self.chunk_length_ms = chunk_length_ms
         self.chunk_step_ms = chunk_step_ms
         self.batch_size = batch_size
         self._predict_fn = util.make_batch_predict_fn(
             model, batch_size=batch_size, mesh=mesh,
             compute_dtype=compute_dtype, score_fn=score_fn,
-            stage_dtype=stage_dtype)
+            stage_dtype=stage_dtype, eager=eager)
 
     def _dataset(self, paths, ids=None):
         ids = ids or [str(p) for p in paths]
@@ -92,7 +106,7 @@ class Classifier:
                 self.chunk_step_ms or self.chunk_length_ms)
         return steps_mod.extract_features(
             ds, {**self.feature_config, "batch_size": self.batch_size},
-            device=self.device)
+            device=self.device, extractor=self.extractor)
 
     def scores(self, paths, ids=None):
         """``{"id", "prediction"}`` table of per-utterance score vectors
@@ -122,8 +136,11 @@ class StreamingClassifier:
     """Online LId over an incrementally-fed audio stream.
 
     Fixed-size analysis chunks with a fixed hop; each completed chunk runs
-    features and forward in one call on the device, and the per-chunk
-    scores are merged by running mean — the offline chunk-merge semantics
+    features and forward (and ``score_fn``) as one program on the device,
+    one CUDA graph for the chunk shape [1, chunk_len] (the JAX package's
+    ``_fused_chunk``; ``validate_finite`` keeps the features apart, checked
+    on the host before the forward), and the per-chunk scores are merged by
+    running mean — the offline chunk-merge semantics
     (reference: lidbox/util.py:41-57), so a stream scored online equals the
     same audio scored offline with the same chunking. With a
     ``parallel.Mesh`` every rank is fed the same stream and each chunk's
@@ -140,7 +157,7 @@ class StreamingClassifier:
 
     def __init__(self, model, labels, feature_config=None, sample_rate=16000,
                  chunk_seconds=2.0, hop_seconds=1.0, score_fn=None,
-                 mesh=None, device="cuda"):
+                 mesh=None, device="cuda", eager=False):
         self.score_fn = score_fn  # outputs -> [B, N] (language vectors)
         self.device = _check_device(model, device)
         self._mesh_predict = None
@@ -155,7 +172,12 @@ class StreamingClassifier:
         if not 0 < self.hop <= self.chunk_len:
             raise ValueError("need 0 < hop_seconds <= chunk_seconds")
         self.extractor = DeviceFeatureExtractor(
-            dict(feature_config or DEFAULT_FEATURE_CONFIG), device=self.device)
+            dict(feature_config or DEFAULT_FEATURE_CONFIG), device=self.device,
+            eager=eager)
+        # the fused chunk program, or with validate_finite the forward
+        self.program = graphs.ForwardProgram(
+            "forward" if self.extractor.validate_finite else "stream",
+            eager=eager)
         self.reset()
 
     def reset(self):
@@ -163,18 +185,30 @@ class StreamingClassifier:
         self._score_sum = None
         self._num_chunks = 0
 
+    def _forward(self, feats):
+        out = self.model.apply(feats)
+        if self.score_fn is not None:
+            out = self.score_fn(out)
+        return out[0].float()
+
+    def _fused(self, signals):
+        return self._forward(self.extractor.features(signals,
+                                                     self.sample_rate))
+
     @torch.inference_mode()
     def _score_chunk(self, chunk):
-        x = torch.as_tensor(chunk[None, :], device=self.device)
+        x = self.extractor.host_tensor(chunk[None, :])
+        held = graphs.module_tensors(self.model.module)
+        if self._mesh_predict is None and not self.extractor.validate_finite:
+            return self.program(self._fused, {"signals": x}, self.device,
+                                held=held).cpu().numpy()
         feats = self.extractor.extract(x, self.sample_rate)
         if self.extractor.validate_finite:
             self.extractor.to_host(feats)
         if self._mesh_predict is not None:
             return self._mesh_predict(feats.cpu().numpy())[0]
-        out = self.model.apply(feats)
-        if self.score_fn is not None:
-            out = self.score_fn(out)
-        return out[0].float().cpu().numpy()
+        return self.program(self._forward, {"feats": feats}, self.device,
+                            held=held).cpu().numpy()
 
     def feed(self, samples):
         """Append audio samples (any length); runs the model on every

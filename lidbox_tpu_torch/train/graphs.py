@@ -47,8 +47,24 @@ for. Three cases run it eagerly on the card too, by rule, logged once: a
 mesh (its collectives go through the host), ``remat``, and a model that
 packs its recurrent layers by host lengths when the batch has a frame mask
 (``packs_by_host_lengths``). Either way the state is written in place.
+
+A :class:`ForwardProgram` is the same for a served or evaluated forward,
+the port's counterpart of the JAX package's ``jax.jit`` per shape (the
+feature extractor, ``make_batch_predict_fn``, the streaming chunk, the eval
+step and ``Trainer.predict``): a body ``fn(**inputs)`` captured once per
+input signature and replayed, its inputs copied into the static buffers
+first (from pinned host memory, or on the card) and its outputs cloned out
+of the graph's before the next replay can overwrite them. It keys its
+graphs on the identity of the tensors the body reads (a model's parameters
+and buffers, a state's): weights updated in place are served by the next
+replay, replaced tensors are captured anew. Both kinds of program share
+the capture (:class:`_Programs`): warm-up on a side stream, one memory
+pool per program, ``capture_error_mode="thread_local"``, the kernel's
+operands held; a failed capture or replay raises.
 """
 import collections
+import functools
+import threading
 from typing import NamedTuple
 
 import torch
@@ -63,9 +79,15 @@ logger = get_logger("train.graphs")
 # handles, algorithm choices, the kernel's cached bases); their kernel
 # launches are real and count on the card like any other
 WARMUP_STEPS = 2
-# kind -> steps captured in this process; each ran WARMUP_STEPS warm-up
-# steps ("fused" ones launch the log-Mel kernel once a step)
+# kind -> programs captured in this process ("fused" and "features" train
+# steps; "features", "stream", "forward" and "eval" forwards); each ran
+# WARMUP_STEPS warm-up steps
 captures = collections.Counter()
+# kernel -> its launches made by those warm-up steps ("fused" steps and
+# log-Mel feature programs launch the kernel once a step), tallied on the
+# host as they launch (``logmel.tallying_launches``)
+warmup_launches = collections.Counter()
+_count_lock = threading.Lock()
 
 
 class Gather(NamedTuple):
@@ -102,34 +124,30 @@ def packs_by_host_lengths(module):
                for m in module.modules())
 
 
-def eager_reason(trainer, masked):
-    """Why a step of ``trainer`` is not captured on the card, or None.
-    ``masked``: the batch carries a frame mask."""
-    if trainer.mesh is not None:
+def forward_reason(module, masked, mesh=None):
+    """Why a forward of ``module`` is not captured on the card, or None:
+    a mesh, or a frame-masked batch (``masked``) for a model that packs
+    its recurrent layers by host lengths."""
+    if mesh is not None:
         return "a mesh: its collectives go through the host"
-    if trainer.remat:
-        return "remat: the recompute rewinds the dropout generator on the host"
-    if masked and packs_by_host_lengths(trainer.model.module):
+    if masked and packs_by_host_lengths(module):
         return ("a frame-masked batch for a model that packs its recurrent "
                 "layers by host lengths")
     return None
 
 
+def eager_reason(trainer, masked):
+    """Why a step of ``trainer`` is not captured on the card, or None.
+    ``masked``: the batch carries a frame mask."""
+    if trainer.mesh is None and trainer.remat:
+        return "remat: the recompute rewinds the dropout generator on the host"
+    return forward_reason(trainer.model.module, masked, trainer.mesh)
+
+
 def state_tensors(state):
     """Every tensor of a TrainState, in a fixed order."""
-    out = list(state.params.values()) + list(state.batch_stats.values())
-
-    def walk(node):
-        if isinstance(node, dict):
-            for v in node.values():
-                walk(v)
-        elif isinstance(node, (list, tuple)):
-            for v in node:
-                walk(v)
-        elif isinstance(node, torch.Tensor):
-            out.append(node)
-    walk(state.opt_state)
-    return out
+    return (list(state.params.values()) + list(state.batch_stats.values())
+            + tensors_of(state.opt_state))
 
 
 def _clone_state(state):
@@ -162,11 +180,87 @@ class _Captured(NamedTuple):
     generator: object  # the dropout generator it registered (kept alive)
 
 
+class _Programs:
+    """What a step program and a forward program share: the graphs by
+    signature, the tensors they were captured on, one memory pool and one
+    side stream, and the capture itself."""
+
+    def __init__(self, kind, eager):
+        self.kind = kind
+        self.eager = eager
+        self._captured = {}
+        self._held = None       # the tensors the graphs read, by identity
+        self._pool = None
+        self._side = None
+        self._logged = set()
+
+    def _log_eager(self, what, reason):
+        if reason is not None and reason not in self._logged:
+            self._logged.add(reason)
+            logger.info("%s runs eagerly: %s", what, reason)
+
+    def _hold(self, held):
+        """Key the graphs on the identity of ``held``: other tensors (a
+        restore, a new state, replaced weights) drop them. Holding the
+        tensors keeps a freed tensor's address from coming back as
+        another's."""
+        if self._held is None or len(held) != len(self._held) or any(
+                a is not b for a, b in zip(held, self._held)):
+            self._captured.clear()
+            self._held = held
+
+    def release(self):
+        """Drop the captured graphs, their memory pool and their buffers."""
+        self._captured.clear()
+        self._held = self._pool = self._side = None
+
+    def _graph(self, device, warm, body, generators=()):
+        """``body()`` captured as a CUDA graph on the program's side stream
+        into its memory pool, after ``WARMUP_STEPS`` calls of ``warm()``
+        there (lazy set-up: library handles, algorithm choices, the
+        kernel's cached bases), with ``generators`` and the device's
+        default generator put back as they were before the warm-up and
+        ``generators`` registered with the graph. Returns (graph, the
+        kernel operands it reads, what ``body()`` returned: tensors of the
+        graph's pool, which each replay writes)."""
+        current = torch.cuda.current_stream(device)
+        if self._side is None:
+            self._side = torch.cuda.Stream(device)
+        side = self._side
+        saved = [g.get_state() for g in generators]
+        saved_default = torch.cuda.get_rng_state(device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side), logmel.tallying_launches(
+                collections.Counter()) as launched:
+            for _ in range(WARMUP_STEPS):
+                warm()
+        current.wait_stream(side)
+        del warm
+        for g, s in zip(generators, saved):
+            g.set_state(s)
+        torch.cuda.set_rng_state(saved_default, device)
+        graph = torch.cuda.CUDAGraph()
+        for g in generators:
+            graph.register_generator_state(g)
+        # thread_local: a staging or prefetch thread may pin, copy and
+        # launch meanwhile, which "global" would refuse
+        with logmel.holding_operands([]) as operands, torch.cuda.graph(
+                graph, pool=self._pool, stream=side,
+                capture_error_mode="thread_local"):
+            result = body()
+        if self._pool is None:
+            self._pool = graph.pool()
+        with _count_lock:  # programs of other threads capture too
+            captures[self.kind] += 1
+            warmup_launches.update(launched)
+        return graph, operands, result
+
+
 def _plain_batch(trainer, inputs, augment_generator):
     return inputs
 
 
-class StepProgram:
+class StepProgram(_Programs):
     """A train step run as one program per input signature.
 
     ``kind``: "features" (fit's feature batches) or "fused" (waveform
@@ -190,17 +284,11 @@ class StepProgram:
 
     def __init__(self, kind, batch=None, augment=False, masked=False,
                  eager=False):
-        self.kind = kind
+        super().__init__(kind, eager)
         self.batch = batch or _plain_batch
         self.augment = augment
         self.masked = masked
-        self.eager = eager
-        self._captured = {}
-        self._held = None       # the state tensors the graphs captured
-        self._pool = None
-        self._side = None
         self._augment_gen = None
-        self._logged = set()
 
     # -- dispatch -------------------------------------------------------------
 
@@ -215,9 +303,7 @@ class StepProgram:
                                   augment_gen), generator)
         reason = eager_reason(trainer, self.masked
                               or inputs.get("input_mask") is not None)
-        if reason is not None and reason not in self._logged:
-            self._logged.add(reason)
-            logger.info("train step runs eagerly: %s", reason)
+        self._log_eager("train step", reason)
         scalars = trainer.optimizer.scalars(state.opt_state)
         seed = key_seed(trainer.seed, state.step, 7) if self.augment else None
         if reason is None and self._graphed(trainer):
@@ -253,11 +339,6 @@ class StepProgram:
                     for v in scalars], loss)
         return loss
 
-    def release(self):
-        """Drop the captured graphs, their memory pool and their buffers."""
-        self._captured.clear()
-        self._held = self._pool = self._side = None
-
     # -- graphs ---------------------------------------------------------------
 
     @staticmethod
@@ -268,11 +349,7 @@ class StepProgram:
                 len(scalars), masked, id(generator))
 
     def _replay(self, trainer, state, inputs, generator, scalars, seed):
-        held = state_tensors(state)
-        if self._held is None or len(held) != len(self._held) or any(
-                a is not b for a, b in zip(held, self._held)):
-            self._captured.clear()  # another state's tensors: capture anew
-            self._held = held
+        self._hold(state_tensors(state))
         key = self.signature(inputs, scalars, generator, self.masked)
         entry = self._captured.get(key)
         if entry is None:
@@ -310,42 +387,149 @@ class StepProgram:
         return static, buffers, torch.zeros((), dtype=torch.float32,
                                             device=device)
 
+    def _warm_step(self, trainer, state, static, generator, augment_gen,
+                   seed, buffers, loss):
+        if augment_gen is not None:
+            augment_gen.manual_seed(seed)
+        self._body(trainer, state, static, generator, augment_gen, buffers,
+                   loss)
+
     def _capture(self, trainer, state, inputs, generator, scalars, seed):
         device = trainer.device
-        current = torch.cuda.current_stream(device)
-        if self._side is None:
-            self._side = torch.cuda.Stream(device)
-        side = self._side
         static, buffers, loss = self.static_buffers(device, inputs, scalars)
         augment_gen = (self._augment_generator(device, seed) if self.augment
                        else None)
-        generators = [g for g in (generator, augment_gen) if g is not None]
-        saved = [g.get_state() for g in generators]
-        saved_default = torch.cuda.get_rng_state(device)
-        warm = _clone_state(state)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP_STEPS):
-                if augment_gen is not None:
-                    augment_gen.manual_seed(seed)
-                self._body(trainer, warm, static, generator, augment_gen,
-                           buffers, loss)
-        current.wait_stream(side)
-        del warm
-        for g, s in zip(generators, saved):
-            g.set_state(s)
-        torch.cuda.set_rng_state(saved_default, device)
-        graph = torch.cuda.CUDAGraph()
-        for g in generators:
-            graph.register_generator_state(g)
-        # thread_local: the staging thread may pin and copy the next
-        # batches meanwhile, which "global" would refuse
-        with logmel.holding_operands([]) as operands, torch.cuda.graph(
-                graph, pool=self._pool, stream=side,
-                capture_error_mode="thread_local"):
-            self._body(trainer, state, static, generator, augment_gen,
-                       buffers, loss)
-        if self._pool is None:
-            self._pool = graph.pool()
-        captures[self.kind] += 1
+        # the warm-up steps run on a clone of the state, so the state is
+        # as it was before them
+        graph, operands, _ = self._graph(
+            device,
+            functools.partial(self._warm_step, trainer, _clone_state(state),
+                              static, generator, augment_gen, seed, buffers,
+                              loss),
+            functools.partial(self._body, trainer, state, static, generator,
+                              augment_gen, buffers, loss),
+            [g for g in (generator, augment_gen) if g is not None])
         return _Captured(graph, static, buffers, loss, operands, generator)
+
+
+class _CapturedForward(NamedTuple):
+    graph: object
+    inputs: dict       # name -> static input buffer (absent inputs: None)
+    output: object     # the body's output: tensor, tuple of them or None
+    operands: list     # the cached kernel operands the graph reads
+
+
+def tensors_of(tree):
+    """The tensors of a tree of dicts, lists and tuples, in order."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tensors_of(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tensors_of(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def _cloned(output):
+    if output is None:
+        return None
+    if isinstance(output, (tuple, list)):
+        return type(output)(_cloned(v) for v in output)
+    return output.clone()
+
+
+def module_tensors(module):
+    """Every parameter and buffer tensor of ``module``, in a fixed order:
+    what a forward program that reads the module is keyed on."""
+    return list(module.parameters()) + list(module.buffers())
+
+
+class ForwardProgram(_Programs):
+    """A served or evaluated forward run as one program per input
+    signature.
+
+    ``kind`` names the program in ``captures`` ("features", "stream",
+    "forward", "eval"). ``program(fn, inputs, device, held=(), key=(),
+    reason=None)`` returns ``fn(**inputs)``, a tensor, a tuple of tensors
+    or None (a body that writes into tensors it holds, as the eval step
+    accumulates). ``inputs``: tensors, None for an absent one, on
+    ``device`` or on the host (pinned host memory is copied without a
+    sync). ``held``: the tensors ``fn`` reads besides its inputs (a
+    model's parameters and buffers: ``module_tensors``), keyed by
+    identity. ``key``: what else selects the graph (a sample rate).
+    ``reason``: why this call is not captured (an eager rule), logged
+    once.
+
+    On the card the body is captured once per signature (the inputs'
+    shapes and dtypes, which are absent, ``key``) and every call is one
+    replay, its outputs cloned out of the graph; calls are serialized, so
+    two threads never share a graph's buffers. On the CPU, with
+    ``eager=True`` or a ``reason``, the body runs eagerly on the inputs
+    moved to ``device``. ``buffers``: tensors the program keeps for its
+    body across calls (the eval step's accumulators), dropped with the
+    graphs by ``release``."""
+
+    def __init__(self, kind, eager=False):
+        super().__init__(kind, eager)
+        self.buffers = None
+        self._lock = threading.Lock()
+
+    # inference mode throughout: the static buffers are inference tensors,
+    # which only a call in inference mode may write
+    @torch.inference_mode()
+    def __call__(self, fn, inputs, device, held=(), key=(), reason=None):
+        if not self.eager:
+            self._log_eager(f"{self.kind} program", reason)
+        if self.eager or reason is not None or not self._graphed(device):
+            return fn(**{k: None if v is None
+                         else v.to(device, non_blocking=True)
+                         for k, v in inputs.items()})
+        with self._lock:
+            self._hold(list(held))
+            sig = (self.signature(inputs), key)
+            entry = self._captured.get(sig)
+            if entry is None:
+                entry = self._capture(fn, inputs, device)
+                self._captured[sig] = entry
+            else:
+                for name, value in inputs.items():
+                    if value is not None:
+                        entry.inputs[name].copy_(value, non_blocking=True)
+            entry.graph.replay()
+            return _cloned(entry.output)
+
+    def _graphed(self, device):
+        return torch.device(device).type == "cuda"
+
+    def release(self):
+        super().release()
+        self.buffers = None
+
+    @staticmethod
+    def signature(inputs):
+        return tuple(sorted((k, None) if v is None
+                            else (k, tuple(v.shape), v.dtype)
+                            for k, v in inputs.items()))
+
+    @staticmethod
+    def static_inputs(device, inputs):
+        """Static input buffers on ``device`` holding ``inputs``, outside
+        the graph's memory pool."""
+        static = {}
+        for name, value in inputs.items():
+            static[name] = None
+            if value is not None:
+                static[name] = torch.empty(value.shape, dtype=value.dtype,
+                                           device=device)
+                static[name].copy_(value, non_blocking=True)
+        return static
+
+    def _capture(self, fn, inputs, device):
+        static = self.static_inputs(device, inputs)
+        # the warm-up steps write into the program's buffers too: they are
+        # put back as they were before them
+        kept = tensors_of(self.buffers)
+        saved = [t.clone() for t in kept]
+        body = functools.partial(fn, **static)
+        graph, operands, output = self._graph(device, body, body)
+        if kept:
+            torch._foreach_copy_(kept, saved)
+        return _CapturedForward(graph, static, output, operands)

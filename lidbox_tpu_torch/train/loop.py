@@ -57,6 +57,7 @@ gathered full state (``checkpoint_state``), in the mesh-less format.
 the dropout generator rewound so the recompute draws the forward's masks.
 """
 import dataclasses
+import functools
 import queue
 import threading
 import time
@@ -662,10 +663,26 @@ class Trainer:
             self._programs[kind] = cached
         return cached[2]
 
+    def forward_program(self, kind, eager=False):
+        """The ``graphs.ForwardProgram`` of ``kind`` ("eval" for
+        ``evaluate``'s steps, "forward" for ``predict``'s), kept across
+        calls; with ``eager=True`` a new one, which captures nothing."""
+        if eager:
+            return graphs.ForwardProgram(kind, eager=True)
+        cached = self._programs.get(kind)
+        if cached is None:
+            cached = (None, False, graphs.ForwardProgram(kind))
+            self._programs[kind] = cached
+        return cached[2]
+
+    def _eval_held(self, state):
+        """The state tensors a forward reads: its graphs' key."""
+        return list(state.params.values()) + list(state.batch_stats.values())
+
     def release_graphs(self):
-        """Free the captured train steps (graphs, memory pools, buffers):
-        ``fit`` and ``fit_signals`` do when they end, and a later step
-        captures anew."""
+        """Free the captured train steps and forwards (graphs, memory
+        pools, buffers): ``fit`` and ``fit_signals`` do when they end, and
+        a later step captures anew."""
         for _, _, program in self._programs.values():
             program.release()
         self._programs.clear()
@@ -734,16 +751,21 @@ class Trainer:
             for name, metric in self.metrics.items()}
         return loss_sum, count, new_metric_states
 
-    def _replay_eval_step(self, state, stacked, metric_states):
-        """Cached validation: eval steps over a stacked batch dict
-        [K, B, ...] -> (loss sum, count, metric states), accumulated on the
-        device."""
-        total = count = 0.0
-        for i in range(self._batch_rows(stacked)):
-            loss_sum, n, metric_states = self._eval_step(
-                state, {k: v[i] for k, v in stacked.items()}, metric_states)
-            total, count = total + loss_sum, count + n
-        return total, count, metric_states
+    @torch.no_grad()
+    def _eval_step_into(self, state, sums, **batch):
+        """``_eval_step`` added into ``sums`` in place ({"loss", "count":
+        0-dim float32, "metrics": name -> metric state}): its sums and its
+        new metric states copied over the old, the same additions in the
+        same order as a functional accumulation, so the same bits. Reads
+        nothing back, so a CUDA graph captures it
+        (``graphs.ForwardProgram``, kind "eval")."""
+        loss_sum, count, metric_states = self._eval_step(state, batch,
+                                                         sums["metrics"])
+        sums["loss"].add_(loss_sum)
+        sums["count"].add_(count)
+        for name, new in metric_states.items():
+            old = sums["metrics"][name]
+            torch._foreach_copy_([old[k] for k in new], list(new.values()))
 
     # -- host loop ----------------------------------------------------------
 
@@ -1217,35 +1239,61 @@ class Trainer:
             cb.on_train_end(self)
         return history
 
-    def evaluate(self, batches, prefix="val_", staged=False):
+    def evaluate(self, batches, prefix="val_", staged=False, eager=False):
         """Evaluate ``batches``: host batch dicts, staged through _put
         unless ``staged=True``, in which case they are (n, batch) pairs
         already on the device or _consolidate_cache stacks (the
-        cache_staged path, _replay_eval_step). Loss sums, counts and metric
-        states accumulate on the device and are read back once; under a
-        mesh they are summed over the data group first (``psum_state``)."""
+        cache_staged path, whose K batches are K steps). Loss sums, counts
+        and metric states accumulate on the device and are read back once;
+        under a mesh they are summed over the data group first
+        (``psum_state``).
+
+        Each step is one CUDA graph replay per batch signature on the card
+        (``_eval_step_into``, the JAX package's ``_jit_eval_step``), which
+        adds into buffers the program keeps; the CPU, a mesh (logged once)
+        and ``eager=True`` run the same step eagerly, the graphs'
+        reference."""
         if self.state is None:
             self.create_state()
-        metric_states = {name: m.init_state(self.device)
-                         for name, m in self.metrics.items()}
-        total = count = None
+        state = self.state
         it = batches() if callable(batches) else batches
-        run = self._eval_step
         if staged and isinstance(it, list) and it and "stack" in it[0]:
             source = [(g["ns"], g["stack"]) for g in it]
-            run = self._replay_eval_step
+            stacks = True
         else:
             source = self._feed_parity_guard(
                 it if staged else self._staged(it), "validation")
+            stacks = False
+        program = self.forward_program("eval", eager=eager)
+        sums = program.buffers
+        if sums is None:
+            sums = program.buffers = {
+                "loss": torch.zeros((), device=self.device),
+                "count": torch.zeros((), device=self.device),
+                "metrics": {name: m.init_state(self.device)
+                            for name, m in self.metrics.items()}}
+        else:
+            torch._foreach_zero_(graphs.tensors_of(sums))
+        step = functools.partial(self._eval_step_into, state, sums)
+        held = self._eval_held(state)
+        steps = 0
         try:
             for _, batch in source:
-                loss_sum, n, metric_states = run(self.state, batch,
-                                                 metric_states)
-                total = loss_sum if total is None else total + loss_sum
-                count = n if count is None else count + n
+                for b in ([{k: v[i] for k, v in batch.items()}
+                           for i in range(self._batch_rows(batch))]
+                          if stacks else [batch]):
+                    steps += 1
+                    program(step, b, self.device, held=held,
+                            reason=graphs.forward_reason(
+                                self.model.module, "input_mask" in b,
+                                self.mesh))
         finally:
             if hasattr(source, "close"):
                 source.close()  # release staging on any exit path
+        metric_states = sums["metrics"]
+        total = count = None
+        if steps:
+            total, count = sums["loss"], sums["count"]
         if self.mesh is not None and total is not None:
             sums = parallel.all_reduce_tree(torch.stack([
                 torch.as_tensor(v, dtype=torch.float32,
@@ -1268,21 +1316,33 @@ class Trainer:
         return logs
 
     @torch.no_grad()
-    def predict(self, batches):
+    def predict(self, batches, eager=False):
         """Model outputs for every batch, concatenated on the host. Each
         batch's readback lags one forward behind, so the next forward is
         queued before the host waits. Under a mesh every rank returns the
-        global batches' outputs (the ranks' rows in rank order)."""
+        global batches' outputs (the ranks' rows in rank order).
+
+        The forward is one CUDA graph replay per batch signature on the
+        card (the JAX package's ``_jit_apply_eval``); the CPU, a mesh and
+        ``eager=True`` run it eagerly."""
         if self.state is None:
             self.create_state()
+        state = self.state
+        program = self.forward_program("forward", eager=eager)
+        held = self._eval_held(state)
+
+        def forward(**batch):
+            return self._apply(state.params, state.batch_stats, batch,
+                               train=False)[0]
         outs = []
         prev = None
         source = self._feed_parity_guard(self._staged(batches), "predict")
         try:
             for n, batch in source:
-                out, _ = self._apply(self.state.params,
-                                     self.state.batch_stats, batch,
-                                     train=False)
+                out = program(forward, batch, self.device, held=held,
+                              reason=graphs.forward_reason(
+                                  self.model.module, "input_mask" in batch,
+                                  self.mesh))
                 if self.mesh is not None:
                     out = parallel.all_gather_rows(out[:n], self.data_mesh)
                     n = out.shape[0]

@@ -9,6 +9,7 @@ report is numpy where the JAX package calls ``sklearn.metrics`` (absent on
 the card's machine), to the same values.
 """
 import collections
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -17,6 +18,7 @@ from lidbox_tpu_torch import parallel
 from lidbox_tpu_torch.data.dataset import padded_batch
 from lidbox_tpu_torch.metrics import SparseAverageDetectionCost
 from lidbox_tpu_torch.metrics import equal_error_rate as metrics_eer
+from lidbox_tpu_torch.train import graphs
 
 
 def predictions_table(ids, predictions):
@@ -44,7 +46,8 @@ def _torch_dtype(dtype):
 
 
 def make_batch_predict_fn(model, batch_size=32, mesh=None, compute_dtype=None,
-                          apply_kwargs=None, score_fn=None, stage_dtype=None):
+                          apply_kwargs=None, score_fn=None, stage_dtype=None,
+                          eager=False):
     """``(inputs [B, T, F] numpy, frame_mask [B, T] or None) -> numpy
     outputs [B, ...]``: one forward on the model's device.
 
@@ -59,6 +62,19 @@ def make_batch_predict_fn(model, batch_size=32, mesh=None, compute_dtype=None,
     transfer (half the bytes) and upcasts them on the device: outputs
     differ from the float32 feed only by that input rounding.
 
+    Without a mesh the forward (the upcast, ``compute_dtype`` and
+    ``score_fn`` included) is one CUDA graph per (input shape, staged
+    dtype, masked), the JAX package's ``apply_jit`` / ``apply_jit_masked``
+    (``graphs.ForwardProgram``, kind "forward"): the staged input is
+    copied from pinned host memory into the graph's input buffer, and the
+    output cloned out of the graph's before the next replay. The graphs
+    read the model's parameters and buffers in place: weights updated in
+    place are served by the next call, replaced tensors are captured
+    anew. A model that packs its recurrent layers by host lengths runs a
+    masked batch eagerly (logged once); ``eager=True`` runs every forward
+    eagerly, the graphs' reference; the CPU runs them eagerly. Calls from
+    several threads are served one replay at a time.
+
     With a ``parallel.Mesh`` inference is data-parallel: every rank calls
     the function with the same inputs (in lockstep: each call is a
     collective), every batch is zero-padded to ``batch_size`` (a multiple
@@ -66,10 +82,13 @@ def make_batch_predict_fn(model, batch_size=32, mesh=None, compute_dtype=None,
     rank runs the forward of its rows, and the rows are gathered back, so
     every rank returns the whole batch's outputs. Ranks outside a sub-mesh
     (``get_mesh(num_devices=N)`` below the group's size) run no forward
-    and receive the outputs from rank 0.
+    and receive the outputs from rank 0. The mesh's forwards run eagerly:
+    their gathers go through the host.
 
-    The function has a ``refresh()`` attribute, as the JAX package's has;
-    here a no-op, since every call reads the live parameters."""
+    ``predict_fn.refresh()``, as the JAX package's, drops what the
+    function keeps of the weights: the captured graphs (a mesh's keeps
+    nothing). ``predict_fn.mesh`` is the mesh, or None: a mesh's calls are
+    collectives, which every rank makes in the same order."""
     mesh = parallel.as_mesh(mesh)
     if mesh is not None and batch_size % mesh.size:
         raise ValueError(f"batch_size {batch_size} must divide over the "
@@ -84,27 +103,50 @@ def make_batch_predict_fn(model, batch_size=32, mesh=None, compute_dtype=None,
     if compute_dtype is not None:
         kwargs["compute_dtype"] = compute_dtype
 
-    @torch.inference_mode()
-    def forward(inputs, mask=None):
-        x = torch.as_tensor(np.asarray(inputs))
-        if stage is not None and x.is_floating_point():
-            x = x.to(stage)  # on the host: the transfer carries stage bytes
-        x = x.to(model.device)
+    def body(x, mask=None):
         # with compute_dtype, model.apply casts the input itself
         if compute_dtype is None and x.is_floating_point():
             x = x.float()
-        if mask is not None:
-            mask = torch.as_tensor(np.asarray(mask, bool), device=model.device)
         out = model.apply(x, mask=mask, **kwargs)
         if score_fn is not None:
             out = score_fn(out)
         return out.float()
 
+    def staged(inputs, mask):
+        """The host tensors of one batch: the input cast to the staging
+        dtype on the host (the transfer carries its bytes), pinned when
+        they go to the card."""
+        x = torch.as_tensor(np.asarray(inputs))
+        if stage is not None and x.is_floating_point():
+            x = x.to(stage)
+        if mask is not None:
+            mask = torch.as_tensor(np.asarray(mask, bool))
+        if model.device.type == "cuda":
+            x = x.pin_memory()
+            mask = None if mask is None else mask.pin_memory()
+        return x, mask
+
     if mesh is None:
+        program = graphs.ForwardProgram("forward", eager=eager)
+
+        def device_outputs(inputs, mask=None):
+            x, mask = staged(inputs, mask)
+            return program(body, {"x": x, "mask": mask}, model.device,
+                           held=graphs.module_tensors(model.module),
+                           reason=graphs.forward_reason(model.module,
+                                                        mask is not None))
+
         def predict_fn(inputs, mask=None):
-            return forward(inputs, mask).cpu().numpy()
-        predict_fn.refresh = _refresh
+            return device_outputs(inputs, mask).cpu().numpy()
+        predict_fn.refresh = program.release
+        predict_fn.mesh = None
         return predict_fn
+
+    @torch.inference_mode()
+    def forward(inputs, mask=None):
+        x, mask = staged(inputs, mask)
+        return body(x.to(model.device),
+                    None if mask is None else mask.to(model.device))
 
     @torch.inference_mode()
     def predict_fn(inputs, mask=None):
@@ -131,15 +173,28 @@ def make_batch_predict_fn(model, batch_size=32, mesh=None, compute_dtype=None,
                 mesh)
         return parallel.share_with_world(out, mesh)[:n].cpu().numpy()
     predict_fn.refresh = _refresh
+    predict_fn.mesh = mesh
     return predict_fn
 
 
 def _refresh():
-    """``predict_fn.refresh()``: the JAX package's predict fn caches the
-    replicated weights and needs it after the weights change; this one
-    reads the model's live parameters on every call, so there is nothing
-    to drop. It exists so that serving code written for either package
-    runs."""
+    """``predict_fn.refresh()`` of a mesh's predict fn: it reads the
+    model's live parameters on every call, so there is nothing to drop. It
+    exists so that serving code written for either package runs."""
+
+
+def _batch_arrays(pending, pad_buckets):
+    """(inputs, frame mask or None) of a batch of elements: only ``input``
+    is batched, zero-padded (to ``pad_buckets`` when given) when ragged."""
+    lengths = {p["input"].shape[0] for p in pending}
+    if len(lengths) == 1:
+        return np.stack([p["input"] for p in pending]).astype(np.float32), None
+    batch = padded_batch([{"input": p["input"]} for p in pending], "input",
+                         buckets=pad_buckets)
+    inputs = np.asarray(batch["input"], np.float32)
+    mask = (np.arange(inputs.shape[1])[None, :]
+            < batch["input_length"][:, None])
+    return inputs, mask
 
 
 def predict_with_model(model, ds, predict_fn=None, batch_size=32,
@@ -156,7 +211,16 @@ def predict_with_model(model, ds, predict_fn=None, batch_size=32,
     the outputs to class scores (``make_batch_predict_fn``; applied to a
     custom ``predict_fn``'s outputs too). With a ``mesh`` every rank maps
     the same dataset and each batch's forward is data-parallel
-    (``make_batch_predict_fn``); every rank returns the whole table."""
+    (``make_batch_predict_fn``); every rank returns the whole table.
+
+    Batches run in the JAX package's 2-deep pipeline: the predict fn runs
+    on 2 worker threads, so batch i + 1's transfer and forward are queued
+    while batch i's outputs are read back, and the results drain in order
+    (on one thread with a ``mesh``, or a predict fn with one, its
+    ``mesh``: each call is a collective, made in order on every rank). An
+    exception of any batch is raised here."""
+    in_order = (mesh is not None
+                or getattr(predict_fn, "mesh", None) is not None)
     if predict_fn is None:
         if mesh is not None:
             batch_size = -(-batch_size // mesh.size) * mesh.size
@@ -168,32 +232,35 @@ def predict_with_model(model, ds, predict_fn=None, batch_size=32,
         def predict_fn(inputs, mask):
             out = torch.as_tensor(np.asarray(base_fn(inputs, mask)))
             return score_fn(out).float().cpu().numpy()
+    pool = ThreadPoolExecutor(max_workers=1 if in_order else 2)
     ids, predictions = [], []
+    queued = collections.deque()
 
-    def run(pending):
-        lengths = {p["input"].shape[0] for p in pending}
-        mask = None
-        if len(lengths) == 1:
-            inputs = np.stack([p["input"] for p in pending])
-        else:
-            batch = padded_batch([{"input": p["input"]} for p in pending],
-                                 "input", buckets=pad_buckets)
-            inputs = batch["input"]
-            mask = (np.arange(inputs.shape[1])[None, :]
-                    < batch["input_length"][:, None])
-        preds = predict_fn(np.asarray(inputs, np.float32), mask)
-        for p, pred in zip(pending, preds):
+    def drain_one():
+        pending, future = queued.popleft()
+        for p, pred in zip(pending, future.result()):
             ids.append(str(p["id"]))
             predictions.append(np.asarray(pred))
 
-    pending = []
-    for x in ds:
-        pending.append(x)
-        if len(pending) == batch_size:
-            run(pending)
-            pending = []
-    if pending:
-        run(pending)
+    def submit(pending):
+        queued.append((pending, pool.submit(
+            lambda: predict_fn(*_batch_arrays(pending, pad_buckets)))))
+        while len(queued) > 2:
+            drain_one()
+
+    try:
+        pending = []
+        for x in ds:
+            pending.append(x)
+            if len(pending) == batch_size:
+                submit(pending)
+                pending = []
+        if pending:
+            submit(pending)
+        while queued:
+            drain_one()
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
     return predictions_table(ids, predictions)
 
 
