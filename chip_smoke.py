@@ -12,8 +12,9 @@ part below is "zeroed just before and read just after"
 (``launch_window``), its prediction also counts the launches of the
 capture warm-ups: ``graphs.WARMUP_STEPS`` for each fused step or log-Mel
 feature program captured, tallied on the host as they launch. Phases 3,
-6, 7, 8, 11, 12, 13 and 16 predict their captures from the shapes they
-feed, and fail unless the tally equals the warm-ups of those captures.
+6, 7, 8, 11, 12, 13, 16 and 17 predict their captures from the shapes
+they feed, and fail unless the tally equals the warm-ups of those
+captures.
 
 Phases, each of which fails the run:
 
@@ -152,9 +153,10 @@ Phases, each of which fails the run:
    x-vector and crnn through ``ModelWrapper.from_config(..., mesh=)
    .fit_fused``, 3 steps of [32, 48000] and 1 validation batch (a stream
    of its own, seed 1239). (a) In this process, mesh-less and on a 1-rank
-   NCCL mesh (``parallel.get_mesh()``): the x-vector's step losses and
-   validation must be equal; the NCCL all-reduce of the 18 MB gradient
-   bucket and the step with and without the mesh are timed. (b) Two ranks
+   NCCL mesh (``parallel.get_mesh()``, captured like the mesh-less
+   step): the x-vector's step losses and validation must be equal;
+   the NCCL all-reduce of the 18 MB gradient bucket and the step with and
+   without the mesh are timed. (b) Two ranks
    of this script (``--dp-rank``) share the card over gloo (NCCL refuses
    one card twice: a probe pair prints its refusal), each feeding its
    [16, 48000] rows: their step losses within rtol 1e-3 of (a)'s
@@ -171,6 +173,7 @@ Phases, each of which fails the run:
    and on a 1 x 1 NCCL mesh with the rule, step losses and validation
    equal; one process on signals one ulp away, the comparison's floor;
    ``remat`` with channel dropout 0.5 against the plain step (rtol 1e-6);
+   the 1 x 1 mesh and remat captured;
    the ``bf16_3x`` / ``bf16_6x`` log-Mel of a training batch against
    float64 (the JAX package's 1.5e-3 budget), timed, and their pallas
    request on the matmul path. (b) Two ranks of this script
@@ -232,6 +235,29 @@ Phases, each of which fails the run:
    served forward [32, 298, 64], a stream chunk [1, 32000], features +
    forward of 32 decoded 3 s signals and ``evaluate`` timed eager and
    graphed in turns on CUDA events, the host clock and torch.profiler.
+17. the masked recurrent, remat and one-rank-mesh steps, captured, last and
+   under deterministic cuDNN (a stream of its own, seed 1245): (a) lstm,
+   bi_gru, crnn and ap_lstm at their published widths through
+   ``fit_fused`` with ``stft_method: "pallas"`` on phase 5's
+   length-tracking chain (energy VAD and speed change [0.9, 1.1], so every
+   batch carries a frame mask), 4 steps of [32, 48000] and 1 validation
+   batch, graphed and eager: step losses, epoch logs and final state bit
+   for bit, the launches of each fit (zeroed just before, read just after)
+   equal to the prediction printed first (a step and a validation batch
+   each, and one capture's warm-ups); 3 replays under
+   ``set_sync_debug_mode("error")``; the first step's loss against the
+   CPU's on the same weights and draws (rtol 1e-3); each masked step timed
+   eager and graphed in turns (CUDA events, torch.profiler's busy time and
+   idle share); crnn and bi_gru behind ``serve.Classifier`` on 8 ragged
+   wavs of 2-4 s (one masked batch), graphed == eager bit for bit and
+   within SERVE_ATOL of the CPU; the kernel held to its plain version on
+   the first masked batch. (b) The full-width x-vector with channel
+   dropout 0.5 and ``remat``, 4 steps: graphed == eager bit for bit,
+   within rtol 1e-6 of the plain step, the step timed and the peak device
+   memory of each fit with and without remat. (c) The x-vector mesh-less,
+   on ``parallel.get_mesh()`` (NCCL, one rank) and on a 1 x 1
+   ``get_mesh_2d`` with ``column_parallel_rule``, all three captured:
+   step losses and validation bit for bit, the step timed.
 
 Every comparison of the kernel with its plain version holds float32 within
 atol 1e-4 + rtol 1e-4 (the allclose of the tests; the distance of each from
@@ -1119,12 +1145,12 @@ def check_same_run(graphed, eager, what):
     return len(a)
 
 
-def whole_step_times(step, state, inputs, steps=30, warmup=5):
+def whole_step_times(step, state, inputs, steps=30, warmup=5, profiled=5):
     """One fused train step form (``step(state, *inputs) -> (state,
     loss)``, from ``make_fused_train_step``) on one batch: (median ms on
-    CUDA events, host wall ms a step, device busy ms a step over 5 steps
-    under torch.profiler, the log-Mel launches it recorded of those 5).
-    The warm-up captures a graphed step."""
+    CUDA events, host wall ms a step, device busy ms a step over
+    ``profiled`` steps under torch.profiler, the log-Mel launches it
+    recorded of those). The warm-up captures a graphed step."""
     holder = [state]
 
     def one():
@@ -1148,11 +1174,12 @@ def whole_step_times(step, state, inputs, steps=30, warmup=5):
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / steps * 1e3
     seen = {}
-    busy = sum(ms for ms, _ in device_ops(one, counts=seen))
+    busy = sum(ms for ms, _ in device_ops(one, calls=profiled, counts=seen))
     return median, wall, busy, kernel_launches_seen(seen, "logmel_kernel")[0]
 
 
-def eager_and_graphed(trainer, feature_fn, inputs, what):
+def eager_and_graphed(trainer, feature_fn, inputs, what, steps=30,
+                      profiled=5):
     """The whole fused step eager (the functional step) and graphed (one
     CUDA graph replay) on the same inputs, timed in turns (eager, graphed,
     graphed, eager: whole_step_times): {"eager": [(median, wall, busy),
@@ -1164,12 +1191,13 @@ def eager_and_graphed(trainer, feature_fn, inputs, what):
     out = {"eager": [], "graphed": []}
     for form in ("eager", "graphed", "graphed", "eager"):
         out[form].append(whole_step_times(forms[form], trainer.state,
-                                          inputs))
+                                          inputs, steps=steps,
+                                          profiled=profiled))
     for form, runs in out.items():
         print(f"{what}, whole step {form}: " + "; ".join(
             f"median {m:.4f} ms on CUDA events, host wall {w:.4f} ms, device "
             f"busy {b:.4f} ms ({1 - b / m:.1%} of the median idle; the "
-            f"profiler recorded {n} of 5 kernel launches)"
+            f"profiler recorded {n} of {profiled} kernel launches)"
             for m, w, b, n in runs))
     return out
 
@@ -1474,12 +1502,13 @@ def phase_train_step_timing(wrapper, batch, kernel_ms, steps=30, warmup=5):
     return parts
 
 
-def class_sines_with_pauses(rng, n_batches):
+def class_sines_with_pauses(rng, n_batches, batch=TRAIN_BATCH,
+                            seconds=TRAIN_SECONDS):
     """class_sines with one silent stretch of 0.35-0.8 s per row, longer
     than the energy VAD's 300 ms smoothing, so the VAD compacts every row
     and leaves it a zero tail."""
     out = []
-    for sig, y in class_sines(rng, n_batches):
+    for sig, y in class_sines(rng, n_batches, batch, seconds):
         sig = sig.copy()
         for row in sig:
             width = int(RATE * rng.uniform(0.35, 0.8))
@@ -2418,7 +2447,7 @@ def phase_zoo(root, rng, logmel, device="cuda"):
               f"the CPU (rel {loss_err}) beyond rtol {ZOO_RTOL}")
         init_stats = {k: v.clone() for k, v in trainer.state.batch_stats.items()}
         with launch_window(device, captures=[] if graphs.eager_reason(
-                trainer, False) else [(ZOO_BATCH, int(RATE * ZOO_SECONDS))]
+                trainer) else [(ZOO_BATCH, int(RATE * ZOO_SECONDS))]
                            ) as counted:
             history = wrapper.fit_fused(lambda: train, epochs=1,
                                         val_signal_batches=lambda: val,
@@ -2929,8 +2958,8 @@ def fit_wrapper(wrapper, train, val, mesh, device):
     wrapper.model.init(torch.Generator().manual_seed(SEED))
     losses = []
     # the fused step is captured once, unless it runs eagerly by rule (a
-    # mesh, remat)
-    captures = ([] if graphs.eager_reason(wrapper.trainer, False)
+    # mesh of several ranks)
+    captures = ([] if graphs.eager_reason(wrapper.trainer)
                 else [np.shape(train[0][0])])
     feed, val_feed = (lambda: train), (lambda: val)
     if parallel.mesh_spans_processes(mesh):
@@ -2942,8 +2971,8 @@ def fit_wrapper(wrapper, train, val, mesh, device):
                                     val_signal_batches=val_feed)
         sync(device)
     launches = counted["logmel_kernel"]
-    # a step and a validation batch each, and the capture warm-ups (a
-    # mesh's steps run eagerly: none)
+    # a step and a validation batch each, and the capture warm-ups (the
+    # steps of a mesh of several ranks run eagerly: none)
     expected = len(train) + len(val) + counted["warmup"]
     check(launches == expected or device != "cuda",
           f"fit_fused launched the kernel {launches} times, not {expected}")
@@ -3339,13 +3368,12 @@ SPLIT_BUDGET = 1.5e-3
 TP_COLLECTIVE_TIMEOUT_S, TP_RANK_TIMEOUT_S = 120, 300
 
 
-def tp_fit(root, name, train, val, mesh=None, device="cuda", remat=False,
-           dropout=0.0):
-    """fit_wrapper's run of the x-vector (channel dropout ``dropout``, Adam
-    at TP_LEARNING_RATE) with ``remat``; on a 2-D ``mesh`` its Trainer
-    splits the parameters with ``parallel.column_parallel_rule``: (step
-    losses, epoch logs, the kernel's launches over the fit, the
-    wrapper)."""
+def tp_wrapper(root, name, mesh=None, device="cuda", remat=False,
+               dropout=0.0):
+    """The x-vector's wrapper (channel dropout ``dropout``, Adam at
+    TP_LEARNING_RATE) with ``remat``; on a ``mesh`` (a 1-D mesh replicates
+    the parameters, a 2-D one splits them with
+    ``parallel.column_parallel_rule``)."""
     from lidbox_tpu_torch import parallel
     from lidbox_tpu_torch.models.model_utils import ModelWrapper
     from lidbox_tpu_torch.train.loop import Trainer
@@ -3359,10 +3387,19 @@ def tp_fit(root, name, train, val, mesh=None, device="cuda", remat=False,
     if mesh is not None:
         wrapper.trainer = Trainer(
             t.model, t.optimizer, t.loss_fn, metrics=t.metrics, mesh=mesh,
-            param_sharding=parallel.column_parallel_rule(mesh),
+            param_sharding=parallel.column_parallel_rule(mesh)
+            if parallel.MODEL_AXIS in mesh.axis_names else None,
             device=device)
     wrapper.trainer.remat = remat
-    return fit_wrapper(wrapper, train, val, mesh, device)
+    return wrapper
+
+
+def tp_fit(root, name, train, val, mesh=None, device="cuda", remat=False,
+           dropout=0.0):
+    """fit_wrapper's run of ``tp_wrapper``: (step losses, epoch logs, the
+    kernel's launches over the fit, the wrapper)."""
+    return fit_wrapper(tp_wrapper(root, name, mesh, device, remat, dropout),
+                       train, val, mesh, device)
 
 
 def tp_collectives(wrapper, signals, targets):
@@ -3993,6 +4030,415 @@ def phase_orbax(root, rng, logmel, device="cuda"):
     return launches, max(errors, default=0.0)
 
 
+# Phase 17: the masked recurrent, remat and one-rank-mesh steps. (a) The
+# four recurrent models at their published widths through the
+# length-tracking chain of phase 5 (energy VAD and speed change [0.9, 1.1]:
+# every batch carries a frame mask), MASKED_BATCHES steps of [32, 48000] and
+# 1 validation batch (a stream of its own, seed 1245); crnn and bi_gru served
+# on MASKED_WAVS ragged wavs of 2-4 s. (b) remat with channel dropout 0.5,
+# 4 steps. (c) the x-vector on a 1-rank and a 1 x 1 NCCL mesh, 4 steps.
+MASKED_KEYS = ("lstm", "bi_gru", "crnn", "ap_lstm")
+MASKED_SERVED = ("crnn", "bi_gru")
+MASKED_CHAIN = {"speed_range": [0.9, 1.1], "vad": True}
+MASKED_BATCHES, MASKED_BATCH, MASKED_SECONDS = 4, TRAIN_BATCH, TRAIN_SECONDS
+MASKED_WAVS = 8
+# steady steps timed per turn (eager, graphed, graphed, eager), and steps
+# under torch.profiler per turn (its cost grows with the recurrent layers'
+# launches: one or more per time step)
+MASKED_TIMED_STEPS, MASKED_PROFILED_STEPS = 10, 2
+
+
+def masked_wrapper(root, key, device):
+    """zoo_config of ``key`` (its published widths) with the
+    length-tracking chain, weights from SEED."""
+    from lidbox_tpu_torch.models.model_utils import ModelWrapper
+    config = zoo_config(os.path.join(root, "masked"), key, {})
+    config["features"]["on_device_augment"] = dict(MASKED_CHAIN)
+    wrapper = ModelWrapper.from_config(config, device=device)
+    wrapper.model.init(torch.Generator().manual_seed(SEED))
+    return wrapper
+
+
+def fit_forms(make, train, val, what, device, forms=("graphed", "eager")):
+    """fit_fused of a fresh ``make()`` wrapper for one epoch of ``train``,
+    validating on ``val``, in each of ``forms``: "graphed" (one capture
+    predicted) and "eager" (``fit_signals(..., eager=True)``: none). The
+    launch count is zeroed just before each fit and read just after: one
+    launch per step and validation batch and the capture's warm-ups. The
+    graphed and the eager run must agree bit for bit (``check_same_run``;
+    on a difference a second eager run tells a nondeterministic model
+    from a graph fault). Returns {form: (step losses, history, trainer,
+    launches, the fit's peak device MB above what it started with,
+    wrapper)}."""
+    on_card = device == "cuda"
+    runs = {}
+    for form in forms:
+        wrapper = make()
+        losses = []
+        base = 0
+        if on_card:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(recording_losses(losses))
+            if form != "graphed":
+                stack.enter_context(eager_steps())
+            counted = stack.enter_context(launch_window(
+                device, captures=[np.shape(train[0][0])]
+                if form == "graphed" else []))
+            history = wrapper.fit_fused(lambda: train, epochs=1,
+                                        val_signal_batches=lambda: val,
+                                        verbose=False)
+            sync(device)
+        peak = ((torch.cuda.max_memory_allocated() - base) / 2 ** 20
+                if on_card else float("nan"))
+        n = counted["logmel_kernel"]
+        expected = len(train) + len(val) + counted["warmup"]
+        check(n == expected or not on_card,
+              f"{what} {form}: {n} kernel launches over the fit, not "
+              f"{expected}")
+        runs[form] = (step_losses_of(losses), history, wrapper.trainer, n,
+                      peak, wrapper)
+    if "eager" in runs:
+        try:
+            check_same_run(runs["graphed"][:3], runs["eager"][:3], what)
+        except RuntimeError as fault:
+            again = fit_forms(make, train, val, what, device,
+                              forms=("eager",))["eager"]
+            same = again[0] == runs["eager"][0]
+            raise RuntimeError(
+                f"{fault}; a second eager run "
+                + ("gives the first one's losses: the graph differs" if same
+                   else "differs from the first: the model's eager steps "
+                   "are not deterministic")) from None
+    return runs
+
+
+def masked_first_loss(root, key, signals, targets, draws, device):
+    """The training-mode loss of a fresh ``key`` wrapper's first step on
+    one signal batch through the length-tracking chain with ``draws``
+    (drawn on the card, so both devices augment alike), before any
+    update."""
+    from lidbox_tpu_torch.data import on_device
+    from lidbox_tpu_torch.train.loop import to_device
+    wrapper = masked_wrapper(root, key, device)
+    trainer = wrapper.trainer
+    trainer.create_state()
+    fn = on_device.feature_fn_from_config(RATE, wrapper.config["features"],
+                                          device=trainer.device)
+    feats, mask = fn(None, to_device(signals, trainer.device), draws={
+        k: v.to(trainer.device) for k, v in draws.items()})
+    batch = {"input": feats, "input_mask": mask,
+             "target": to_device(targets.astype(np.int64), trainer.device)}
+    with torch.no_grad():
+        out, _ = trainer._apply(trainer.state.params,
+                                trainer.state.batch_stats, batch, train=True,
+                                generator=trainer.generator)
+        return float(trainer._masked_mean(trainer.loss_fn(batch["target"],
+                                                          out), batch))
+
+
+def ragged_wavs(io, root, rng, n):
+    """``n`` noisy sines of 2-4 s each: their features differ in length,
+    so a served batch of them carries a frame mask. Returns (paths, the
+    longest's samples)."""
+    paths, longest = [], 0
+    for i in range(n):
+        sig = noisy_sines(rng, 1, float(rng.uniform(2.0, 4.0)), RATE)[0]
+        paths.append(os.path.join(root, f"ragged{i:02d}.wav"))
+        io.write_mono_wav(paths[-1], sig, RATE)
+        longest = max(longest, sig.size)
+    return paths, longest
+
+
+def phase_masked(root, rng, logmel, device="cuda"):
+    """Phase 17: the masked recurrent, remat and one-rank-mesh steps,
+    captured.
+    (a) lstm, bi_gru, crnn and ap_lstm through fit_fused on the
+    length-tracking chain, graphed and eager bit for bit, the launches of
+    each fit as predicted, 3 replays under
+    ``set_sync_debug_mode("error")``, the first step's loss against the
+    CPU's on the same weights and draws, each masked step timed eager and
+    graphed in turns; crnn and bi_gru behind ``serve.Classifier`` on ragged
+    wavs graphed and eager bit for bit and within SERVE_ATOL of the CPU;
+    the kernel held to its plain version on the first masked batch.
+    (b) remat with channel dropout 0.5, graphed and eager bit for bit,
+    within REMAT_RTOL of the plain step, the peak memory with and without
+    remat. (c) the x-vector mesh-less, on a 1-rank mesh and on a 1 x 1
+    mesh with the column-parallel rule, all captured, bit for bit, timed.
+    Returns (the launches of each kernel, the kernel's error on the
+    masked batch).
+
+    ``device="cpu"`` rehearses it on the plain version (set MASKED_BATCH
+    and MASKED_SECONDS small first); the launch counts, the sync check,
+    the card-vs-CPU comparisons, the kernel check, the memory and the
+    timing need the card."""
+    import lidbox_tpu_torch.features as features
+    from lidbox_tpu_torch import parallel, serve
+    from lidbox_tpu_torch.data import on_device
+    from lidbox_tpu_torch.features import io
+    from lidbox_tpu_torch.train.loop import keyed_generator, to_device
+
+    on_card = device == "cuda"
+    card = card_line() if on_card else "CPU rehearsal"
+    samples = int(RATE * MASKED_SECONDS)
+    train = class_sines_with_pauses(rng, MASKED_BATCHES, MASKED_BATCH,
+                                    MASKED_SECONDS)
+    val = class_sines_with_pauses(rng, 1, MASKED_BATCH, MASKED_SECONDS)
+    wav_root = os.path.join(root, "masked_wavs")
+    os.makedirs(wav_root)
+    paths, longest = ragged_wavs(io, wav_root, rng, MASKED_WAVS)
+    ids = [f"ragged{i:02d}" for i in range(MASKED_WAVS)]
+    predicted = {"graphed": MASKED_BATCHES + 1 + 2 * 1,  # 1 capture
+                 "eager": MASKED_BATCHES + 1}
+    print(f"masked ({card}): seed {SEED + 11}; chain {MASKED_CHAIN}; "
+          f"{MASKED_BATCHES} steps of [{MASKED_BATCH}, {samples}] + 1 "
+          f"validation batch; predicted launches per fit: graphed "
+          f"{predicted['graphed']} (one capture's 2 warm-ups), eager "
+          f"{predicted['eager']}; serving {MASKED_WAVS} ragged wavs: graphed "
+          f"1 + its capture's warm-ups, eager 1")
+    aug = on_device.augment_config_from_dict(MASKED_CHAIN)
+    draws = on_device.draw_augmentation(
+        keyed_generator(device, SEED, 0, 7), aug, MASKED_BATCH, samples,
+        None, device)
+    x = to_device(train[0][0], torch.device(device))
+    y = to_device(train[0][1].astype(np.int64), torch.device(device))
+    launches, reductions, kept, rows = 0, 0, [], []
+    extract = features.extract_features
+
+    def keeping(signals, *args, **kw):
+        # the first batch the chain hands the kernel, in the eager run
+        if kw.get("lengths") is not None and not kept:
+            kept.append(signals.clone())
+        return extract(signals, *args, **kw)
+
+    # (a) the recurrent models on frame masks
+    for key in MASKED_KEYS:
+        marks = [("start", time.perf_counter())]
+
+        def mark(name):
+            marks.append((name, time.perf_counter()))
+
+        def spent():
+            return ", ".join(f"{b[0]} {b[1] - a[1]:.1f} s"
+                             for a, b in zip(marks, marks[1:]))
+        if not kept:
+            features.extract_features = keeping
+        try:
+            runs = fit_forms(lambda: masked_wrapper(root, key, device),
+                             train, val, f"masked {key}", device)
+        finally:
+            features.extract_features = extract
+        mark("fits")
+        for form in ("graphed", "eager"):
+            n = runs[form][3]
+            check(n == predicted[form] or not on_card,
+                  f"masked {key} {form}: {n} launches, predicted "
+                  f"{predicted[form]}")
+            launches += n
+        losses, history, trainer, _, _, wrapper = runs["graphed"]
+        check(all(np.isfinite(losses)) and np.isfinite(history[0]["loss"])
+              and np.isfinite(history[0]["val_loss"]),
+              f"masked {key}: not finite: {losses}, {history}")
+        fn = on_device.feature_fn_from_config(
+            RATE, wrapper.config["features"], device=trainer.device)
+        _, mask = fn(None, x, draws=draws)
+        lengths = mask.sum(dim=1)
+        check(int(lengths.min()) < mask.shape[1] and
+              len(set(lengths.tolist())) > 1,
+              f"masked {key}: the batch's frame mask is not ragged")
+        row = {"config": key, "params": wrapper.count_params(),
+               "losses": losses, "val_loss": history[0]["val_loss"],
+               "frames": [int(lengths.min()), int(lengths.max()),
+                          int(mask.shape[1])]}
+        if on_card:
+            cpu = masked_first_loss(root, key, train[0][0], train[0][1],
+                                    {k: v.cpu() for k, v in draws.items()},
+                                    "cpu")
+            first = masked_first_loss(root, key, train[0][0], train[0][1],
+                                      draws, device)
+            rel = abs(first - cpu) / abs(cpu)
+            check(rel <= ZOO_RTOL, f"masked {key}: first loss {first} on the "
+                                   f"card, {cpu} on the CPU (rel {rel})")
+            row.update(first_loss=first, cpu_loss=cpu, loss_rel=rel)
+            mark("card vs CPU")
+            step = on_device.make_fused_train_step(trainer, fn)
+            for _ in range(2):  # capture
+                trainer.state, _ = step(trainer.state, x, y,
+                                        trainer.generator)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for _ in range(3):
+                    trainer.state, loss = step(trainer.state, x, y,
+                                               trainer.generator)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            check(np.isfinite(float(loss)),
+                  f"masked {key}: the replays are not finite")
+            mark("sync check")
+            row["forms"] = eager_and_graphed(
+                trainer, fn, (x, y, trainer.generator),
+                f"masked {key} train step [{MASKED_BATCH}, {samples}]",
+                steps=MASKED_TIMED_STEPS, profiled=MASKED_PROFILED_STEPS)
+            mark("timing")
+        print(f"masked {key}: {row['params']} parameters; fit_fused graphed "
+              f"== eager bit for bit: step losses {losses}, val_loss "
+              f"{row['val_loss']!r}, state; frames per row "
+              f"{row['frames'][0]}-{row['frames'][1]} of {row['frames'][2]}"
+              + (f"; 3 replays under set_sync_debug_mode('error'): no host "
+                 f"synchronization; first loss {row['first_loss']:.6f} vs "
+                 f"CPU {row['cpu_loss']:.6f} (rel {row['loss_rel']:.2e}, "
+                 f"rtol {ZOO_RTOL})" if on_card else "")
+              + f"; {spent()}")
+        rows.append(row)
+
+        if key in MASKED_SERVED:
+            trainer.sync_model_variables()
+            cpu_model = masked_wrapper(root, key, "cpu").model
+            cpu_model.module.load_state_dict(
+                {k: v.cpu()
+                 for k, v in wrapper.model.module.state_dict().items()})
+            scores = {}
+            for form in ("graphed", "eager"):
+                with launch_window(device, captures=[served_shape(
+                        MASKED_WAVS, longest)] if form == "graphed"
+                        else []) as counted:
+                    scores[form] = np.stack(serve.Classifier(
+                        wrapper.model, LABELS, feature_config=FEATURES_PALLAS,
+                        batch_size=MASKED_WAVS, device=device,
+                        eager=form == "eager").scores(paths, ids=ids)[
+                            "prediction"])
+                    sync(device)
+                n = counted["logmel_kernel"]
+                check(n == 1 + counted["warmup"] or not on_card,
+                      f"masked {key} served {form}: {n} launches, not 1 + "
+                      f"{counted['warmup']} capture warm-ups")
+                launches += n
+                if on_card:  # a split launch adds its reduction
+                    split = logmel.launch_plan(
+                        *served_shape(MASKED_WAVS, longest), RATE,
+                        **KERNEL_KW)[0]["splits"] > 1
+                    r = counted["logmel_reduce"]
+                    check(r == split + counted["warmup_reduce"],
+                          f"masked {key} served {form}: {r} reductions, not "
+                          f"{int(split)} + {counted['warmup_reduce']}")
+                    reductions += r
+            ref = np.stack(serve.Classifier(
+                cpu_model, LABELS, feature_config=FEATURES_PALLAS,
+                batch_size=MASKED_WAVS, device="cpu").scores(
+                    paths, ids=ids)["prediction"])
+            err = float(np.abs(scores["graphed"] - ref).max())
+            check(np.array_equal(scores["graphed"], scores["eager"]),
+                  f"masked {key}: served scores graphed != eager")
+            check(err <= SERVE_ATOL, f"masked {key}: served scores {err} "
+                                     f"from the CPU's (atol {SERVE_ATOL})")
+            print(f"masked {key} served ({MASKED_WAVS} wavs of 2-4 s, one "
+                  f"masked batch): graphed == eager bit for bit, max |{device}"
+                  f" - CPU| {err:.3e} (atol {SERVE_ATOL}); "
+                  f"{time.perf_counter() - marks[-1][1]:.1f} s")
+        del runs, trainer, wrapper
+        if on_card:
+            torch.cuda.empty_cache()
+    err = 0.0
+    if on_card:
+        check(len(kept) == 1, f"kept {len(kept)} masked batches")
+        err = compare(logmel, f"masked batch {tuple(kept[0].shape)}",
+                      kept[0], RATE, KERNEL_KW)
+
+    # (b) remat, with channel dropout 0.5
+    t0 = time.perf_counter()
+    plain_train = class_sines(rng, MASKED_BATCHES, MASKED_BATCH,
+                              MASKED_SECONDS)
+    plain_val = class_sines(rng, 1, MASKED_BATCH, MASKED_SECONDS)
+
+    def dropout_wrapper(remat):
+        wrapper = tp_wrapper(root, f"remat{int(remat)}", device=device,
+                             remat=remat, dropout=0.5)
+        wrapper.model.init(torch.Generator().manual_seed(SEED))
+        wrapper.trainer.callbacks = []  # no checkpoint files
+        return wrapper
+    remat = fit_forms(lambda: dropout_wrapper(True), plain_train, plain_val,
+                      "remat", device)
+    plain = fit_forms(lambda: dropout_wrapper(False), plain_train, plain_val,
+                      "plain", device)
+    for runs in (remat, plain):
+        check(all(r[3] == predicted[f] or not on_card
+                  for f, r in runs.items()),
+              f"remat phase launches {[r[3] for r in runs.values()]}")
+        launches += sum(r[3] for r in runs.values())
+    rel = max(abs(a - b) / abs(b) for a, b in zip(remat["graphed"][0],
+                                                  plain["graphed"][0]))
+    check(rel <= REMAT_RTOL, f"remat step losses {remat['graphed'][0]} vs "
+                             f"plain {plain['graphed'][0]} (rel {rel})")
+    print(f"masked (b): remat with channel dropout 0.5, graphed == eager bit "
+          f"for bit: step losses {remat['graphed'][0]}; vs the plain graphed "
+          f"step max rel {rel:.3e} (rtol {REMAT_RTOL})")
+    if on_card:
+        trainer = remat["graphed"][2]
+        fn = on_device.feature_fn_from_config(
+            RATE, remat["graphed"][5].config["features"],
+            device=trainer.device)
+        px = to_device(plain_train[0][0], trainer.device)
+        py = to_device(plain_train[0][1].astype(np.int64), trainer.device)
+        forms = eager_and_graphed(trainer, fn, (px, py, trainer.generator),
+                                  f"masked (b) remat step [{MASKED_BATCH}, "
+                                  f"{samples}]", steps=MASKED_TIMED_STEPS,
+                                  profiled=MASKED_PROFILED_STEPS)
+        peaks = {f"{name} {form}": runs[form][4]
+                 for name, runs in (("remat", remat), ("plain", plain))
+                 for form in ("graphed", "eager")}
+        print(f"masked (b) ({card}): peak device memory over each fit above "
+              f"its start (torch.cuda.max_memory_allocated): "
+              + ", ".join(f"{k} {v:.1f} MB" for k, v in peaks.items())
+              + "; remat / plain: graphed "
+              f"{peaks['remat graphed'] / peaks['plain graphed']:.3f}, eager "
+              f"{peaks['remat eager'] / peaks['plain eager']:.3f}; "
+              f"{time.perf_counter() - t0:.1f} s for (b)")
+        rows.append({"config": "remat", "forms": forms, "peaks": peaks})
+    del remat, plain
+
+    # (c) one-rank meshes, captured
+    t0 = time.perf_counter()
+    mesh1 = parallel.get_mesh(device=device)
+    check(mesh1.size == 1, f"a {mesh1.size}-rank group in this process")
+    mesh11 = parallel.get_mesh_2d(data_size=1, model_size=1, device=device)
+    fits = {}
+    for name, mesh in (("mesh-less", None), ("1-rank", mesh1),
+                       ("1 x 1", mesh11)):
+        fits[name] = tp_fit(root, f"masked_{name}", plain_train, plain_val,
+                            mesh, device)
+        launches += fits[name][2]  # fit_wrapper checks: one capture
+    base = fits["mesh-less"]
+    for name in ("1-rank", "1 x 1"):
+        got = fits[name]
+        check(got[0] == base[0] and got[1]["val_loss"] == base[1]["val_loss"]
+              and got[1]["val_C_avg"] == base[1]["val_C_avg"],
+              f"{name} mesh: step losses {got[0]}, val {got[1]} != mesh-less "
+              f"{base[0]}, {base[1]}")
+    timing = {}
+    if on_card:
+        xs, ys = plain_train[0]
+        for name, got in fits.items():
+            timing[name] = dp_step_ms(got[3], xs, ys)
+    print(f"masked (c) ({card}): the x-vector on a 1-rank {mesh1.backend} "
+          f"mesh and on a 1 x 1 mesh with the column-parallel rule, both "
+          f"captured: step losses and validation == mesh-less bit for bit "
+          f"({base[0]}, val_loss {base[1]['val_loss']!r})"
+          + ("; fused train step [" + f"{MASKED_BATCH}, {samples}] "
+             + ", ".join(f"{k} {v:.4f} ms" for k, v in timing.items())
+             + " (CUDA events, medians)" if timing else "")
+          + f"; {time.perf_counter() - t0:.1f} s for (c)")
+    parallel.shutdown_distributed()
+    if on_card:
+        print(f"masked table ({card}): " + json.dumps([
+            {k: v for k, v in r.items()} for r in rows]))
+    print(f"masked: logmel_kernel launches {launches}, logmel_reduce "
+          f"{reductions}")
+    return launches, reductions, err
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4053,6 +4499,8 @@ def main():
                 root, np.random.default_rng(SEED + 6), logmel)
             orbax_launches, orbax_err = phase_orbax(
                 root, np.random.default_rng(SEED + 7), logmel)
+            masked_launches, masked_reductions, masked_err = phase_masked(
+                root, np.random.default_rng(SEED + 11), logmel)
         finally:
             torch.backends.cudnn.deterministic = False
     if pipe_timing is not None:
@@ -4071,8 +4519,10 @@ def main():
           f"(fit and embedding extraction) + {cli_launches} CLI + "
           f"{zoo_launches} model zoo + {graph_launches} graphs + "
           f"{dp_launches} data parallel + {tp_launches} tensor parallel + "
-          f"{orbax_launches} Orbax; split reductions {serve_reductions} in "
-          f"serving + {served_reductions} in served graphs")
+          f"{orbax_launches} Orbax + {masked_launches} masked, remat and "
+          f"one-rank meshes; split reductions {serve_reductions} in "
+          f"serving + {served_reductions} in served graphs + "
+          f"{masked_reductions} masked serving")
 
     print(json.dumps({"kernels": [{
         "name": "logmel_kernel",
@@ -4083,10 +4533,10 @@ def main():
                      + aug_launches
                      + pipe_launches + cli_launches + zoo_launches
                      + graph_launches + dp_launches + tp_launches
-                     + orbax_launches),
+                     + orbax_launches + masked_launches),
         "max_abs_err": max(geometry_err, path_err, served_err, aug_err,
                            pipe_err, cli_err, zoo_err, dp_err, tp_err,
-                           orbax_err),
+                           orbax_err, masked_err),
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
@@ -4097,7 +4547,7 @@ def main():
         "route": "cuda",
         "source": "lidbox_tpu_torch/csrc/logmel.cu",
         "replaces": "lidbox_tpu/ops/logmel.py:154",
-        "launches": serve_reductions + served_reductions,
+        "launches": serve_reductions + served_reductions + masked_reductions,
         "max_abs_err": reduce_fields[0],
         "ms": reduce_fields[1],
         "plain_ms": reduce_fields[2],

@@ -528,8 +528,7 @@ def _fused_program(trainer, feature_fn, eager=False):
     generator keyed (trainer seed, state.step, 7)."""
     return trainer.step_program(
         "fused", feature_fn, eager, batch=_fused_batch(feature_fn),
-        augment=True,
-        masked=bool(getattr(feature_fn, "tracks_lengths", False)))
+        augment=True)
 
 
 def _inputs(signals, targets, example_mask):

@@ -17,10 +17,6 @@ from .model_api import Model, as_embedding_extractor  # noqa: F401
 
 
 class APLSTM(nn.Module):
-    # a frame-masked forward packs the recurrent layers by lengths read
-    # on the host (layers.run_rnn): no CUDA graph captures it
-    packs_by_host_lengths = True
-
     def __init__(self, input_dim, num_lstm_units=62, alpha1=1.0, alpha2=1.0,
                  channel_dropout_rate=0.0):
         super().__init__()

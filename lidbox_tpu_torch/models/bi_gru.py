@@ -13,10 +13,6 @@ from .model_api import Model, as_embedding_extractor  # noqa: F401
 
 
 class BiGRU(nn.Module):
-    # a frame-masked forward packs the recurrent layers by lengths read
-    # on the host (layers.run_rnn): no CUDA graph captures it
-    packs_by_host_lengths = True
-
     def __init__(self, input_dim, num_outputs, output_activation="log_softmax",
                  channel_dropout_rate=0.0):
         super().__init__()

@@ -20,10 +20,6 @@ STAGES = ((16, 7), (32, 5), (64, 3), (128, 3), (256, 3))
 
 
 class CRNN(nn.Module):
-    # a frame-masked forward packs the recurrent layers by lengths read
-    # on the host (layers.run_rnn): no CUDA graph captures it
-    packs_by_host_lengths = True
-
     def __init__(self, input_dim, num_outputs, output_activation="softmax",
                  weight_decay=0.001):
         super().__init__()

@@ -31,8 +31,6 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.nn.utils.rnn import (PackedSequence, pack_padded_sequence,
-                                pad_packed_sequence)
 
 from lidbox_tpu_torch import parallel
 
@@ -475,39 +473,55 @@ class RNNCell(nn.Module):
                 torch.cat([bias(l) for l in hids])]
 
 
+def _flip_prefixes(x, lengths):
+    """Each row's first ``lengths[b]`` steps reversed, the rest in place:
+    index n - 1 - t for t < n, t otherwise (Flax's ``flip_sequences`` at
+    every valid step). A permutation that is its own inverse, gathered on
+    the device, so its backward adds each element exactly once."""
+    t = torch.arange(x.shape[1], device=x.device)
+    n = lengths[:, None]
+    idx = torch.where(t < n, n - 1 - t, t)
+    return torch.take_along_dim(x, idx[..., None], dim=1)
+
+
 def run_rnn(cells, x, lengths=None):
     """One cuDNN (or CPU) RNN layer of one or two directions over
     [B, T, F] -> [B, T, D * units].
 
-    ``cells`` is (forward,) or (forward, backward) ``RNNCell``s. With
-    ``lengths`` the batch is packed (``pack_padded_sequence``), so the
-    backward direction reads each row's valid prefix reversed, Flax's
-    ``reverse=True, keep_order=True`` with ``seq_lengths``; outputs past a
-    row's length are zero (the JAX package's are unspecified there and
-    must be masked downstream). Packing needs the lengths on the host: a
-    masked forward on the card waits for them once. Lengths under 1 are
-    run as 1."""
+    ``cells`` is (forward,) or (forward, backward) ``RNNCell``s. Without
+    ``lengths`` it is one call of both directions. With ``lengths`` (on the
+    device; under 1 run as 1) each direction is a single-direction call
+    over the whole padded batch, Flax's ``nn.RNN`` with ``seq_lengths``:
+    the forward direction's outputs at valid steps do not depend on the
+    padding after them, and the backward direction runs over each row's
+    valid prefix reversed (``_flip_prefixes``) and is flipped back, Flax's
+    ``reverse=True, keep_order=True``. Outputs past a row's length are
+    zero (the JAX package's are unspecified there and must be masked
+    downstream). Nothing is read back to the host, so a CUDA graph
+    captures it."""
     kind = cells[0].kind
-    units = cells[0].units
-    weights = [w for c in cells for w in c.flat_weights()]
-    bidirectional = len(cells) == 2
-    h0 = x.new_zeros(len(cells), x.shape[0], units)
+    h0 = x.new_zeros(len(cells) if lengths is None else 1, x.shape[0],
+                     cells[0].units)
     hx = (h0, h0) if kind == "lstm" else h0
     fn = torch.lstm if kind == "lstm" else torch.gru
     # cuDNN keeps what its backward needs only in training mode
     train = torch.is_grad_enabled()
-    if lengths is None:
-        return fn(x, hx, weights, True, 1, 0.0, train, bidirectional,
+
+    def run(inputs, cells):
+        weights = [w for c in cells for w in c.flat_weights()]
+        return fn(inputs, hx, weights, True, 1, 0.0, train, len(cells) == 2,
                   True)[0]
-    packed = pack_padded_sequence(
-        x, torch.clamp(lengths.detach().to("cpu", torch.int64), min=1),
-        batch_first=True, enforce_sorted=False)
-    out = fn(packed.data, packed.batch_sizes, hx, weights, True, 1, 0.0,
-             train, bidirectional)[0]
-    return pad_packed_sequence(
-        PackedSequence(out, packed.batch_sizes, packed.sorted_indices,
-                       packed.unsorted_indices),
-        batch_first=True, total_length=x.shape[1])[0]
+    if lengths is None:
+        return run(x, cells)
+    lengths = torch.clamp(lengths.to(device=x.device, dtype=torch.int64),
+                          min=1)
+    out = [run(x, cells[:1])]
+    if len(cells) == 2:
+        out.append(_flip_prefixes(run(_flip_prefixes(x, lengths), cells[1:]),
+                                  lengths))
+    y = torch.cat(out, dim=-1) if len(out) == 2 else out[0]
+    valid = torch.arange(x.shape[1], device=x.device) < lengths[:, None]
+    return torch.where(valid[..., None], y, y.new_zeros(()))
 
 
 class LSTMLayer(nn.Module):
@@ -532,8 +546,9 @@ class BidirectionalRNN(nn.Module):
     Flax's forward cell ``<Cell>_0`` and backward cell ``<Cell>_1``.
 
     With ``lengths`` the backward pass reads only each row's valid prefix
-    (``run_rnn``). return_sequences=False concatenates the forward's last
-    valid step with the backward's index 0 (Keras Bidirectional)."""
+    (``run_rnn``: two single-direction calls on the same weights).
+    return_sequences=False concatenates the forward's last valid step with
+    the backward's index 0 (Keras Bidirectional)."""
 
     def __init__(self, in_features, units, cell="lstm",
                  return_sequences=True):

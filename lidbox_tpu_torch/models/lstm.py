@@ -9,10 +9,6 @@ from .model_api import Model, as_embedding_extractor  # noqa: F401
 
 
 class LSTM(nn.Module):
-    # a frame-masked forward packs the recurrent layers by lengths read
-    # on the host (layers.run_rnn): no CUDA graph captures it
-    packs_by_host_lengths = True
-
     def __init__(self, input_dim, num_outputs, output_activation="log_softmax",
                  num_units=1024):
         super().__init__()

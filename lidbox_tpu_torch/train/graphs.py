@@ -31,8 +31,8 @@ the process's ``captures``).
 K steps of grouped dispatch or of a cached epoch are K replays with no host
 read between them. The signature, the key of the cache (jit's cache), is
 the shapes and dtypes of the inputs and which are absent (packed targets,
-no example mask), whether the step tracks lengths, the number of optimizer
-scalars and the dropout generator. A captured graph holds the addresses of
+no example mask), the number of optimizer scalars, the dropout generator
+and ``remat``. A captured graph holds the addresses of
 the state's tensors: a step given another state's tensors (a restore, a new
 state) drops the graphs and captures again.
 
@@ -43,10 +43,13 @@ addresses of the kernel's cached operands, so it keeps them
 (``logmel.holding_operands``). A failed capture or replay raises.
 
 On the CPU the donating step runs eagerly, which is what the caller asked
-for. Three cases run it eagerly on the card too, by rule, logged once: a
-mesh (its collectives go through the host), ``remat``, and a model that
-packs its recurrent layers by host lengths when the batch has a frame mask
-(``packs_by_host_lengths``). Either way the state is written in place.
+for. A mesh of several ranks runs it eagerly on the card too, by rule,
+logged once (``forward_reason``); either way the state is written in place.
+A one-rank mesh, ``remat`` and a frame-masked batch of a recurrent model
+are captured: at one rank every collective returns its input, the remat
+recompute rewinds the dropout generator through a generator registered
+with the graph (``Trainer._rewind_point``), and the recurrent layers read
+their lengths on the device (``layers.run_rnn``).
 
 A :class:`ForwardProgram` is the same for a served or evaluated forward,
 the port's counterpart of the JAX package's ``jax.jit`` per shape (the
@@ -116,32 +119,24 @@ def _materialized(inputs):
             for k, v in inputs.items()}
 
 
-def packs_by_host_lengths(module):
-    """True when a module (or one of its submodules) is marked
-    ``packs_by_host_lengths``: its masked forward copies the lengths to the
-    host (``pack_padded_sequence``), which a graph cannot capture."""
-    return any(getattr(m, "packs_by_host_lengths", False)
-               for m in module.modules())
-
-
-def forward_reason(module, masked, mesh=None):
-    """Why a forward of ``module`` is not captured on the card, or None:
-    a mesh, or a frame-masked batch (``masked``) for a model that packs
-    its recurrent layers by host lengths."""
-    if mesh is not None:
-        return "a mesh: its collectives go through the host"
-    if masked and packs_by_host_lengths(module):
-        return ("a frame-masked batch for a model that packs its recurrent "
-                "layers by host lengths")
+def forward_reason(mesh):
+    """Why a forward under ``mesh`` is not captured on the card, or None.
+    Only a mesh of several ranks has collectives that do something (at one
+    rank each returns its input): over gloo they copy every tensor through
+    the host, and NCCL's capture of a multi-rank mesh cannot be checked on
+    a one-card machine, where NCCL refuses two ranks on one card."""
+    if mesh is not None and mesh.size > 1:
+        return ("a mesh of several ranks: its collectives are not captured "
+                "(gloo copies through the host; NCCL's capture needs a card "
+                "a rank)")
     return None
 
 
-def eager_reason(trainer, masked):
-    """Why a step of ``trainer`` is not captured on the card, or None.
-    ``masked``: the batch carries a frame mask."""
-    if trainer.mesh is None and trainer.remat:
-        return "remat: the recompute rewinds the dropout generator on the host"
-    return forward_reason(trainer.model.module, masked, trainer.mesh)
+def eager_reason(trainer):
+    """Why a step of ``trainer`` is not captured on the card, or None:
+    ``forward_reason`` of its mesh. A frame-masked batch, ``remat`` and a
+    one-rank mesh are captured."""
+    return forward_reason(trainer.mesh)
 
 
 def state_tensors(state):
@@ -178,6 +173,7 @@ class _Captured(NamedTuple):
     loss: torch.Tensor
     operands: list     # the cached kernel operands the graph reads
     generator: object  # the dropout generator it registered (kept alive)
+    rewind: object = None  # remat's rewind point, registered too
 
 
 class _Programs:
@@ -271,8 +267,7 @@ class StepProgram(_Programs):
     trainer's donating step (``Trainer._donating_step``): on the card
     captured and replayed, eagerly on the CPU and under the eager rules
     (``eager_reason``). ``augment``: the step draws its augmentation from a
-    generator keyed (trainer seed, step, 7); ``masked``: its batch carries
-    a frame mask whatever the inputs (a length-tracking feature fn).
+    generator keyed (trainer seed, step, 7).
     ``eager=True``: the functional ``Trainer._train_step`` instead, with a
     fresh ``keyed_generator``, the reference the graphs are held to.
 
@@ -282,12 +277,10 @@ class StepProgram(_Programs):
     its graphs live until ``release`` or as long as the trainer's
     ``_programs`` hold it."""
 
-    def __init__(self, kind, batch=None, augment=False, masked=False,
-                 eager=False):
+    def __init__(self, kind, batch=None, augment=False, eager=False):
         super().__init__(kind, eager)
         self.batch = batch or _plain_batch
         self.augment = augment
-        self.masked = masked
         self._augment_gen = None
 
     # -- dispatch -------------------------------------------------------------
@@ -301,8 +294,7 @@ class StepProgram(_Programs):
             return trainer._train_step(
                 state, self.batch(trainer, _materialized(inputs),
                                   augment_gen), generator)
-        reason = eager_reason(trainer, self.masked
-                              or inputs.get("input_mask") is not None)
+        reason = eager_reason(trainer)
         self._log_eager("train step", reason)
         scalars = trainer.optimizer.scalars(state.opt_state)
         seed = key_seed(trainer.seed, state.step, 7) if self.augment else None
@@ -342,15 +334,15 @@ class StepProgram(_Programs):
     # -- graphs ---------------------------------------------------------------
 
     @staticmethod
-    def signature(inputs, scalars, generator, masked):
+    def signature(inputs, scalars, generator):
         return (tuple(sorted((k, None) if v is None
                              else (k, tuple(v.shape), v.dtype)
                              for k, v in inputs.items())),
-                len(scalars), masked, id(generator))
+                len(scalars), id(generator))
 
     def _replay(self, trainer, state, inputs, generator, scalars, seed):
         self._hold(state_tensors(state))
-        key = self.signature(inputs, scalars, generator, self.masked)
+        key = (self.signature(inputs, scalars, generator), trainer.remat)
         entry = self._captured.get(key)
         if entry is None:
             entry = self._capture(trainer, state, inputs, generator, scalars,
@@ -366,6 +358,8 @@ class StepProgram(_Programs):
             buf.fill_(value)
         if self.augment:
             self._augment_generator(trainer.device, seed)
+        if entry.rewind is not None:
+            entry.rewind.set_state(generator.get_state())
         entry.graph.replay()
         return entry.loss.clone()
 
@@ -399,6 +393,12 @@ class StepProgram(_Programs):
         static, buffers, loss = self.static_buffers(device, inputs, scalars)
         augment_gen = (self._augment_generator(device, seed) if self.augment
                        else None)
+        rewind = (generator.clone_state()
+                  if trainer.remat and generator is not None else None)
+        body = functools.partial(self._body, trainer, state, static,
+                                 generator, augment_gen, buffers, loss)
+        if rewind is not None:
+            body = functools.partial(_rewinding, body, trainer, rewind)
         # the warm-up steps run on a clone of the state, so the state is
         # as it was before them
         graph, operands, _ = self._graph(
@@ -406,10 +406,21 @@ class StepProgram(_Programs):
             functools.partial(self._warm_step, trainer, _clone_state(state),
                               static, generator, augment_gen, seed, buffers,
                               loss),
-            functools.partial(self._body, trainer, state, static, generator,
-                              augment_gen, buffers, loss),
-            [g for g in (generator, augment_gen) if g is not None])
-        return _Captured(graph, static, buffers, loss, operands, generator)
+            body, [g for g in (generator, augment_gen, rewind)
+                   if g is not None])
+        return _Captured(graph, static, buffers, loss, operands, generator,
+                         rewind)
+
+
+def _rewinding(body, trainer, rewind):
+    """``body()`` with ``rewind`` as the trainer's ``capture_rewind``, the
+    rewind point of a remat step under capture
+    (``Trainer._rewind_point``)."""
+    trainer.capture_rewind = rewind
+    try:
+        return body()
+    finally:
+        trainer.capture_rewind = None
 
 
 class _CapturedForward(NamedTuple):

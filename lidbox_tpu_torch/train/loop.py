@@ -14,8 +14,8 @@ functional loop, as the JAX package does:
   runs the donating form of the step through a ``graphs.StepProgram``,
   the JAX package's jitted step with ``donate_argnums``: on the card one
   CUDA graph replay a step, which writes the new state into the tensors of
-  the old one; on the CPU the same step eagerly, as a mesh, ``remat`` and
-  host-length recurrent models run it on the card. A state ``fit`` trained
+  the old one; on the CPU the same step eagerly, as a mesh of several
+  ranks runs it on the card. A state ``fit`` trained
   is therefore written in place: copy what must outlive the next step.
   ``_train_step`` is the functional form (new tensors every step), the
   donating step's reference,
@@ -54,8 +54,10 @@ gathered full state (``checkpoint_state``), in the mesh-less format.
 
 ``remat`` recomputes the forward during the backward
 (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``), with
-the dropout generator rewound so the recompute draws the forward's masks.
+the dropout generator rewound so the recompute draws the forward's masks;
+on the card the rewind is one a CUDA graph captures (``_remat_apply``).
 """
+import contextlib
 import dataclasses
 import functools
 import queue
@@ -228,6 +230,22 @@ class LearningRateDateLogger(Callback):
         lr = trainer.current_learning_rate()
         logger.info("%s - learning rate: %.8g",
                     time.strftime("%Y-%m-%d %H:%M:%S"), lr)
+
+
+@contextlib.contextmanager
+def _rewound(generator, start):
+    """Inside the block ``generator`` draws from ``start``
+    (``Trainer._rewind_point``); after it, it stands where it stood
+    before."""
+    host = generator.device.type == "cpu"
+    get = generator.get_state if host else generator.graphsafe_get_state
+    put = generator.set_state if host else generator.graphsafe_set_state
+    resume = get()
+    put(start)
+    try:
+        yield
+    finally:
+        put(resume)
 
 
 def key_seed(*key):
@@ -407,6 +425,8 @@ class Trainer:
             if log_dir and (mesh is None or mesh.rank == 0) else None)
         self.state = None
         self._programs = {}  # kind -> (owner, eager, graphs.StepProgram)
+        # remat's rewind point while a step program captures a remat step
+        self.capture_rewind = None
 
     # -- state --------------------------------------------------------------
 
@@ -529,31 +549,48 @@ class Trainer:
     def _remat_apply(self, params, batch_stats, batch, generator=None):
         """The training-mode ``_apply`` under ``torch.utils.checkpoint``
         (the JAX package's ``jax.checkpoint``): only its inputs are kept,
-        and the backward runs the forward again. ``preserve_rng_state``
-        covers torch's global generators only, so the recompute rewinds
-        ``generator`` to where the forward started (and leaves it where
-        the forward left it): it draws the forward's dropout masks and
-        noise. The scopes the forward reads are entered inside, since the
-        recompute may run on the autograd engine's device thread; the
-        batch statistics come from the first forward alone."""
-        start = None if generator is None else generator.get_state()
+        and the backward runs the forward again. The model draws from
+        ``generator`` alone (torch's global generators are not saved, which
+        a capture would refuse), so the recompute rewinds it to where the
+        forward started and leaves it where the forward left it: it draws
+        the forward's dropout masks and noise. On the card the rewind swaps
+        the generator's state for a rewind point and back
+        (``_rewind_point``, ``graphsafe_set_state``), which a CUDA graph
+        captures; on the CPU it sets the state on the host. The
+        scopes the forward reads are entered inside, since the recompute
+        may run on the autograd engine's device thread; the batch
+        statistics come from the first forward alone."""
+        start = None if generator is None else self._rewind_point(generator)
         calls = []
 
         def run(params):
-            resume = None
-            if calls and generator is not None:  # the recompute
-                resume = generator.get_state()
-                generator.set_state(start)
             calls.append(1)
-            try:
-                with parallel.data_parallel(self.mesh):
-                    return self._apply(params, batch_stats, batch, train=True,
-                                       generator=generator)
-            finally:
-                if resume is not None:
-                    generator.set_state(resume)
-        return torch.utils.checkpoint.checkpoint(run, params,
-                                                 use_reentrant=False)
+            with parallel.data_parallel(self.mesh), (
+                    _rewound(generator, start) if start is not None
+                    and len(calls) > 1 else contextlib.nullcontext()):
+                return self._apply(params, batch_stats, batch, train=True,
+                                   generator=generator)
+        return torch.utils.checkpoint.checkpoint(
+            run, params, use_reentrant=False, preserve_rng_state=False)
+
+    def _rewind_point(self, generator):
+        """Where remat's recompute rewinds ``generator`` to: the state it
+        holds now. On the CPU the state's bytes; on the card a generator
+        holding it, which ``graphsafe_set_state`` swaps in: a clone
+        eagerly, and under capture, where a clone cannot draw, the one the
+        step program registered with the graph (``capture_rewind``: each
+        replay sets its state to the generator's before the graph draws,
+        and the remat forward is the step's first draw from the
+        generator)."""
+        if generator.device.type == "cpu":
+            return generator.get_state()
+        if torch.cuda.is_current_stream_capturing():
+            if self.capture_rewind is None:
+                raise RuntimeError("remat under capture needs a rewind point "
+                                   "registered with the graph "
+                                   "(graphs.StepProgram)")
+            return self.capture_rewind
+        return generator.clone_state()
 
     @staticmethod
     def _masked_mean(losses, batch):
@@ -1250,9 +1287,9 @@ class Trainer:
 
         Each step is one CUDA graph replay per batch signature on the card
         (``_eval_step_into``, the JAX package's ``_jit_eval_step``), which
-        adds into buffers the program keeps; the CPU, a mesh (logged once)
-        and ``eager=True`` run the same step eagerly, the graphs'
-        reference."""
+        adds into buffers the program keeps; the CPU, a mesh of several
+        ranks (logged once) and ``eager=True`` run the same step eagerly,
+        the graphs' reference."""
         if self.state is None:
             self.create_state()
         state = self.state
@@ -1284,9 +1321,7 @@ class Trainer:
                           if stacks else [batch]):
                     steps += 1
                     program(step, b, self.device, held=held,
-                            reason=graphs.forward_reason(
-                                self.model.module, "input_mask" in b,
-                                self.mesh))
+                            reason=graphs.forward_reason(self.mesh))
         finally:
             if hasattr(source, "close"):
                 source.close()  # release staging on any exit path
@@ -1323,8 +1358,8 @@ class Trainer:
         global batches' outputs (the ranks' rows in rank order).
 
         The forward is one CUDA graph replay per batch signature on the
-        card (the JAX package's ``_jit_apply_eval``); the CPU, a mesh and
-        ``eager=True`` run it eagerly."""
+        card (the JAX package's ``_jit_apply_eval``); the CPU, a mesh of
+        several ranks and ``eager=True`` run it eagerly."""
         if self.state is None:
             self.create_state()
         state = self.state
@@ -1340,9 +1375,7 @@ class Trainer:
         try:
             for n, batch in source:
                 out = program(forward, batch, self.device, held=held,
-                              reason=graphs.forward_reason(
-                                  self.model.module, "input_mask" in batch,
-                                  self.mesh))
+                              reason=graphs.forward_reason(self.mesh))
                 if self.mesh is not None:
                     out = parallel.all_gather_rows(out[:n], self.data_mesh)
                     n = out.shape[0]

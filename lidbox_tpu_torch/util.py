@@ -70,9 +70,9 @@ def make_batch_predict_fn(model, batch_size=32, mesh=None, compute_dtype=None,
     output cloned out of the graph's before the next replay. The graphs
     read the model's parameters and buffers in place: weights updated in
     place are served by the next call, replaced tensors are captured
-    anew. A model that packs its recurrent layers by host lengths runs a
-    masked batch eagerly (logged once); ``eager=True`` runs every forward
-    eagerly, the graphs' reference; the CPU runs them eagerly. Calls from
+    anew, a frame-masked batch of a recurrent model too. ``eager=True``
+    runs every forward eagerly, the graphs' reference; the CPU runs them
+    eagerly. Calls from
     several threads are served one replay at a time.
 
     With a ``parallel.Mesh`` inference is data-parallel: every rank calls
@@ -132,9 +132,7 @@ def make_batch_predict_fn(model, batch_size=32, mesh=None, compute_dtype=None,
         def device_outputs(inputs, mask=None):
             x, mask = staged(inputs, mask)
             return program(body, {"x": x, "mask": mask}, model.device,
-                           held=graphs.module_tensors(model.module),
-                           reason=graphs.forward_reason(model.module,
-                                                        mask is not None))
+                           held=graphs.module_tensors(model.module))
 
         def predict_fn(inputs, mask=None):
             return device_outputs(inputs, mask).cpu().numpy()

@@ -25,12 +25,17 @@ the CPU, against the functional step it replaces.
 - A capture holds the kernel's cached operands (basis and mel tiles), so
   they outlive the caches that made them.
 - A trainer and its captured steps form no reference cycle.
-- Meshes, ``remat`` and a BiGRU fed frame masks are not captured, by rule,
-  logged once: they run the donating step eagerly; the BiGRU without masks
-  is captured.
+- Only a mesh of several ranks is not captured, by rule, logged once: it
+  runs the donating step eagerly. A BiGRU fed frame masks, ``remat`` and a
+  one-rank mesh are captured.
+- Replayed against the functional step, bit for bit: ``fit_signals`` of
+  bi_gru and crnn through the length-tracking chain (VAD and speed change:
+  every batch carries a frame mask), and the ``remat`` donating step with
+  channel dropout 0.5.
 """
 import gc
 import logging
+import types
 import weakref
 
 import numpy as np
@@ -39,6 +44,7 @@ import torch
 
 import lidbox_tpu_torch.models as tmodels
 from lidbox_tpu_torch import losses as tlosses
+from lidbox_tpu_torch import parallel
 from lidbox_tpu_torch.data import on_device as tdev
 from lidbox_tpu_torch.features import io as tio
 from lidbox_tpu_torch.models.model_utils import ModelWrapper
@@ -368,8 +374,8 @@ def test_signature_cache_and_launch_counts(replayed):
     assert (len(program._captured) == 1
             and graphs.captures["fused"] - before == 6)
     keys = {graphs.StepProgram.signature(
-        {"signals": s, "targets": t, "example_mask": m}, (1.0, 1.0), None,
-        False) for s, t, m in cases}
+        {"signals": s, "targets": t, "example_mask": m}, (1.0, 1.0), None)
+        for s, t, m in cases}
     assert len(keys) == 4
     # released: the trainer holds no program, the program no graph
     trainer.release_graphs()
@@ -412,7 +418,9 @@ def test_capture_holds_the_kernel_operands(monkeypatch):
 
 def test_eager_by_rule_is_logged_once(replayed, caplog):
     batch = as_tensors(feature_batches(1, 3)[0])
-    masked = dict(batch, input_mask=torch.ones(B, FRAMES, dtype=torch.bool))
+    ragged = torch.arange(FRAMES)[None, :] < torch.tensor(
+        [FRAMES, 31, 1, 17])[:, None]
+    masked = dict(batch, input_mask=ragged)
 
     def trainer_for(key, **kw):
         model = tmodels.create(key, (FRAMES, MEL), N_CLASSES, device="cpu")
@@ -435,14 +443,18 @@ def test_eager_by_rule_is_logged_once(replayed, caplog):
 
     with caplog.at_level(logging.INFO, logger="lidbox_tpu_torch"):
         bigru = trainer_for("bi_gru")
-        assert graphs.packs_by_host_lengths(bigru.model.module)
         assert run(bigru, batch) == 1     # no mask: captured
-        assert run(bigru, masked) == 0    # masked: eager by rule
+        assert run(bigru, masked) == 1    # masked: captured, its own graph
         remat = trainer_for("xvector")
         remat.remat = True
-        assert run(remat, batch) == 0
+        assert run(remat, batch) == 1
+        one_rank = trainer_for("xvector", mesh=parallel.get_mesh(
+            device="cpu"))
+        assert one_rank.mesh.size == 1 and run(one_rank, batch) == 1
+        for trainer in (bigru, remat, one_rank):
+            assert graphs.eager_reason(trainer) is None
         meshed = trainer_for("xvector")
-        meshed.mesh = "a mesh"  # the rule reads the attribute alone
+        meshed.mesh = types.SimpleNamespace(size=2)  # the rule reads its size
         calls = []
         program = meshed.step_program("features")
         program._run_eagerly = lambda trainer, state, inputs, *args: (
@@ -451,13 +463,106 @@ def test_eager_by_rule_is_logged_once(replayed, caplog):
         assert len(calls) == 2
     logged = [r.getMessage() for r in caplog.records
               if "runs eagerly" in r.getMessage()]
-    assert len(logged) == 3, logged
-    assert any("host lengths" in m for m in logged)
-    assert any("remat" in m for m in logged)
-    assert any("mesh" in m for m in logged)
-    assert not graphs.packs_by_host_lengths(
-        tmodels.create("xvector", (FRAMES, MEL), N_CLASSES,
-                       device="cpu").module)
+    assert len(logged) == 1, logged
+    assert "several ranks" in logged[0]
+    assert graphs.eager_reason(meshed) == graphs.forward_reason(meshed.mesh)
+
+
+# -- recurrent models on frame masks, remat ------------------------------------
+
+# VAD and speed change: the feature fn tracks lengths, so every batch
+# carries a frame mask (different lengths per row)
+LENGTH_CHAIN = {"speed_range": [0.9, 1.1], "vad": True,
+                "vad_min_non_speech_ms": 0}
+RNN_MEL = 32  # crnn's five 2 x 2 pools need 32 bins
+# samples of a batch's signals: crnn's pools halve its frames 5 times
+RNN_SAMPLES = {"bi_gru": RATE // 2, "crnn": RATE}
+
+
+def fit_masked(root, key, eager):
+    """``fit_signals`` of ``key`` for one epoch of 2 batches through the
+    length-tracking chain, validating on 1 batch through it: (history,
+    trainer, the masks of the first batch's features)."""
+    features = {"type": "logmelspectrogram", "sample_rate": RATE,
+                "melspectrogram": {"num_mel_bins": RNN_MEL},
+                "stft_method": "pallas", "on_device_augment": LENGTH_CHAIN}
+    wrapper = ModelWrapper.from_config({
+        "features": features,
+        "experiment": {
+            "cache_directory": str(root), "name": "masked",
+            "input_shape": [None, RNN_MEL], "output_shape": [N_CLASSES],
+            "model": {"key": key},
+            "optimizer": {"cls": "Adam", "kwargs": {"learning_rate": 1e-3}},
+            "loss": {"cls": "SparseCategoricalCrossentropy"},
+            "callbacks": []}}, device="cpu")
+    wrapper.model.init(torch.Generator().manual_seed(5))
+    feature_fn = tdev.feature_fn_from_config(RATE, features, device="cpu")
+    assert feature_fn.tracks_lengths
+    batches = noisy_sines(3, seed=9, samples=RNN_SAMPLES[key])
+    x = torch.as_tensor(batches[0][0])
+    _, mask = feature_fn(tloop.keyed_generator("cpu", 0, 0, 7), x)
+    history = tdev.fit_signals(
+        wrapper.trainer, feature_fn, lambda: batches[:2], epochs=1,
+        verbose=False, val_batches=lambda: batches[2:], eager=eager)
+    return history, wrapper.trainer, mask
+
+
+@pytest.fixture(scope="module")
+def masked_runs(tmp_path_factory):
+    root = tmp_path_factory.mktemp("masked")
+    return {key: fit_masked(root / key, key, eager=True)
+            for key in ("bi_gru", "crnn")}
+
+
+@pytest.mark.parametrize("key", ["bi_gru", "crnn"])
+def test_masked_recurrent_fit_equals_functional(masked_runs, tmp_path,
+                                                replayed, key):
+    ref_history, ref, mask = masked_runs[key]
+    lengths = mask.sum(dim=1)
+    assert len(set(lengths.tolist())) > 1 and (lengths < mask.shape[1]).any()
+    before = graphs.captures["fused"]
+    history, trainer, _ = fit_masked(tmp_path, key, eager=False)
+
+    def results(h):  # the epochs' results, without the throughputs
+        return [{k: v for k, v in e.items()
+                 if k not in ("examples_per_sec", "audio_rtf")} for e in h]
+    assert results(history) == results(ref_history)
+    assert np.isfinite(history[0]["val_loss"])
+    assert same_tensors(trainer.state, ref.state)
+    assert same_counts(trainer.state, ref.state) and trainer.state.step == 2
+    assert graphs.captures["fused"] - before == 1
+
+
+@pytest.mark.parametrize("mode", ["donating", "replayed"])
+def test_remat_step_equals_functional(request, mode):
+    """The remat step with channel dropout 0.5: the recompute draws the
+    forward's masks, so the donating step (replayed or not) writes the
+    functional remat step's bits and leaves the dropout generator where it
+    leaves it."""
+    if mode == "replayed":
+        request.getfixturevalue("replayed")
+    model = tmodels.create("xvector", (FRAMES, MEL), N_CLASSES,
+                           channel_dropout_rate=0.5, device="cpu")
+    trainers = []
+    for _ in range(2):
+        trainer = tloop.Trainer(model, topt.adam(1e-3), tlosses.nll_loss,
+                                rng=3, device="cpu")
+        trainer.remat = True
+        trainer.create_state()
+        trainers.append(trainer)
+    functional, donating = trainers
+    before = graphs.captures["features"]
+    for batch in feature_batches(4, seed=2):
+        batch = as_tensors(batch)
+        functional.state, ref = functional._train_step(
+            functional.state, batch, functional.generator)
+        donating.state, loss = donating._fit_step(donating.state, batch,
+                                                  donating.generator)
+        assert torch.equal(loss, ref)
+        assert same_tensors(donating.state, functional.state)
+    assert torch.equal(donating.generator.get_state(),
+                       functional.generator.get_state())
+    assert graphs.captures["features"] - before == (mode == "replayed")
 
 
 def test_a_trainer_goes_with_its_last_reference(replayed):

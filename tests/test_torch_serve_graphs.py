@@ -26,7 +26,11 @@ here.
   tensors are captured anew, ``refresh()`` drops the graphs, the eval
   step's warm-ups leave its sums as they were, and the cached device
   constants a capture read outlive their caches while the graph lives.
-- Eager by rule, logged once: a mesh and a frame-masked BiGRU.
+- Eager by rule, logged once: only a mesh of several ranks. A
+  frame-masked BiGRU and a one-rank mesh's ``predict`` and ``evaluate``
+  are captured.
+- ``predict_with_model`` of each recurrent model on ragged batches (frame
+  masks): replayed == eager, bit for bit, one capture per padded batch.
 - The 2-deep pipeline of ``predict_with_model``: the serial loop's order
   and values, a custom ``predict_fn``, an exception of batch 2, a mesh's
   collective calls on one thread in order.
@@ -503,7 +507,6 @@ def test_eager_by_rule_is_logged_once(replayed, caplog):
     mask = np.arange(FRAMES)[None, :] < np.array([40, 30, 20, 35])[:, None]
     bigru = tmodels.create("bi_gru", (FRAMES, MEL), len(LABELS),
                            device="cpu")
-    assert graphs.packs_by_host_lengths(bigru.module)
     predict = tutil.make_batch_predict_fn(bigru)
     eager = tutil.make_batch_predict_fn(bigru, eager=True)
     model = tmodels.create("xvector", (FRAMES, MEL), len(LABELS),
@@ -511,25 +514,33 @@ def test_eager_by_rule_is_logged_once(replayed, caplog):
     trainer = tloop.Trainer(model, topt.adam(1e-3), tlosses.nll_loss,
                             mesh=parallel.get_mesh(device="cpu"),
                             device="cpu")
+    assert trainer.mesh.size == 1
     batches = feature_batches(1, 5)
+    program = graphs.ForwardProgram("forward")
+    two_ranks = types.SimpleNamespace(size=2)  # the rule reads its size
     before = dict(graphs.captures)
     with caplog.at_level(logging.INFO, logger="lidbox_tpu_torch"):
         assert np.array_equal(predict(x), eager(x))       # no mask: captured
-        for _ in range(2):                                 # masked: eager
+        for _ in range(2):                                 # masked: captured
             assert np.array_equal(predict(x, mask), eager(x, mask))
         on_mesh = [trainer.predict(lambda: batches) for _ in range(2)]
-        for _ in range(2):
-            trainer.evaluate(lambda: batches)
-    assert np.array_equal(*on_mesh)
-    assert captured(before) == {"forward": 1}
-    # once for each program: the BiGRU's forward, the mesh's predict and
-    # its eval step
+        logs = [trainer.evaluate(lambda: batches) for _ in range(2)]
+        for _ in range(2):                                 # eager by rule
+            assert torch.equal(program(
+                lambda v: 2 * v, {"v": torch.ones(3)}, "cpu",
+                reason=graphs.forward_reason(two_ranks)), torch.full((3,), 2.))
+    assert np.array_equal(*on_mesh) and logs[0] == logs[1]
+    assert np.array_equal(on_mesh[0], trainer.predict(lambda: batches,
+                                                      eager=True))
+    assert logs[0] == trainer.evaluate(lambda: batches, eager=True)
+    # the BiGRU's two signatures, the one-rank mesh's predict and eval step
+    assert captured(before) == {"forward": 3, "eval": 1}
     logged = [r.getMessage() for r in caplog.records
               if "runs eagerly" in r.getMessage()]
-    assert len(logged) == 3, logged
-    assert sum("host lengths" in m for m in logged) == 1
-    assert sum("mesh" in m for m in logged) == 2
-    assert any(m.startswith("eval program") for m in logged)
+    assert len(logged) == 1, logged
+    assert logged[0].startswith("forward program") and "several ranks" in (
+        logged[0])
+    assert graphs.forward_reason(trainer.mesh) is None
 
 
 # -- the 2-deep pipeline --------------------------------------------------------------------
@@ -641,6 +652,40 @@ def test_pipeline_ragged_matches_jax(replayed):
     assert ours["id"] == list(ref.index)
     np.testing.assert_allclose(ours["prediction"],
                                np.stack(list(ref["prediction"])), atol=ATOL)
+
+
+RNN_FEATURES = 32  # crnn's five 2 x 2 pools need 32 bins
+
+
+@pytest.mark.parametrize("key", ["lstm", "bi_gru", "crnn", "ap_lstm"])
+def test_pipeline_ragged_recurrent_replays_equal_eager(replayed, key):
+    """``predict_with_model`` of a recurrent model on ragged elements, so
+    its padded batches carry frame masks: replayed (one capture per padded
+    batch signature) equals eager bit for bit."""
+    model = tmodels.create(key, (FRAMES, RNN_FEATURES), len(LABELS),
+                           device="cpu")
+    rng = np.random.default_rng(12)
+    elements = [{"id": f"u{i:02d}", "input": rng.normal(
+        0, 1, (int(n), RNN_FEATURES)).astype(np.float32)}
+        for i, n in enumerate(rng.integers(20, FRAMES + 1, 10))]
+    signatures = set()
+    for i in range(0, len(elements), 4):
+        inputs, mask = tutil._batch_arrays(elements[i:i + 4], [32, 48])
+        assert mask is not None
+        signatures.add(inputs.shape)
+    before = dict(graphs.captures)
+    graphed = tutil.predict_with_model(
+        model, TDataset.from_elements(elements), batch_size=4,
+        pad_buckets=[32, 48])
+    assert captured(before) == {"forward": len(signatures)}
+    eager = tutil.predict_with_model(
+        model, TDataset.from_elements(elements),
+        predict_fn=tutil.make_batch_predict_fn(model, eager=True),
+        batch_size=4, pad_buckets=[32, 48])
+    assert graphed["id"] == eager["id"] == [e["id"] for e in elements]
+    ours = np.stack(graphed["prediction"])
+    assert np.isfinite(ours).all()
+    assert np.array_equal(ours, np.stack(eager["prediction"]))
 
 
 # -- the package helpers ----------------------------------------------------------------------

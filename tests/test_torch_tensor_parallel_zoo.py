@@ -50,6 +50,10 @@ GATHERED = {"bi_gru": "gru", "crnn": "lstm", "lstm": "lstm",
 NOTHING_SPLIT = ("ap_lstm",)
 # splits only recurrent weights: an LSTM and its 3-wide head
 ONLY_GATHERED = ("lstm",)
+# the ranks' liveness bound: 17 configurations, each stepped twice in
+# float64 on both ranks, take about 60 s alone and outlived 150 s beside
+# five other test workers (every case of this file then errored)
+RANKS_TIMEOUT_S = 450
 
 
 @pytest.fixture(scope="module")
@@ -59,7 +63,8 @@ def ranks(tmp_path_factory):
             "batch": {"input": rng.normal(0, 1, (BATCH,) + SHAPE).astype(
                 np.float32), "target": np.array([0, 1, 2, 0], np.int64)}}
     return finish_ranks(start_ranks(
-        "tensor_parallel_zoo", spec, tmp_path_factory.mktemp("tp_zoo")))
+        "tensor_parallel_zoo", spec, tmp_path_factory.mktemp("tp_zoo")),
+        timeout=RANKS_TIMEOUT_S)
 
 
 @pytest.mark.parametrize("name", [n for n, _, _ in ZOO])

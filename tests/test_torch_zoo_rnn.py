@@ -6,7 +6,13 @@ CPU.
   and final states, with and without lengths: the JAX layers' own
   initialized weights load through ``params_from_flax`` (Flax's
   ``OptimizedLSTMCell`` / ``GRUCell`` kernels onto cuDNN's gate layout)
-  and give the same outputs at every valid step;
+  and give the same outputs at every valid step, and the same gradients
+  of a loss over the valid steps with respect to the input and every
+  parameter (``jax.grad`` of the Flax layer with ``seq_lengths``), within
+  rtol 1e-4 + atol 1e-5 (``RTOL`` / ``ATOL``). The lengths include a full
+  row, a row of 1 and a row of 0, which both packages run as 1 (the JAX
+  layer is given 1; the port's outputs for 0 equal its outputs for 1),
+  and the port's outputs past a row's length are zero;
 - lstm, bi_gru, spherespeaker, ap_lstm and crnn with the same weights
   (tests/torch_zoo_common.py): parameter trees equal Flax's, eval logits
   and embeddings unmasked and masked within rtol 1e-4 + atol 1e-5, the
@@ -17,6 +23,8 @@ CPU.
 - crnn's coupled decay marks exactly the conv kernels the JAX package's
   mask marks.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -65,33 +73,85 @@ LAYERS = {
 }
 
 
-@pytest.mark.parametrize("with_lengths", [False, True],
-                         ids=["full", "lengths"])
+# the rows' lengths of the layers' [4, 11, 5] input: none, ragged, and the
+# edges (a full row, a row of 0, which runs as 1, and a row of 1)
+LAYER_LENGTHS = {"full": None, "lengths": [11, 6, 1, 9],
+                 "edges": [11, 0, 1, 5]}
+# case -> (lengths, compare the gradients too)
+LAYER_CASES = {"full": ("full", False), "lengths": ("lengths", False),
+               "edges": ("edges", False), "full_grads": ("full", True),
+               "lengths_grads": ("lengths", True),
+               "edges_grads": ("edges", True)}
+
+
+@functools.lru_cache(maxsize=None)
+def flax_layer(name):
+    """(the JAX layer's initialized params, its jitted value and gradients
+    of ``sum(outputs * weights)`` with respect to the params and the
+    input): one compilation per layer and lengths case for the file."""
+    jl = LAYERS[name][0]()
+    x = jnp.zeros((4, 11, 5), jnp.float32)
+    params = jax.device_get(jax.jit(jl.init)(jax.random.PRNGKey(3), x)[
+        "params"])
+
+    def loss(p, x, n, weights):
+        out = jl.apply({"params": p}, x, lengths=n)
+        return jnp.sum(out * weights), out
+    return params, jax.jit(jax.value_and_grad(loss, argnums=(0, 1),
+                                              has_aux=True))
+
+
+@pytest.mark.parametrize("case", LAYER_CASES)
 @pytest.mark.parametrize("name", LAYERS)
-def test_recurrent_layers_match_flax(name, with_lengths):
-    make_jax, make_port = LAYERS[name]
+def test_recurrent_layers_match_flax(name, case):
+    which, grads = LAYER_CASES[case]
     x = np.random.default_rng(2).normal(0, 1, (4, 11, 5)).astype(np.float32)
-    lengths = np.array([11, 6, 1, 9])
-    jl = make_jax()
-    params = jax.device_get(jax.jit(jl.init)(jax.random.PRNGKey(3),
-                                              jnp.asarray(x))["params"])
-    ref = np.asarray(jax.jit(lambda p, x, n: jl.apply({"params": p}, x,
-                                                      lengths=n))(
-        params, jnp.asarray(x), jnp.asarray(lengths) if with_lengths
-        else None))
-    pl = make_port()
+    lengths = LAYER_LENGTHS[which]
+    n = None if lengths is None else np.maximum(lengths, 1)
+    params, value_and_grad = flax_layer(name)
+    pl = LAYERS[name][1]()
     pl.load_state_dict(params_from_flax(params))
-    with torch.no_grad():
-        ours = pl(torch.as_tensor(x), lengths=torch.as_tensor(lengths)
-                  if with_lengths else None).numpy()
+    xt = torch.as_tensor(x).requires_grad_(grads)
+    with torch.set_grad_enabled(grads):
+        y = pl(xt, lengths=None if lengths is None
+               else torch.as_tensor(lengths))
+    ours = y.detach().numpy()
+    valid = np.ones(ours.shape[:2], bool)
+    if ours.ndim == 3:  # past a row's length: unspecified in JAX, 0 here
+        valid = np.broadcast_to(np.arange(11)[None, :] < (
+            11 if n is None else n[:, None]), ours.shape[:2])
+        assert not ours[~valid].any()
+    if lengths is not None:  # a length under 1 runs as 1
+        with torch.set_grad_enabled(grads):
+            as_one = pl(torch.as_tensor(x), lengths=torch.as_tensor(n))
+        assert torch.equal(y.detach(), as_one.detach())
+    weights = np.random.default_rng(4).normal(0, 1, ours.shape).astype(
+        np.float32)
+    weights[~valid] = 0.0  # the loss reads the valid steps alone
+    (_, ref), (ref_dp, ref_dx) = value_and_grad(
+        params, jnp.asarray(x), None if n is None else jnp.asarray(n),
+        jnp.asarray(weights))
+    ref = np.asarray(ref)
     assert ours.shape == ref.shape
-    if ours.ndim == 3 and with_lengths:  # past a row's length: unspecified
-        valid = np.arange(11)[None, :] < lengths[:, None]
-        ours, ref = ours[valid], ref[valid]
-    np.testing.assert_allclose(ours, ref, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(ours[valid], ref[valid], rtol=RTOL, atol=ATOL)
     back = params_to_flax(dict(pl.named_parameters()))
     assert jax.tree_util.tree_all(jax.tree_util.tree_map(np.array_equal,
                                                          back, params))
+    if not grads:
+        return
+    torch.sum(y * torch.as_tensor(weights)).backward()
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(ref_dx),
+                               rtol=RTOL, atol=ATOL)
+    ours_dp = params_to_flax({k: p.grad for k, p in pl.named_parameters()})
+    paths = jax.tree_util.tree_flatten_with_path(jax.device_get(ref_dp))[0]
+    assert len(paths) == len(jax.tree_util.tree_leaves(ours_dp))
+    for path, ref_g in paths:
+        got = ours_dp
+        for key in path:
+            got = got[key.key]
+        np.testing.assert_allclose(np.asarray(got), np.asarray(ref_g),
+                                   rtol=RTOL, atol=ATOL,
+                                   err_msg=jax.tree_util.keystr(path))
 
 
 @pytest.fixture(scope="module")
@@ -136,8 +196,7 @@ def test_eval_forward_matches_jax(runs, name, head, masked):
                                   "spherespeaker"])
 def test_masked_forward_equals_trimmed(runs, name):
     """A padded row with its frame mask scores as the row cut to its
-    length (packed sequences: the backward pass starts at the last valid
-    frame)."""
+    length (the backward direction starts at the last valid frame)."""
     x, mask, out = runs
     model = out[name]["model"]
     n = LENGTHS[2]
