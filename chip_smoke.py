@@ -257,7 +257,16 @@ Phases, each of which fails the run:
    memory of each fit with and without remat. (c) The x-vector mesh-less,
    on ``parallel.get_mesh()`` (NCCL, one rank) and on a 1 x 1
    ``get_mesh_2d`` with ``column_parallel_rule``, all three captured:
-   step losses and validation bit for bit, the step timed.
+   step losses and validation bit for bit, the step timed. Then served on
+   the 1-rank mesh (``one_rank_serving``): the batch predict fn on [32,
+   298, 64] and on 8 ragged rows with a frame mask, one capture a
+   signature, graphed == eager bit for bit, == mesh-less bit for bit at
+   the full batch and within rtol 1e-5 at the partial one; a
+   ``serve.Classifier(mesh=)`` pass over phase 3's wavs == mesh-less; a
+   ``StreamingClassifier(mesh=)`` of 8 chunks through the fused "stream"
+   program alone == the mesh-less stream bit for bit; the launches of
+   each part as predicted; each form timed in turns with the mesh-less
+   graph (CUDA events, idle share).
 
 Every comparison of the kernel with its plain version holds float32 within
 atol 1e-4 + rtol 1e-4 (the allclose of the tests; the distance of each from
@@ -1227,14 +1236,15 @@ def served_times(run, reps=20, warmup=3):
     return median, wall, busy
 
 
-def served_turns(what, forms, card, per_call=None):
-    """``forms["eager"]`` and ``forms["graphed"]`` timed in turns (eager,
-    graphed, graphed, eager: ``served_times``) and printed with the card
-    line and each form's idle share; ``per_call`` (utterances a call)
+def served_turns(what, forms, card, per_call=None,
+                 order=("eager", "graphed", "graphed", "eager"), reps=20):
+    """``forms`` (by default "eager" and "graphed") timed in the turns of
+    ``order`` (``served_times`` of ``reps`` calls) and printed with the
+    card line and each form's idle share; ``per_call`` (utterances a call)
     adds utt/s. Returns {form: [(median, wall, busy), ...]}."""
-    out = {"eager": [], "graphed": []}
-    for form in ("eager", "graphed", "graphed", "eager"):
-        out[form].append(served_times(forms[form]))
+    out = {form: [] for form in order}
+    for form in order:
+        out[form].append(served_times(forms[form], reps=reps))
     for form, runs in out.items():
         print(f"served graphs, {what} {form} ({card}): " + "; ".join(
             f"median {m:.4f} ms on CUDA events, host wall {w:.4f} ms, "
@@ -2016,8 +2026,9 @@ def phase_cli(root, logmel, pipeline_data, device="cuda"):
     extract-embeddings of both splits, the numpy back-end on them, classify
     whole and in 2 s chunks, export --torch-export. Every output is held to
     the Python entry points. Returns the kernel's launches over the
-    commands, its worst float32 error on the groups the CLI handed it, and
-    the commands' wall times. With ``device="cpu"`` it rehearses the phase
+    commands, its worst float32 error on the groups the CLI handed it, the
+    commands' wall times and the argv of its whole-wav ``classify`` (phase
+    17 runs it again). With ``device="cpu"`` it rehearses the phase
     on the plain version (the launch counts and the kernel checks need the
     card)."""
     import contextlib
@@ -2281,7 +2292,8 @@ def phase_cli(root, logmel, pipeline_data, device="cuda"):
     where = card_line() if on_card else "cpu"
     print(f"cli wall times on {where} (s, host clock, the kernel's build "
           "excluded): " + ", ".join(f"{k} {v:.2f}" for k, v in walls.items()))
-    return sum(launches.values()), max(errors, default=0.0), walls
+    return (sum(launches.values()), max(errors, default=0.0), walls,
+            ["classify", path] + wavs)
 
 
 # The model zoo: the 13 keys of the registry besides the x-vector (phases
@@ -4036,7 +4048,8 @@ def phase_orbax(root, rng, logmel, device="cuda"):
 # every batch carries a frame mask), MASKED_BATCHES steps of [32, 48000] and
 # 1 validation batch (a stream of its own, seed 1245); crnn and bi_gru served
 # on MASKED_WAVS ragged wavs of 2-4 s. (b) remat with channel dropout 0.5,
-# 4 steps. (c) the x-vector on a 1-rank and a 1 x 1 NCCL mesh, 4 steps.
+# 4 steps. (c) the x-vector on a 1-rank and a 1 x 1 NCCL mesh, 4 steps, and
+# served on the 1-rank mesh.
 MASKED_KEYS = ("lstm", "bi_gru", "crnn", "ap_lstm")
 MASKED_SERVED = ("crnn", "bi_gru")
 MASKED_CHAIN = {"speed_range": [0.9, 1.1], "vad": True}
@@ -4152,7 +4165,258 @@ def ragged_wavs(io, root, rng, n):
     return paths, longest
 
 
-def phase_masked(root, rng, logmel, device="cuda"):
+# Phase 17 (c), served: the x-vector behind the 1-rank mesh's batch predict
+# fn on [32, 298, 64] (phase 3's wavs' features) and on MESH_PARTIAL_ROWS of
+# them made ragged (a frame mask), a Classifier pass over phase 3's wavs and
+# a stream of MESH_STREAM_WAVS of them end to end. The mesh pads a partial
+# batch to its batch size and the mesh-less predict fn runs its own rows:
+# another batch size, so those two agree within MESH_PARTIAL_RTOL (+ ATOL).
+MESH_PARTIAL_ROWS = 8
+MESH_PARTIAL_RTOL, MESH_PARTIAL_ATOL = 1e-5, 1e-6
+MESH_STREAM_WAVS = 3
+
+
+def one_rank_serving(root, mesh, device="cuda", classify_argv=None):
+    """Phase 17 (c), served on the 1-rank ``mesh``: the batch predict fn
+    graphed (one capture per input signature, then replays), eager and
+    mesh-less on a full and a ragged partial batch, graphed == eager bit
+    for bit, == mesh-less bit for bit at the full batch; a
+    ``serve.Classifier(mesh=)`` pass over phase 3's wavs == the mesh-less
+    scores; a ``StreamingClassifier(mesh=)`` of several chunks through the
+    fused "stream" program == the mesh-less stream bit for bit; with
+    ``classify_argv`` (phase 7's ``classify`` of 8 wavs), the command
+    without and with ``--data-parallel`` in turns, the same CSV and the
+    same launches (a feature program a group, captured anew by each
+    command), its wall time. The launches of each driven part are
+    predicted and printed first, and read; on the card each form is timed
+    in turns with the mesh-less graph. Returns the launches of each kernel
+    read over the parts."""
+    import contextlib
+    import io as text_io
+    from lidbox_tpu_torch import cli, models, serve, util
+    from lidbox_tpu_torch.data.device_pipeline import DeviceFeatureExtractor
+    from lidbox_tpu_torch.features import io
+    from lidbox_tpu_torch.ops import logmel
+    from lidbox_tpu_torch.train import graphs
+
+    on_card = device == "cuda"
+    card = card_line() if on_card else "CPU rehearsal"
+    t0 = time.perf_counter()
+    n = 32
+    paths = [os.path.join(root, f"utt{i:03d}.wav") for i in range(n)]
+    if not all(os.path.exists(p) for p in paths):  # phase 3 did not run
+        paths = write_wavs(io, root, np.random.default_rng(SEED), n, 3.0)
+    ids = [f"utt{i:03d}" for i in range(n)]
+    signals = [io.read_wav(p)[0] for p in paths]
+    frames = 1 + (3 * RATE - 400) // 160
+    model = models.create("xvector", (frames, 64), len(LABELS),
+                          device=device).init(
+        torch.Generator().manual_seed(SEED))
+    x = np.stack(DeviceFeatureExtractor(FEATURES_PALLAS, device=device)
+                 .extract_ragged(signals, RATE))
+    lengths = np.random.default_rng(SEED + 12).integers(
+        frames // 2, frames + 1, MESH_PARTIAL_ROWS)
+    mask = np.arange(frames)[None, :] < lengths[:, None]
+    part = np.where(mask[:, :, None], x[:MESH_PARTIAL_ROWS],
+                    0.0).astype(np.float32)
+    stream_signal = np.concatenate(signals[:MESH_STREAM_WAVS])
+    chunks = (stream_signal.size - 2 * RATE) // RATE + 1
+    check(graphs.forward_reason(mesh) is None,
+          f"a 1-rank mesh has an eager reason: {graphs.forward_reason(mesh)}")
+
+    def plan_splits(shape):
+        return on_card and logmel.launch_plan(*shape, RATE, **KERNEL_KW)[0][
+            "splits"] > 1
+    served = served_shape(n, 3 * RATE)
+    warm = graphs.WARMUP_STEPS
+    predicted = {
+        "predict fns": (0, 0),
+        "classifier": (1 + warm, (1 + warm) * plan_splits(served)),
+        "stream": (chunks + warm, (chunks + warm) * plan_splits((1, 2 * RATE)))}
+    print(f"masked (c) served ({card}): the x-vector on the 1-rank "
+          f"{mesh.backend} mesh; predicted launches (logmel_kernel, "
+          f"logmel_reduce), warm-ups included: the predict fns on features "
+          f"{predicted['predict fns']}, each Classifier pass over {n} 3 s "
+          f"wavs {list(served)} {predicted['classifier']}, each stream of "
+          f"{chunks} chunks [1, {2 * RATE}] {predicted['stream']}")
+    launched = np.zeros(2, np.int64)
+
+    def read(counted, what, expected):
+        got = (counted["logmel_kernel"], counted["logmel_reduce"])
+        check(got == expected or not on_card,
+              f"masked (c) {what}: launches {got}, predicted {expected}")
+        launched[:] += got
+
+    def new_captures(before):
+        return {k: graphs.captures[k] - before.get(k, 0)
+                for k in graphs.captures
+                if graphs.captures[k] != before.get(k, 0)}
+
+    # the batch predict fn: full and partial ragged batches
+    predict = {
+        "graphed": util.make_batch_predict_fn(model, batch_size=n,
+                                              mesh=mesh),
+        "eager": util.make_batch_predict_fn(model, batch_size=n, mesh=mesh,
+                                            eager=True),
+        "mesh-less": util.make_batch_predict_fn(model, batch_size=n)}
+    before = dict(graphs.captures)
+    with launch_window(device, captures=[]) as counted:
+        out = {form: (fn(x), fn(part, mask)) for form, fn in predict.items()}
+        sync(device)
+    read(counted, "predict fns", predicted["predict fns"])
+    # one graph per signature: the mesh's two and the mesh-less two
+    check(new_captures(before) == ({"forward": 4} if on_card else {}),
+          f"masked (c) predict fns captured {new_captures(before)}")
+    again = (predict["graphed"](x), predict["graphed"](part, mask))
+    check(new_captures(before) == ({"forward": 4} if on_card else {}),
+          "masked (c): the mesh's second calls captured again")
+    g, e, m = out["graphed"], out["eager"], out["mesh-less"]
+    check(all(np.array_equal(a, b) for a, b in zip(g, e))
+          and all(np.array_equal(a, b) for a, b in zip(g, again)),
+          "masked (c): the 1-rank mesh's predict fn graphed != eager")
+    check(np.isfinite(g[0]).all() and np.array_equal(g[0], m[0]),
+          "masked (c): the 1-rank mesh's full batch != mesh-less")
+    diff = np.abs(g[1] - m[1])
+    rel = float((diff / np.abs(m[1])).max())
+    check(bool(np.all(diff <= MESH_PARTIAL_ATOL
+                      + MESH_PARTIAL_RTOL * np.abs(m[1]))),
+          f"masked (c): the partial batch sits {diff.max()} (rel {rel}) from "
+          f"mesh-less (rtol {MESH_PARTIAL_RTOL}, atol {MESH_PARTIAL_ATOL})")
+    print(f"masked (c) served: the 1-rank mesh's predict fn on [{n}, "
+          f"{frames}, 64] and on [{MESH_PARTIAL_ROWS}, {frames}, 64] with a "
+          f"mask ({int(lengths.min())}-{int(lengths.max())} frames): one "
+          f"capture a signature, then replays; graphed == eager bit for "
+          f"bit; full batch == mesh-less bit for bit; partial batch vs "
+          f"mesh-less max abs {float(diff.max()):.3e}, max rel {rel:.3e} "
+          f"(rtol {MESH_PARTIAL_RTOL}, atol {MESH_PARTIAL_ATOL})")
+
+    # Classifier passes over phase 3's wavs
+    classifiers = {
+        "graphed": serve.Classifier(model, LABELS,
+                                    feature_config=FEATURES_PALLAS,
+                                    batch_size=n, mesh=mesh, device=device),
+        "mesh-less": serve.Classifier(model, LABELS,
+                                      feature_config=FEATURES_PALLAS,
+                                      batch_size=n, device=device)}
+    scores = {}
+    for form, service in classifiers.items():
+        before = dict(graphs.captures)
+        with launch_window(device, captures=[served]) as counted:
+            scores[form] = service.scores(paths, ids=ids)["prediction"]
+            sync(device)
+        read(counted, f"Classifier {form}", predicted["classifier"])
+        check(new_captures(before) == ({"features": 1, "forward": 1}
+                                       if on_card else {}),
+              f"masked (c) Classifier {form} captured {new_captures(before)}")
+    check(np.isfinite(scores["graphed"]).all()
+          and np.array_equal(scores["graphed"], scores["mesh-less"]),
+          "masked (c): Classifier(mesh=1-rank) scores != mesh-less")
+
+    # streams, the fused chunk program
+    def stream(mesh_, eager=False):
+        return serve.StreamingClassifier(
+            model, LABELS, feature_config=FEATURES_PALLAS, sample_rate=RATE,
+            chunk_seconds=2.0, hop_seconds=1.0, mesh=mesh_, device=device,
+            eager=eager)
+    streams = {"graphed": stream(mesh), "mesh-less": stream(None)}
+    check(streams["graphed"]._mesh_predict is None,
+          "masked (c): the 1-rank mesh's stream built a mesh predict fn")
+    stream_scores = {}
+    for form, service in streams.items():
+        before = dict(graphs.captures)
+        with launch_window(device, captures=[(1, 2 * RATE)]) as counted:
+            for block in np.array_split(stream_signal,
+                                        [1234, 20000, 70001, 100000]):
+                service.feed(block)
+            stream_scores[form] = service.scores()
+            sync(device)
+        read(counted, f"stream {form}", predicted["stream"])
+        check(service._num_chunks == chunks,
+              f"masked (c) stream {form}: {service._num_chunks} chunks")
+        # the fused program alone: no feature program, no forward program
+        check(new_captures(before) == ({"stream": 1} if on_card else {}),
+              f"masked (c) stream {form} captured {new_captures(before)}")
+    check(np.isfinite(stream_scores["graphed"]).all()
+          and np.array_equal(stream_scores["graphed"],
+                             stream_scores["mesh-less"]),
+          "masked (c): the 1-rank mesh's stream != the mesh-less stream")
+    print(f"masked (c) served: Classifier(mesh=1-rank) over {n} 3 s wavs == "
+          f"mesh-less bit for bit; a 1-rank mesh stream of {chunks} chunks "
+          f"through the fused \"stream\" program (no feature readback) == "
+          f"the mesh-less stream bit for bit; launches as predicted: "
+          f"{launched.tolist()}")
+
+    if classify_argv is not None:  # the command line, in turns
+        outs, walls, counts = {}, {}, {}
+        for form in ("mesh-less", "--data-parallel", "--data-parallel",
+                     "mesh-less"):
+            out = text_io.StringIO()
+            argv = list(classify_argv) + (
+                [] if form == "mesh-less" else [form])
+            with launch_window(device) as counted:
+                sync(device)
+                t = time.perf_counter()
+                with contextlib.redirect_stdout(out):
+                    code = cli.main(argv, device=device)
+                sync(device)
+                walls.setdefault(form, []).append(time.perf_counter() - t)
+            check(code == 0, f"masked (c) classify {form}: exit code {code}")
+            got = (counted["logmel_kernel"], counted["logmel_reduce"])
+            launched[:] += got
+            counts.setdefault(form, set()).add(got)
+            check(outs.setdefault(form, out.getvalue()) == out.getvalue(),
+                  f"masked (c) classify {form}: two runs wrote other CSVs")
+        # the mesh pads the 8 wavs' batch to the batch size: the scores
+        # agree within the partial batch's tolerance
+        rows = {f: [line.split(",") for line in text.strip().splitlines()]
+                for f, text in outs.items()}
+        a, b = rows["mesh-less"], rows["--data-parallel"]
+        scores = [np.asarray([r[2:] for r in t[1:]], np.float64)
+                  for t in (a, b)]
+        diff = np.abs(scores[1] - scores[0])
+        check(len(a) == 9 and [r[:2] for r in a] == [r[:2] for r in b]
+              and bool(np.all(diff <= MESH_PARTIAL_ATOL
+                              + MESH_PARTIAL_RTOL * np.abs(scores[0]))),
+              f"masked (c): classify --data-parallel wrote another table "
+              f"(scores {diff.max()} apart)")
+        check(len(counts["mesh-less"] | counts["--data-parallel"]) == 1,
+              f"masked (c) classify launches differ: {counts}")
+        print(f"masked (c) served: classify of 8 wavs and classify "
+              f"--data-parallel (the 1-rank mesh) wrote the same ids and "
+              f"labels, scores max abs {diff.max():.3e} apart (rtol "
+              f"{MESH_PARTIAL_RTOL}, atol {MESH_PARTIAL_ATOL}); launches "
+              f"{sorted(counts['mesh-less'])[0]} a command; wall s "
+              "(host clock, in turns) " + ", ".join(
+                  f"{f} " + " / ".join(f"{w:.3f}" for w in ws)
+                  for f, ws in walls.items()))
+
+    if on_card:  # each form in turns with the mesh-less graph
+        order = ("eager", "graphed", "mesh-less", "mesh-less", "graphed",
+                 "eager")
+        served_turns(f"1-rank mesh forward [{n}, {frames}, 64]",
+                     {f: functools.partial(fn, x)
+                      for f, fn in predict.items()}, card, order=order)
+        served_turns(f"1-rank mesh forward [{MESH_PARTIAL_ROWS}, {frames}, "
+                     f"64] masked",
+                     {f: functools.partial(fn, part, mask)
+                      for f, fn in predict.items()}, card, order=order)
+        classifiers["eager"] = serve.Classifier(
+            model, LABELS, feature_config=FEATURES_PALLAS, batch_size=n,
+            mesh=mesh, device=device, eager=True)
+        served_turns(f"1-rank mesh Classifier pass over {n} 3 s wavs",
+                     {f: functools.partial(c.scores, paths, ids=ids)
+                      for f, c in classifiers.items()}, card, per_call=n,
+                     order=order, reps=5)
+        streams["eager"] = stream(mesh, eager=True)
+        chunk = np.ascontiguousarray(stream_signal[:2 * RATE], np.float32)
+        served_turns(f"1-rank mesh stream chunk [1, {2 * RATE}]",
+                     {f: functools.partial(st._score_chunk, chunk)
+                      for f, st in streams.items()}, card, order=order)
+    print(f"masked (c) served: {time.perf_counter() - t0:.1f} s")
+    return int(launched[0]), int(launched[1])
+
+
+def phase_masked(root, rng, logmel, device="cuda", classify_argv=None):
     """Phase 17: the masked recurrent, remat and one-rank-mesh steps,
     captured.
     (a) lstm, bi_gru, crnn and ap_lstm through fit_fused on the
@@ -4166,7 +4430,9 @@ def phase_masked(root, rng, logmel, device="cuda"):
     (b) remat with channel dropout 0.5, graphed and eager bit for bit,
     within REMAT_RTOL of the plain step, the peak memory with and without
     remat. (c) the x-vector mesh-less, on a 1-rank mesh and on a 1 x 1
-    mesh with the column-parallel rule, all captured, bit for bit, timed.
+    mesh with the column-parallel rule, all captured, bit for bit, timed;
+    then its served forwards on the 1-rank mesh (``one_rank_serving``;
+    ``classify_argv``, phase 7's ``classify``, adds the command line).
     Returns (the launches of each kernel, the kernel's error on the
     masked batch).
 
@@ -4430,6 +4696,10 @@ def phase_masked(root, rng, logmel, device="cuda"):
              + ", ".join(f"{k} {v:.4f} ms" for k, v in timing.items())
              + " (CUDA events, medians)" if timing else "")
           + f"; {time.perf_counter() - t0:.1f} s for (c)")
+    served_launches, served_reductions = one_rank_serving(
+        root, mesh1, device, classify_argv)
+    launches += served_launches
+    reductions += served_reductions
     parallel.shutdown_distributed()
     if on_card:
         print(f"masked table ({card}): " + json.dumps([
@@ -4474,7 +4744,8 @@ def main():
                                       logmel)
             pipe_launches, pipe_err, pipe_timing, pipe_data = phase_pipeline(
                 root, np.random.default_rng(SEED + 3), logmel)
-            cli_launches, cli_err, _ = phase_cli(root, logmel, pipe_data)
+            cli_launches, cli_err, _, classify_argv = phase_cli(
+                root, logmel, pipe_data)
         finally:
             torch.backends.cudnn.deterministic = False
         zoo_launches, zoo_err, zoo_rows = phase_zoo(
@@ -4500,7 +4771,8 @@ def main():
             orbax_launches, orbax_err = phase_orbax(
                 root, np.random.default_rng(SEED + 7), logmel)
             masked_launches, masked_reductions, masked_err = phase_masked(
-                root, np.random.default_rng(SEED + 11), logmel)
+                root, np.random.default_rng(SEED + 11), logmel,
+                classify_argv=classify_argv)
         finally:
             torch.backends.cudnn.deterministic = False
     if pipe_timing is not None:
@@ -4522,7 +4794,7 @@ def main():
           f"{orbax_launches} Orbax + {masked_launches} masked, remat and "
           f"one-rank meshes; split reductions {serve_reductions} in "
           f"serving + {served_reductions} in served graphs + "
-          f"{masked_reductions} masked serving")
+          f"{masked_reductions} masked and one-rank-mesh serving")
 
     print(json.dumps({"kernels": [{
         "name": "logmel_kernel",

@@ -410,8 +410,11 @@ def _cuda_device(device):
 def _launch_counter(device):
     """int64 [len(KERNELS)] on ``device``: every launch of ``KERNELS[i]``
     adds one to element i on the card. Kept for the process, since a
-    captured CUDA graph holds its address."""
-    return torch.zeros(len(KERNELS), dtype=torch.int64, device=device)
+    captured CUDA graph holds its address; a normal tensor even when the
+    first launch runs in inference mode (a served forward), so that
+    ``reset_launch_counts`` may zero it outside."""
+    with torch.inference_mode(False):
+        return torch.zeros(len(KERNELS), dtype=torch.int64, device=device)
 
 
 def launch_counts(device="cuda"):

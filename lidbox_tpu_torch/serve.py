@@ -143,9 +143,12 @@ class StreamingClassifier:
     running mean — the offline chunk-merge semantics
     (reference: lidbox/util.py:41-57), so a stream scored online equals the
     same audio scored offline with the same chunking. With a
-    ``parallel.Mesh`` every rank is fed the same stream and each chunk's
-    forward runs data-parallel (a batch of one row padded to the mesh
-    size), every rank holding the scores.
+    ``parallel.Mesh`` of several ranks every rank is fed the same stream
+    and each chunk's forward runs data-parallel (a batch of one row padded
+    to the mesh size, eagerly by rule: ``graphs.forward_reason``), every
+    rank holding the scores. A one-rank mesh has nothing to split or
+    gather: its chunks run the fused program, as without a mesh (every
+    rank of a larger group scoring its own stream).
 
     Usage::
 
@@ -161,7 +164,7 @@ class StreamingClassifier:
         self.score_fn = score_fn  # outputs -> [B, N] (language vectors)
         self.device = _check_device(model, device)
         self._mesh_predict = None
-        if parallel.as_mesh(mesh) is not None:
+        if graphs.forward_reason(parallel.as_mesh(mesh)) is not None:
             self._mesh_predict = util.make_batch_predict_fn(
                 model, batch_size=mesh.size, mesh=mesh, score_fn=score_fn)
         self.model = model

@@ -51,15 +51,26 @@ def get_best_checkpoint_path(checkpoints_dir, key=None, mode=None):
     (reference: keras_utils.py:102-118). Selects over ``.ckpt`` files and
     checkpoint directories (``epoch...`` dirs, the JAX package's Orbax
     layout) alike, as the JAX package does."""
+    return _best_of(checkpoints_dir, lambda entry: (
+        entry.is_file() and entry.name.endswith(CHECKPOINT_SUFFIX))
+        or _is_orbax_dir(entry), key, mode)
+
+
+def _is_orbax_dir(entry):
+    """An ``epoch...`` checkpoint directory; an uncommitted async-orbax
+    write from a killed run is none."""
+    return (entry.is_dir() and entry.name.startswith("epoch")
+            and ".orbax-checkpoint-tmp" not in entry.name)
+
+
+def _best_of(checkpoints_dir, candidate, key, mode):
+    """The best of the entries of ``checkpoints_dir`` that ``candidate``
+    takes, by ``key`` (None when there are none)."""
     if key is None:
         key = "epoch"
     if not os.path.isdir(checkpoints_dir):
         return None
-    ckpts = [p.path for p in os.scandir(checkpoints_dir)
-             if (p.is_file() and p.name.endswith(CHECKPOINT_SUFFIX))
-             or (p.is_dir() and p.name.startswith("epoch")
-                 # skip uncommitted async-orbax writes from a killed run
-                 and ".orbax-checkpoint-tmp" not in p.name)]
+    ckpts = [p.path for p in os.scandir(checkpoints_dir) if candidate(p)]
     if not ckpts:
         return None
     if key == "epoch":
@@ -248,6 +259,16 @@ class OrbaxCheckpointer:
         error, self._error = self._error, None
         if error is not None:
             raise error
+
+    @staticmethod
+    def best_checkpoint_path(checkpoints_dir, key=None, mode=None):
+        """``get_best_checkpoint_path`` over the Orbax directories alone
+        (``epoch*``, tmp entries skipped; ``.ckpt`` files are no
+        candidates): the greatest epoch when ``key`` is "epoch" or None,
+        else the min or max of the parsed ``key``. A NaN value never wins
+        (the JAX package's method lets the scan order decide); when every
+        value is NaN, the greatest epoch."""
+        return _best_of(checkpoints_dir, _is_orbax_dir, key, mode)
 
 
 def _commit(path, tree):

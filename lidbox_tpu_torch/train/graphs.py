@@ -45,7 +45,11 @@ addresses of the kernel's cached operands, so it keeps them
 On the CPU the donating step runs eagerly, which is what the caller asked
 for. A mesh of several ranks runs it eagerly on the card too, by rule,
 logged once (``forward_reason``); either way the state is written in place.
-A one-rank mesh, ``remat`` and a frame-masked batch of a recurrent model
+The rule is the same for every program of this module, train steps and
+forwards alike (the eval step, ``Trainer.predict``, the batch predict fn of
+``util.make_batch_predict_fn`` and the streaming chunk of
+``serve.StreamingClassifier``). A one-rank mesh, ``remat`` and a
+frame-masked batch of a recurrent model
 are captured: at one rank every collective returns its input, the remat
 recompute rewinds the dropout generator through a generator registered
 with the graph (``Trainer._rewind_point``), and the recurrent layers read
@@ -120,11 +124,14 @@ def _materialized(inputs):
 
 
 def forward_reason(mesh):
-    """Why a forward under ``mesh`` is not captured on the card, or None.
-    Only a mesh of several ranks has collectives that do something (at one
-    rank each returns its input): over gloo they copy every tensor through
-    the host, and NCCL's capture of a multi-rank mesh cannot be checked on
-    a one-card machine, where NCCL refuses two ranks on one card."""
+    """Why a program under ``mesh`` is not captured on the card, or None:
+    the one rule for the train and eval steps, ``Trainer.predict``, the
+    batch predict fn (``util.make_batch_predict_fn``) and the streaming
+    chunk (``serve.StreamingClassifier``). Only a mesh of several ranks has
+    collectives that do something (at one rank each returns its input):
+    over gloo they copy every tensor through the host, and NCCL's capture
+    of a multi-rank mesh cannot be checked on a one-card machine, where
+    NCCL refuses two ranks on one card."""
     if mesh is not None and mesh.size > 1:
         return ("a mesh of several ranks: its collectives are not captured "
                 "(gloo copies through the host; NCCL's capture needs a card "

@@ -62,18 +62,17 @@ def make_batch_predict_fn(model, batch_size=32, mesh=None, compute_dtype=None,
     transfer (half the bytes) and upcasts them on the device: outputs
     differ from the float32 feed only by that input rounding.
 
-    Without a mesh the forward (the upcast, ``compute_dtype`` and
-    ``score_fn`` included) is one CUDA graph per (input shape, staged
-    dtype, masked), the JAX package's ``apply_jit`` / ``apply_jit_masked``
-    (``graphs.ForwardProgram``, kind "forward"): the staged input is
-    copied from pinned host memory into the graph's input buffer, and the
-    output cloned out of the graph's before the next replay. The graphs
-    read the model's parameters and buffers in place: weights updated in
-    place are served by the next call, replaced tensors are captured
-    anew, a frame-masked batch of a recurrent model too. ``eager=True``
-    runs every forward eagerly, the graphs' reference; the CPU runs them
-    eagerly. Calls from
-    several threads are served one replay at a time.
+    The forward (the upcast, ``compute_dtype`` and ``score_fn`` included)
+    is one CUDA graph per (input shape, staged dtype, masked), the JAX
+    package's ``apply_jit`` / ``apply_jit_masked`` (``graphs.ForwardProgram``,
+    kind "forward"): the staged input is copied from pinned host memory
+    into the graph's input buffer, and the output cloned out of the
+    graph's before the next replay. The graphs read the model's parameters
+    and buffers in place: weights updated in place are served by the next
+    call, replaced tensors are captured anew, a frame-masked batch of a
+    recurrent model too. ``eager=True`` runs every forward eagerly, the
+    graphs' reference; the CPU runs them eagerly. Calls from several
+    threads are served one replay at a time.
 
     With a ``parallel.Mesh`` inference is data-parallel: every rank calls
     the function with the same inputs (in lockstep: each call is a
@@ -82,13 +81,18 @@ def make_batch_predict_fn(model, batch_size=32, mesh=None, compute_dtype=None,
     rank runs the forward of its rows, and the rows are gathered back, so
     every rank returns the whole batch's outputs. Ranks outside a sub-mesh
     (``get_mesh(num_devices=N)`` below the group's size) run no forward
-    and receive the outputs from rank 0. The mesh's forwards run eagerly:
-    their gathers go through the host.
+    and receive the outputs from rank 0. Only the forward of a rank's rows
+    is a program, captured as without a mesh (on ``[batch_size / mesh
+    size, ...]``), the gather and the share outside it. A mesh of several
+    ranks runs it eagerly, by rule (``graphs.forward_reason``, logged
+    once); at one rank the gather and the share return their input, so
+    the mesh runs the mesh-less graph of a full batch.
 
     ``predict_fn.refresh()``, as the JAX package's, drops what the
-    function keeps of the weights: the captured graphs (a mesh's keeps
-    nothing). ``predict_fn.mesh`` is the mesh, or None: a mesh's calls are
-    collectives, which every rank makes in the same order."""
+    function keeps of the weights: the captured graphs, which hold the
+    tensors they read at capture. ``predict_fn.mesh`` is the mesh, or
+    None: a mesh's calls are collectives, which every rank makes in the
+    same order."""
     mesh = parallel.as_mesh(mesh)
     if mesh is not None and batch_size % mesh.size:
         raise ValueError(f"batch_size {batch_size} must divide over the "
@@ -126,25 +130,21 @@ def make_batch_predict_fn(model, batch_size=32, mesh=None, compute_dtype=None,
             mask = None if mask is None else mask.pin_memory()
         return x, mask
 
+    program = graphs.ForwardProgram("forward", eager=eager)
+    reason = graphs.forward_reason(mesh)
+
+    def forward(inputs, mask=None):
+        x, mask = staged(inputs, mask)
+        return program(body, {"x": x, "mask": mask}, model.device,
+                       held=graphs.module_tensors(model.module),
+                       reason=reason)
+
     if mesh is None:
-        program = graphs.ForwardProgram("forward", eager=eager)
-
-        def device_outputs(inputs, mask=None):
-            x, mask = staged(inputs, mask)
-            return program(body, {"x": x, "mask": mask}, model.device,
-                           held=graphs.module_tensors(model.module))
-
         def predict_fn(inputs, mask=None):
-            return device_outputs(inputs, mask).cpu().numpy()
+            return forward(inputs, mask).cpu().numpy()
         predict_fn.refresh = program.release
         predict_fn.mesh = None
         return predict_fn
-
-    @torch.inference_mode()
-    def forward(inputs, mask=None):
-        x, mask = staged(inputs, mask)
-        return body(x.to(model.device),
-                    None if mask is None else mask.to(model.device))
 
     @torch.inference_mode()
     def predict_fn(inputs, mask=None):
@@ -158,27 +158,25 @@ def make_batch_predict_fn(model, batch_size=32, mesh=None, compute_dtype=None,
         out = None
         if mesh.is_member:
             pad = batch_size - n
-            inputs = np.pad(inputs, [(0, pad)] + [(0, 0)] * (inputs.ndim - 1))
-            if mask is not None:
-                # pad rows get an all-True mask: their (discarded) forwards
-                # stay finite instead of pooling over zero valid frames
-                mask = np.pad(np.asarray(mask, bool), [(0, pad), (0, 0)],
-                              constant_values=True)
+            if pad:  # one copy on the host, none for a full batch
+                inputs = np.concatenate([inputs, np.zeros(
+                    (pad,) + inputs.shape[1:], inputs.dtype)])
+                if mask is not None:
+                    # pad rows get an all-True mask: their (discarded)
+                    # forwards stay finite instead of pooling over zero
+                    # valid frames
+                    mask = np.asarray(mask, bool)
+                    mask = np.concatenate(
+                        [mask, np.ones((pad,) + mask.shape[1:], bool)])
             m = batch_size // mesh.size
             rows = slice(mesh.rank * m, (mesh.rank + 1) * m)
             out = parallel.all_gather_rows(
                 forward(inputs[rows], None if mask is None else mask[rows]),
                 mesh)
         return parallel.share_with_world(out, mesh)[:n].cpu().numpy()
-    predict_fn.refresh = _refresh
+    predict_fn.refresh = program.release
     predict_fn.mesh = mesh
     return predict_fn
-
-
-def _refresh():
-    """``predict_fn.refresh()`` of a mesh's predict fn: it reads the
-    model's live parameters on every call, so there is nothing to drop. It
-    exists so that serving code written for either package runs."""
 
 
 def _batch_arrays(pending, pad_buckets):

@@ -52,6 +52,7 @@ from lidbox_tpu_torch.ops import logmel
 from lidbox_tpu_torch.train import graphs
 from lidbox_tpu_torch.train import loop as tloop
 from lidbox_tpu_torch.train import optimizers as topt
+from torch_init_cache import memoized
 
 torch.set_num_threads(2)
 
@@ -104,6 +105,13 @@ def same_counts(a, b):
             return [i for v in node for i in ints(v)]
         return [node] if isinstance(node, int) else []
     return a.step == b.step and ints(a.opt_state) == ints(b.opt_state)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def memoized_init():
+    """Each model structure and seed draws its weights once in this file."""
+    with memoized():
+        yield
 
 
 # -- the donating step -----------------------------------------------------------

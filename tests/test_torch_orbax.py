@@ -27,6 +27,10 @@ Orbax checkpoints in the port against lidbox_tpu's, on the CPU.
   as msgpack) against its regeneration by ``make_fixture``.
 - A writer that dies mid-write leaves only a ``.orbax-checkpoint-tmp``
   entry, which best-checkpoint selection skips.
+- ``OrbaxCheckpointer.best_checkpoint_path`` picks as the JAX package's
+  among ``epoch*`` directories only (``.ckpt`` files, tmp entries and other
+  directories beside them), by epoch, a min key and a max key; a NaN value
+  never wins, where the JAX method's pick follows the scan order.
 """
 import concurrent.futures
 import json
@@ -475,6 +479,78 @@ def test_killed_writer_leaves_only_a_tmp_entry(tmp_path, monkeypatch):
     assert tckpt.get_best_checkpoint_path(str(tmp_path)) == path
     assert tckpt.get_best_checkpoint_path(str(tmp_path), "val_loss",
                                           "min") == path
+
+
+def checkpoint_entries(root, dirs, files=()):
+    for name in dirs:
+        (root / name).mkdir()
+    for name in files:
+        (root / name).write_bytes(b"")
+
+
+def test_orbax_best_checkpoint_path_matches_jax(tmp_path):
+    """Only ``epoch*`` directories are candidates: the ``.ckpt`` files
+    (which win every key here, and which ``get_best_checkpoint_path``
+    picks), the tmp entry (best on every key too) and the other
+    directories are not."""
+    checkpoint_entries(
+        tmp_path,
+        ["epoch000001__val_loss0.400000000000__accuracy0.900000",
+         "epoch000002__val_loss0.200000000000__accuracy0.600000",
+         "epoch000003__val_loss0.300000000000__accuracy0.700000",
+         "epoch000008__val_loss0.010000000000__accuracy0.990000"
+         ".orbax-checkpoint-tmp-1700000000",
+         "logs", "tensorboard"],
+        ["epoch000009__val_loss0.050000000000__accuracy0.950000.ckpt",
+         "epoch000010__notes.txt"])
+    cases = [(None, None, "epoch000003"), ("epoch", None, "epoch000003"),
+             ("val_loss", "min", "epoch000002"),
+             ("accuracy", "max", "epoch000001")]
+    for key, mode, best in cases:
+        ours = tckpt.OrbaxCheckpointer.best_checkpoint_path(str(tmp_path),
+                                                            key, mode)
+        ref = jckpt.OrbaxCheckpointer.best_checkpoint_path(str(tmp_path), key,
+                                                           mode)
+        assert ours == ref and os.path.basename(ours).startswith(best)
+        assert tckpt.get_best_checkpoint_path(
+            str(tmp_path), key, mode).endswith(".ckpt")
+    with pytest.raises(ValueError, match="mode"):
+        tckpt.OrbaxCheckpointer.best_checkpoint_path(str(tmp_path),
+                                                     "val_loss", "mean")
+    assert tckpt.OrbaxCheckpointer.best_checkpoint_path(
+        str(tmp_path / "absent")) is None
+    assert tckpt.OrbaxCheckpointer.best_checkpoint_path(
+        str(tmp_path / "logs")) is None
+
+
+def test_orbax_best_checkpoint_path_skips_nan(tmp_path, monkeypatch):
+    """A NaN metric never wins, whatever the scan order; the JAX method's
+    pick under NaN follows the scan order (ROADMAP §3, a divergence)."""
+    checkpoint_entries(tmp_path, ["epoch000001__val_lossnan",
+                                  "epoch000002__val_loss0.300000000000",
+                                  "epoch000003__val_loss0.200000000000"])
+    scandir = os.scandir
+    jax_picks = set()
+    for reverse in (False, True):
+        monkeypatch.setattr(os, "scandir", lambda path, r=reverse: sorted(
+            scandir(path), key=lambda e: e.name, reverse=r))
+        ours = tckpt.OrbaxCheckpointer.best_checkpoint_path(str(tmp_path),
+                                                            "val_loss", "min")
+        assert os.path.basename(ours) == "epoch000003__val_loss0.200000000000"
+        jax_picks.add(os.path.basename(jckpt.OrbaxCheckpointer
+                                       .best_checkpoint_path(str(tmp_path),
+                                                             "val_loss",
+                                                             "min")))
+    assert jax_picks == {"epoch000001__val_lossnan",
+                         "epoch000003__val_loss0.200000000000"}
+    monkeypatch.setattr(os, "scandir", scandir)
+    for name in ("epoch000002__val_loss0.300000000000",
+                 "epoch000003__val_loss0.200000000000"):
+        os.rename(tmp_path / name,
+                  tmp_path / (name.split("__")[0] + "__val_lossnan"))
+    # every value NaN: the greatest epoch
+    assert os.path.basename(tckpt.OrbaxCheckpointer.best_checkpoint_path(
+        str(tmp_path), "val_loss", "max")) == "epoch000003__val_lossnan"
 
 
 # -- the CLI journeys ----------------------------------------------------------

@@ -28,7 +28,8 @@ Two ranks (subprocesses over gloo, ``torch_parallel_common``), held to:
   (rank 1 outside the 1-rank sub-mesh receives rank 0's embeddings);
 - ``Classifier(mesh=)`` against the mesh-less port (atol 1e-5) and the
   JAX package's ``Classifier(mesh=)`` (tests/test_serve.py:60, atol 1e-4),
-  and ``StreamingClassifier(mesh=)`` against the mesh-less port.
+  and ``StreamingClassifier(mesh=)`` against the mesh-less port; both
+  predict fns eager by rule on two ranks, the reason logged once each.
 """
 import numpy as np
 import pytest
@@ -258,6 +259,13 @@ def test_classifiers_on_mesh(runs):
         np.testing.assert_allclose(out["scores"]["prediction"], jax_scores,
                                    atol=1e-4)
         np.testing.assert_allclose(out["stream"], ref["stream"], atol=1e-5)
+        # two ranks: the Classifier's predict fn and the stream's run
+        # eagerly by rule, each logged once
+        assert out["stream_on_mesh"]
+        assert len(out["eager_logs"]) == 2 and all(
+            m.startswith("forward program runs eagerly")
+            and "several ranks" in m for m in out["eager_logs"]), (
+                out["eager_logs"])
 
 
 # -- in this process ---------------------------------------------------------------

@@ -29,6 +29,14 @@ here.
 - Eager by rule, logged once: only a mesh of several ranks. A
   frame-masked BiGRU and a one-rank mesh's ``predict`` and ``evaluate``
   are captured.
+- A one-rank mesh (``parallel.get_mesh(device="cpu")``): its batch predict
+  fn reaches the program with no reason and captures one graph of
+  ``batch_size`` rows, with and without a frame mask: replayed == eager
+  at every size, == mesh-less at a full batch, within rtol 1e-5 of it at
+  a partial batch (read 0 here), within 1e-4 of the JAX package's on a
+  one-device mesh; ``refresh()`` drops its graphs, so a replaced parameter
+  is served; a stream on it runs the fused "stream" program and scores as
+  the mesh-less stream, bit for bit.
 - ``predict_with_model`` of each recurrent model on ragged batches (frame
   masks): replayed == eager, bit for bit, one capture per padded batch.
 - The 2-deep pipeline of ``predict_with_model``: the serial loop's order
@@ -53,6 +61,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 import lidbox_tpu
 import lidbox_tpu.models as jmodels
+import lidbox_tpu.parallel as jparallel
 import lidbox_tpu.serve as jserve
 import lidbox_tpu.util as jutil
 from lidbox_tpu.data.dataset import Dataset as JDataset
@@ -63,6 +72,7 @@ import lidbox_tpu_torch.util as tutil
 from lidbox_tpu_torch import losses as tlosses
 from lidbox_tpu_torch import metrics as tmetrics
 from lidbox_tpu_torch import parallel
+from lidbox_tpu_torch import testutil as ttestutil
 from lidbox_tpu_torch.data import steps as tsteps
 from lidbox_tpu_torch.data.dataset import Dataset as TDataset
 from lidbox_tpu_torch.data.device_pipeline import DeviceFeatureExtractor
@@ -72,6 +82,7 @@ from lidbox_tpu_torch.train import checkpoint as tckpt
 from lidbox_tpu_torch.train import graphs
 from lidbox_tpu_torch.train import loop as tloop
 from lidbox_tpu_torch.train import optimizers as topt
+from torch_init_cache import memoized
 
 torch.set_num_threads(2)
 
@@ -134,11 +145,28 @@ def captured(before):
 
 # -- fixtures ---------------------------------------------------------------------
 
+@pytest.fixture(scope="module", autouse=True)
+def memoized_init():
+    """Each model structure and seed draws its weights once in this file."""
+    with memoized():
+        yield
+
+
 @pytest.fixture(scope="module")
 def pair():
     frames = 1 + (3 * RATE - 400) // 160
     jm = jmodels.create("xvector", (frames, MEL), len(LABELS)).init()
     tm = tmodels.create("xvector", (frames, MEL), len(LABELS), device="cpu")
+    tm.load_flax_params(jax.tree_util.tree_map(np.asarray,
+                                               jm.variables["params"]))
+    return jm, tm
+
+
+@pytest.fixture(scope="module")
+def small_pair():
+    """The x-vector at (FRAMES, MEL) in both packages, one set of weights."""
+    jm = jmodels.create("xvector", (FRAMES, MEL), len(LABELS)).init()
+    tm = tmodels.create("xvector", (FRAMES, MEL), len(LABELS), device="cpu")
     tm.load_flax_params(jax.tree_util.tree_map(np.asarray,
                                                jm.variables["params"]))
     return jm, tm
@@ -339,6 +367,121 @@ def test_predict_fn_captures_weights_and_refresh(replayed):
     predict.refresh()
     assert np.array_equal(predict(x), replaced)
     assert captured(before) == {"forward": 5}
+
+
+# -- one-rank meshes -------------------------------------------------------------------
+
+# a partial batch on a mesh runs padded to batch_size, mesh-less on its own
+# rows: another batch size, whose convolutions may sum in another order
+PARTIAL_RTOL, PARTIAL_ATOL = 1e-5, 1e-6
+
+
+@pytest.fixture
+def program_reasons(monkeypatch):
+    """The ``reason`` of every ForwardProgram call."""
+    reasons = []
+    call = graphs.ForwardProgram.__call__
+
+    def recording(self, fn, inputs, device, held=(), key=(), reason=None):
+        reasons.append(reason)
+        return call(self, fn, inputs, device, held=held, key=key,
+                    reason=reason)
+    monkeypatch.setattr(graphs.ForwardProgram, "__call__", recording)
+    return reasons
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "masked"])
+def test_one_rank_mesh_predict_fn_is_the_meshless_graph(
+        replayed, program_reasons, small_pair, masked):
+    """The one-rank mesh's forward is captured, one graph per (staged dtype,
+    mask) on [batch_size, ...]: bit-equal to its eager form at every size
+    and to the mesh-less graph at a full batch, within PARTIAL_RTOL of it at
+    a partial one, and within ATOL of the JAX package's predict fn on a
+    one-device mesh."""
+    jm, tm = small_pair
+    mesh = parallel.get_mesh(device="cpu")
+    assert mesh.size == 1 and graphs.forward_reason(mesh) is None
+    x = feature_batches(1, 21, batch=11)[0]["input"]
+    mask = None
+    if masked:
+        lengths = np.random.default_rng(22).integers(12, FRAMES + 1, 11)
+        mask = np.arange(FRAMES)[None, :] < lengths[:, None]
+        x = np.where(mask[:, :, None], x, 0.0).astype(np.float32)
+
+    def rows(n):
+        return x[:n], None if mask is None else mask[:n]
+    before = dict(graphs.captures)
+    on_mesh = tutil.make_batch_predict_fn(tm, batch_size=8, mesh=mesh)
+    eager = tutil.make_batch_predict_fn(tm, batch_size=8, mesh=mesh,
+                                        eager=True)
+    meshless = tutil.make_batch_predict_fn(tm, batch_size=8)
+    full = on_mesh(*rows(8))
+    assert np.array_equal(full, eager(*rows(8)))
+    assert np.array_equal(full, meshless(*rows(8)))
+    part = on_mesh(*rows(3))
+    assert np.array_equal(part, eager(*rows(3)))
+    np.testing.assert_allclose(part, meshless(*rows(3)), rtol=PARTIAL_RTOL,
+                               atol=PARTIAL_ATOL)
+    np.testing.assert_array_equal(part, full[:3])  # the same padded batch
+    oversized = on_mesh(*rows(11))  # batches of 8 and 3
+    assert np.array_equal(oversized, np.concatenate([full, eager(
+        x[8:], None if mask is None else mask[8:])]))
+    # one capture for the mesh (every batch padded to 8), two mesh-less
+    assert captured(before) == {"forward": 3}
+    assert set(program_reasons) == {None}
+    ref = jutil.make_batch_predict_fn(jm, batch_size=8,
+                                      mesh=jparallel.get_mesh(num_devices=1))
+    np.testing.assert_allclose(oversized, ref(*rows(11)), atol=ATOL)
+
+
+def test_mesh_predict_fn_refresh_releases_its_graphs(replayed):
+    """``refresh()`` drops the one-rank mesh's graphs: after a parameter is
+    replaced, the next call serves the new weights."""
+    model = tmodels.create("xvector", (FRAMES, MEL), len(LABELS),
+                           device="cpu")
+    mesh = parallel.get_mesh(device="cpu")
+    predict = tutil.make_batch_predict_fn(model, batch_size=4, mesh=mesh)
+    eager = tutil.make_batch_predict_fn(model, batch_size=4, mesh=mesh,
+                                        eager=True)
+    program = predict.refresh.__self__
+    x = feature_batches(1, 23)[0]["input"]
+    before = dict(graphs.captures)
+    out = predict(x)
+    assert program._captured and captured(before) == {"forward": 1}
+    name, weight = next((k, v) for k, v in model.module.named_parameters()
+                        if v.dim() > 1)
+    owner, attr = name.rsplit(".", 1)
+    setattr(model.module.get_submodule(owner), attr,
+            torch.nn.Parameter(weight.detach() * 0.5))
+    predict.refresh()
+    assert not program._captured
+    refreshed = predict(x)
+    assert not np.array_equal(refreshed, out)
+    assert np.array_equal(refreshed, eager(x))
+    assert captured(before) == {"forward": 2}
+
+
+def test_one_rank_mesh_stream_is_the_meshless_stream(replayed, pair):
+    """A ``StreamingClassifier`` on a one-rank mesh runs each chunk through
+    the fused "stream" program (no feature readback, no mesh predict fn)
+    and scores the stream exactly as without a mesh."""
+    jm, tm = pair
+    mesh = parallel.get_mesh(device="cpu")
+    sig = ttestutil.noisy_sinewave(250, RATE, 0.1, 2.6, seed=11)
+    kw = dict(feature_config=FC, chunk_seconds=1.0, hop_seconds=0.5)
+    before = dict(graphs.captures)
+    meshless = tserve.StreamingClassifier(tm, LABELS, device="cpu", **kw)
+    on_mesh = tserve.StreamingClassifier(tm, LABELS, device="cpu", mesh=mesh,
+                                         **kw)
+    assert on_mesh._mesh_predict is None
+    pos = 0
+    for b in (5000, 11000, 333, sig.size):
+        for service in (meshless, on_mesh):
+            service.feed(sig[pos:pos + b])
+        pos += b
+    assert on_mesh._num_chunks == meshless._num_chunks == 4
+    assert np.array_equal(on_mesh.scores(), meshless.scores())
+    assert captured(before) == {"stream": 2}  # one program each
 
 
 def test_metric_updates_in_place_same_bits():
@@ -638,12 +781,8 @@ def test_pipeline_runs_a_mesh_fn_in_order():
                                      for e in elements[::2]]
 
 
-def test_pipeline_ragged_matches_jax(replayed):
-    frames = FRAMES
-    jm = jmodels.create("xvector", (frames, MEL), len(LABELS)).init()
-    tm = tmodels.create("xvector", (frames, MEL), len(LABELS), device="cpu")
-    tm.load_flax_params(jax.tree_util.tree_map(np.asarray,
-                                               jm.variables["params"]))
+def test_pipeline_ragged_matches_jax(replayed, small_pair):
+    jm, tm = small_pair
     elements = ragged_elements(10, 8)
     ours = tutil.predict_with_model(tm, TDataset.from_elements(elements),
                                     batch_size=4, pad_buckets=[32, 48])

@@ -51,9 +51,11 @@ NOTHING_SPLIT = ("ap_lstm",)
 # splits only recurrent weights: an LSTM and its 3-wide head
 ONLY_GATHERED = ("lstm",)
 # the ranks' liveness bound: 17 configurations, each stepped twice in
-# float64 on both ranks, take about 60 s alone and outlived 150 s beside
-# five other test workers (every case of this file then errored)
-RANKS_TIMEOUT_S = 450
+# float64 on both ranks, each model's weights drawn once a rank
+# (``torch_init_cache``), take about 40 s alone and 113 s beside five other
+# test workers (60 s alone when every model drew its weights twice, which
+# outlived 150 s beside them)
+RANKS_TIMEOUT_S = 300
 
 
 @pytest.fixture(scope="module")

@@ -12,12 +12,15 @@ package) and write their results to ``rank<r>.pt``. ``finish_ranks`` waits
 with a hard timeout and kills every rank when one fails or hangs, so a
 hung collective fails its own test.
 """
+import logging
 import os
 import subprocess
 import sys
 
 import numpy as np
 import torch
+
+from torch_init_cache import memoized
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COLLECTIVE_TIMEOUT_S = 60
@@ -251,15 +254,25 @@ def scenario_serving(spec, mesh, out):
         out[f"embed_{key}"] = np.stack([e["embedding"] for e in ds])
 
     model = _model("xvector", spec["serve_model"])
-    clf = serve.Classifier(model, spec["labels"],
-                           feature_config=spec["serve_features"],
-                           batch_size=4, mesh=mesh, device="cpu")
-    out["scores"] = clf.scores(spec["wavs"], ids=spec["wav_ids"])
-    stream = serve.StreamingClassifier(
-        model, spec["labels"], feature_config=spec["serve_features"],
-        chunk_seconds=0.5, hop_seconds=0.25, mesh=mesh, device="cpu")
-    stream.feed(spec["stream"])
+    logs = []  # the eager rule's messages of the classifiers' programs
+    handler = logging.Handler()
+    handler.emit = lambda record: logs.append(record.getMessage())
+    graphs_logger = logging.getLogger("lidbox_tpu_torch.train.graphs")
+    graphs_logger.addHandler(handler)
+    try:
+        clf = serve.Classifier(model, spec["labels"],
+                               feature_config=spec["serve_features"],
+                               batch_size=4, mesh=mesh, device="cpu")
+        out["scores"] = clf.scores(spec["wavs"], ids=spec["wav_ids"])
+        stream = serve.StreamingClassifier(
+            model, spec["labels"], feature_config=spec["serve_features"],
+            chunk_seconds=0.5, hop_seconds=0.25, mesh=mesh, device="cpu")
+        stream.feed(spec["stream"])
+    finally:
+        graphs_logger.removeHandler(handler)
     out["stream"] = stream.scores()
+    out["stream_on_mesh"] = stream._mesh_predict is not None
+    out["eager_logs"] = logs
 
 
 # -- tensor parallelism (tests/test_torch_tensor_parallel.py) -----------------
@@ -527,7 +540,8 @@ def main(scenario, tmp_path):
     mesh = parallel.get_mesh()
     spec = torch.load(os.path.join(tmp_path, "spec.pt"), weights_only=False)
     out = {}
-    globals()[f"scenario_{scenario}"](spec, mesh, out)
+    with memoized():
+        globals()[f"scenario_{scenario}"](spec, mesh, out)
     torch.save(out, os.path.join(tmp_path, f"rank{mesh.rank}.pt"))
     parallel.shutdown_distributed()
 
