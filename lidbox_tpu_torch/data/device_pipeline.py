@@ -12,8 +12,9 @@ The JAX package jits one program per (sample rate, masked) and shape
 rate, masked, batch and signal shape), replayed
 (``graphs.ForwardProgram``, kind "features"): the fused log-Mel kernel
 and its split reduction run inside it. The signals are copied into the
-graph's input buffer from pinned host memory. On the CPU, or with
-``eager=True``, the extraction runs eagerly.
+graph's input buffer from pinned host memory (``host_tensor``: a
+``lidbox.features.pin`` span, with its ``bytes``, while a torch.profiler
+runs). On the CPU, or with ``eager=True``, the extraction runs eagerly.
 """
 import functools
 
@@ -24,7 +25,7 @@ import lidbox_tpu_torch.features as F
 from lidbox_tpu_torch import get_device
 from lidbox_tpu_torch.data.dataset import pick_bucket
 from lidbox_tpu_torch.features import audio
-from lidbox_tpu_torch.train import graphs
+from lidbox_tpu_torch.train import graphs, observability
 
 # Signal-length buckets in samples (@16 kHz: 0.5 s .. 64 s, x2 growth)
 DEFAULT_SIGNAL_BUCKETS = tuple(8000 * 2 ** i for i in range(8))
@@ -81,8 +82,13 @@ class DeviceFeatureExtractor:
     def host_tensor(self, array):
         """A host array as a tensor the extraction copies without a sync:
         pinned when the extraction runs on the card."""
-        x = torch.from_numpy(np.ascontiguousarray(array))
-        return x.pin_memory() if self.device.type == "cuda" else x
+        with observability.span("lidbox.features.pin") as span:
+            x = torch.from_numpy(np.ascontiguousarray(array))
+            if self.device.type == "cuda":
+                x = x.pin_memory()
+            if span is not None:
+                span.attrs["bytes"] = x.nbytes
+            return x
 
     def to_host(self, feats):
         out = feats.cpu().numpy()

@@ -11,6 +11,13 @@ On the card each step is one CUDA graph replay per shape
 extractor's features, the batch forward (``util.make_batch_predict_fn``)
 and, for a stream, the features and forward of a chunk fused into one.
 ``eager=True`` runs them eagerly, the graphs' reference.
+
+While a torch.profiler runs, a stream records its work as spans
+(``observability.span``): each ``feed`` a ``lidbox.serve.feed`` (its
+``samples`` and ``chunks``), each chunk a ``lidbox.serve.chunk`` inside it,
+and within that the chunk's pinning (``lidbox.features.pin``), its program
+(``lidbox.graph.*``) and the read of its scores to the host
+(``lidbox.serve.readback``).
 """
 import numpy as np
 import torch
@@ -21,7 +28,7 @@ from lidbox_tpu_torch.data import steps as steps_mod
 from lidbox_tpu_torch.data.dataset import Dataset
 from lidbox_tpu_torch.data.device_pipeline import DeviceFeatureExtractor
 from lidbox_tpu_torch.features import io as audio_io
-from lidbox_tpu_torch.train import graphs
+from lidbox_tpu_torch.train import graphs, observability
 
 DEFAULT_FEATURE_CONFIG = {"type": "logmelspectrogram",
                           "melspectrogram": {"num_mel_bins": 64}}
@@ -200,31 +207,39 @@ class StreamingClassifier:
 
     @torch.inference_mode()
     def _score_chunk(self, chunk):
-        x = self.extractor.host_tensor(chunk[None, :])
-        held = graphs.module_tensors(self.model.module)
-        if self._mesh_predict is None and not self.extractor.validate_finite:
-            return self.program(self._fused, {"signals": x}, self.device,
-                                held=held).cpu().numpy()
-        feats = self.extractor.extract(x, self.sample_rate)
-        if self.extractor.validate_finite:
-            self.extractor.to_host(feats)
-        if self._mesh_predict is not None:
-            return self._mesh_predict(feats.cpu().numpy())[0]
-        return self.program(self._forward, {"feats": feats}, self.device,
-                            held=held).cpu().numpy()
+        with observability.span("lidbox.serve.chunk"):
+            x = self.extractor.host_tensor(chunk[None, :])
+            held = graphs.module_tensors(self.model.module)
+            if (self._mesh_predict is None
+                    and not self.extractor.validate_finite):
+                return _readback(self.program(self._fused, {"signals": x},
+                                              self.device, held=held))
+            feats = self.extractor.extract(x, self.sample_rate)
+            if self.extractor.validate_finite:
+                self.extractor.to_host(feats)
+            if self._mesh_predict is not None:
+                return self._mesh_predict(feats.cpu().numpy())[0]
+            return _readback(self.program(self._forward, {"feats": feats},
+                                          self.device, held=held))
 
     def feed(self, samples):
         """Append audio samples (any length); runs the model on every
         completed chunk. Returns the current running score vector, or None
         if no chunk has completed yet."""
-        self._buffer = np.concatenate(
-            [self._buffer, np.asarray(samples, np.float32).ravel()])
-        while self._buffer.size >= self.chunk_len:
-            s = self._score_chunk(self._buffer[:self.chunk_len])
-            self._buffer = self._buffer[self.hop:]
-            self._score_sum = s if self._score_sum is None else self._score_sum + s
-            self._num_chunks += 1
-        return self.scores()
+        with observability.span("lidbox.serve.feed") as span:
+            samples = np.asarray(samples, np.float32).ravel()
+            self._buffer = np.concatenate([self._buffer, samples])
+            chunks = 0
+            while self._buffer.size >= self.chunk_len:
+                s = self._score_chunk(self._buffer[:self.chunk_len])
+                self._buffer = self._buffer[self.hop:]
+                self._score_sum = (s if self._score_sum is None
+                                   else self._score_sum + s)
+                self._num_chunks += 1
+                chunks += 1
+            if span is not None:
+                span.attrs.update(samples=samples.size, chunks=chunks)
+            return self.scores()
 
     def scores(self):
         """Running mean of per-chunk score vectors (None before the first
@@ -236,3 +251,10 @@ class StreamingClassifier:
     def label(self):
         s = self.scores()
         return None if s is None else self.labels[int(np.argmax(s))]
+
+
+def _readback(scores):
+    """A chunk's scores read to the host, in a ``lidbox.serve.readback``
+    span."""
+    with observability.span("lidbox.serve.readback"):
+        return scores.cpu().numpy()

@@ -68,6 +68,15 @@ replay, replaced tensors are captured anew. Both kinds of program share
 the capture (:class:`_Programs`): warm-up on a side stream, one memory
 pool per program, ``capture_error_mode="thread_local"``, the kernel's
 operands held; a failed capture or replay raises.
+
+Each run of a program is a span while a torch.profiler runs
+(``observability.span``): ``lidbox.graph.replay``, ``lidbox.graph.capture``
+(the warm-up steps and the capture) or ``lidbox.graph.eager``, with the
+program's ``kind`` and the kernel launches it made on the card
+(``launches``: for a replay, one replay's, tallied over the capture's
+warm-up steps; for a capture, its warm-up steps'; for an eager run, those
+tallied while it ran). A train step is a ``lidbox.step`` span around its
+run, carrying its ``kind`` and ``step``.
 """
 import collections
 import functools
@@ -78,7 +87,7 @@ import torch
 
 from lidbox_tpu_torch import get_logger
 from lidbox_tpu_torch.ops import logmel
-from lidbox_tpu_torch.train import optimizers
+from lidbox_tpu_torch.train import observability, optimizers
 
 logger = get_logger("train.graphs")
 
@@ -180,6 +189,7 @@ class _Captured(NamedTuple):
     loss: torch.Tensor
     operands: list     # the cached kernel operands the graph reads
     generator: object  # the dropout generator it registered (kept alive)
+    launches: dict     # kernel -> its launches in one replay
     rewind: object = None  # remat's rewind point, registered too
 
 
@@ -217,46 +227,72 @@ class _Programs:
         self._captured.clear()
         self._held = self._pool = self._side = None
 
+    def _replayed(self, entry):
+        """``entry.graph`` replayed, in a ``lidbox.graph.replay`` span."""
+        with observability.span("lidbox.graph.replay", kind=self.kind,
+                                launches=entry.launches):
+            entry.graph.replay()
+
+    def _eagerly(self, run):
+        """``run()`` in a ``lidbox.graph.eager`` span, which carries the
+        kernel launches tallied while it ran."""
+        with observability.span("lidbox.graph.eager",
+                                kind=self.kind) as span:
+            if span is None:
+                return run()
+            with logmel.tallying_launches(
+                    collections.Counter()) as launched:
+                out = run()
+            span.attrs["launches"] = dict(launched)
+            return out
+
     def _graph(self, device, warm, body, generators=()):
         """``body()`` captured as a CUDA graph on the program's side stream
         into its memory pool, after ``WARMUP_STEPS`` calls of ``warm()``
         there (lazy set-up: library handles, algorithm choices, the
         kernel's cached bases), with ``generators`` and the device's
         default generator put back as they were before the warm-up and
-        ``generators`` registered with the graph. Returns (graph, the
-        kernel operands it reads, what ``body()`` returned: tensors of the
-        graph's pool, which each replay writes)."""
-        current = torch.cuda.current_stream(device)
-        if self._side is None:
-            self._side = torch.cuda.Stream(device)
-        side = self._side
-        saved = [g.get_state() for g in generators]
-        saved_default = torch.cuda.get_rng_state(device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side), logmel.tallying_launches(
-                collections.Counter()) as launched:
-            for _ in range(WARMUP_STEPS):
-                warm()
-        current.wait_stream(side)
-        del warm
-        for g, s in zip(generators, saved):
-            g.set_state(s)
-        torch.cuda.set_rng_state(saved_default, device)
-        graph = torch.cuda.CUDAGraph()
-        for g in generators:
-            graph.register_generator_state(g)
-        # thread_local: a staging or prefetch thread may pin, copy and
-        # launch meanwhile, which "global" would refuse
-        with logmel.holding_operands([]) as operands, torch.cuda.graph(
-                graph, pool=self._pool, stream=side,
-                capture_error_mode="thread_local"):
-            result = body()
-        if self._pool is None:
-            self._pool = graph.pool()
-        with _count_lock:  # programs of other threads capture too
-            captures[self.kind] += 1
-            warmup_launches.update(launched)
-        return graph, operands, result
+        ``generators`` registered with the graph; in a
+        ``lidbox.graph.capture`` span, which carries the warm-up steps'
+        launches. Returns (graph, the kernel operands it reads, what
+        ``body()`` returned: tensors of the graph's pool, which each replay
+        writes, kernel -> its launches in one replay)."""
+        with observability.span("lidbox.graph.capture",
+                                kind=self.kind) as span:
+            current = torch.cuda.current_stream(device)
+            if self._side is None:
+                self._side = torch.cuda.Stream(device)
+            side = self._side
+            saved = [g.get_state() for g in generators]
+            saved_default = torch.cuda.get_rng_state(device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side), logmel.tallying_launches(
+                    collections.Counter()) as launched:
+                for _ in range(WARMUP_STEPS):
+                    warm()
+            current.wait_stream(side)
+            del warm
+            for g, s in zip(generators, saved):
+                g.set_state(s)
+            torch.cuda.set_rng_state(saved_default, device)
+            graph = torch.cuda.CUDAGraph()
+            for g in generators:
+                graph.register_generator_state(g)
+            # thread_local: a staging or prefetch thread may pin, copy and
+            # launch meanwhile, which "global" would refuse
+            with logmel.holding_operands([]) as operands, torch.cuda.graph(
+                    graph, pool=self._pool, stream=side,
+                    capture_error_mode="thread_local"):
+                result = body()
+            if self._pool is None:
+                self._pool = graph.pool()
+            with _count_lock:  # programs of other threads capture too
+                captures[self.kind] += 1
+                warmup_launches.update(launched)
+            if span is not None:
+                span.attrs["launches"] = dict(launched)
+        return graph, operands, result, {
+            k: n // WARMUP_STEPS for k, n in launched.items()}
 
 
 def _plain_batch(trainer, inputs, augment_generator):
@@ -293,14 +329,19 @@ class StepProgram(_Programs):
     # -- dispatch -------------------------------------------------------------
 
     def __call__(self, trainer, state, inputs, generator=None):
+        with observability.span("lidbox.step", request=state.step,
+                                kind=self.kind, step=state.step):
+            return self._step(trainer, state, inputs, generator)
+
+    def _step(self, trainer, state, inputs, generator):
         from lidbox_tpu_torch.train.loop import key_seed, keyed_generator
         if self.eager:
             augment_gen = (keyed_generator(trainer.device, trainer.seed,
                                            state.step, 7)
                            if self.augment else None)
-            return trainer._train_step(
+            return self._eagerly(lambda: trainer._train_step(
                 state, self.batch(trainer, _materialized(inputs),
-                                  augment_gen), generator)
+                                  augment_gen), generator))
         reason = eager_reason(trainer)
         self._log_eager("train step", reason)
         scalars = trainer.optimizer.scalars(state.opt_state)
@@ -309,8 +350,9 @@ class StepProgram(_Programs):
             loss = self._replay(trainer, state, inputs, generator, scalars,
                                 seed)
         else:
-            loss = self._run_eagerly(trainer, state, inputs, generator,
-                                     scalars, seed)
+            loss = self._eagerly(functools.partial(
+                self._run_eagerly, trainer, state, inputs, generator,
+                scalars, seed))
         return advance(state), loss
 
     def _graphed(self, trainer):
@@ -367,7 +409,7 @@ class StepProgram(_Programs):
             self._augment_generator(trainer.device, seed)
         if entry.rewind is not None:
             entry.rewind.set_state(generator.get_state())
-        entry.graph.replay()
+        self._replayed(entry)
         return entry.loss.clone()
 
     @staticmethod
@@ -408,7 +450,7 @@ class StepProgram(_Programs):
             body = functools.partial(_rewinding, body, trainer, rewind)
         # the warm-up steps run on a clone of the state, so the state is
         # as it was before them
-        graph, operands, _ = self._graph(
+        graph, operands, _, launches = self._graph(
             device,
             functools.partial(self._warm_step, trainer, _clone_state(state),
                               static, generator, augment_gen, seed, buffers,
@@ -416,7 +458,7 @@ class StepProgram(_Programs):
             body, [g for g in (generator, augment_gen, rewind)
                    if g is not None])
         return _Captured(graph, static, buffers, loss, operands, generator,
-                         rewind)
+                         launches, rewind)
 
 
 def _rewinding(body, trainer, rewind):
@@ -435,6 +477,7 @@ class _CapturedForward(NamedTuple):
     inputs: dict       # name -> static input buffer (absent inputs: None)
     output: object     # the body's output: tensor, tuple of them or None
     operands: list     # the cached kernel operands the graph reads
+    launches: dict     # kernel -> its launches in one replay
 
 
 def tensors_of(tree):
@@ -497,9 +540,9 @@ class ForwardProgram(_Programs):
         if not self.eager:
             self._log_eager(f"{self.kind} program", reason)
         if self.eager or reason is not None or not self._graphed(device):
-            return fn(**{k: None if v is None
-                         else v.to(device, non_blocking=True)
-                         for k, v in inputs.items()})
+            return self._eagerly(lambda: fn(**{
+                k: None if v is None else v.to(device, non_blocking=True)
+                for k, v in inputs.items()}))
         with self._lock:
             self._hold(list(held))
             sig = (self.signature(inputs), key)
@@ -511,7 +554,7 @@ class ForwardProgram(_Programs):
                 for name, value in inputs.items():
                     if value is not None:
                         entry.inputs[name].copy_(value, non_blocking=True)
-            entry.graph.replay()
+            self._replayed(entry)
             return _cloned(entry.output)
 
     def _graphed(self, device):
@@ -547,7 +590,7 @@ class ForwardProgram(_Programs):
         kept = tensors_of(self.buffers)
         saved = [t.clone() for t in kept]
         body = functools.partial(fn, **static)
-        graph, operands, output = self._graph(device, body, body)
+        graph, operands, output, launches = self._graph(device, body, body)
         if kept:
             torch._foreach_copy_(kept, saved)
-        return _CapturedForward(graph, static, output, operands)
+        return _CapturedForward(graph, static, output, operands, launches)

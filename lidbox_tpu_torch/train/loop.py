@@ -73,7 +73,7 @@ from lidbox_tpu_torch import RANDOM_SEED, get_device, get_logger, parallel
 from lidbox_tpu_torch.data.dataset import padded_batch
 from lidbox_tpu_torch.models.model_api import functional_forward
 from lidbox_tpu_torch.train import checkpoint as ckpt_lib
-from lidbox_tpu_torch.train import graphs
+from lidbox_tpu_torch.train import graphs, observability
 from lidbox_tpu_torch.train.observability import MetricsLogger, ThroughputMeter
 from lidbox_tpu_torch.train.optimizers import apply_updates, copy_state_
 
@@ -1009,7 +1009,11 @@ class Trainer:
         and pinning overlap the device running earlier steps.
 
         Yields ``(n, staged_batch)`` with ``n`` from ``count_fn`` (default
-        the batch's rows)."""
+        the batch's rows). While a profiler runs, each staging is a
+        ``lidbox.feed.stage`` span on the producer thread, with its staged
+        ``bytes``, and each wait of the consumer for a staged batch a
+        ``lidbox.feed.wait`` span; the first of them, before this feed has
+        handed anything on, carries ``first``."""
         count_fn = self._batch_rows if count_fn is None else count_fn
         put = self._put if put is None else put
         q = queue.Queue(maxsize=self.prefetch)
@@ -1030,7 +1034,11 @@ class Trainer:
             try:
                 it = batches() if callable(batches) else batches
                 for b in it:
-                    if not offer((count_fn(b), put(b))):
+                    with observability.span("lidbox.feed.stage") as span:
+                        n, staged = count_fn(b), put(b)
+                        if span is not None:
+                            span.attrs["bytes"] = _tree_device_nbytes(staged)
+                    if not offer((n, staged)):
                         return  # the consumer closed early
             except Exception as e:  # re-raised in the consumer
                 err.append(e)
@@ -1040,8 +1048,11 @@ class Trainer:
         t = threading.Thread(target=producer, name="lidbox-stage", daemon=True)
         t.start()
         try:
+            first = True
             while True:
-                item = q.get()
+                with observability.span("lidbox.feed.wait", first=first):
+                    item = q.get()
+                first = False
                 if item is done:
                     if err:
                         raise err[0]

@@ -9,12 +9,19 @@ lidbox/models/keras_utils.py:65-71, lidbox/data/steps.py:460-484).
   imported it warns and carries on, as the JAX version does without
   tensorflow),
 - ThroughputMeter: utterances/sec and audio-seconds/sec counters,
-- profiler / cprofile: trace scopes, no-ops when disabled.
+- profiler / cprofile: trace scopes, no-ops when disabled,
+- span: a named stretch of the program's own work, recorded only while a
+  torch.profiler runs (``spans``).
 """
 import contextlib
+import itertools
 import json
 import os
+import threading
 import time
+
+import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from lidbox_tpu_torch import get_logger
 
@@ -96,7 +103,6 @@ def profiler(log_dir=None, enabled=True):
     if not enabled or log_dir is None:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
     os.makedirs(log_dir, exist_ok=True)
     activities = [ProfilerActivity.CPU]
@@ -133,3 +139,116 @@ def cprofile(output_path="cProfile.log", enabled=True, sort="tottime"):
         with open(output_path, "w") as f:
             pstats.Stats(prof, stream=f).sort_stats(sort).print_stats()
         logger.info("Wrote cProfile stats to %s", output_path)
+
+
+# spans kept in memory (``spans``); those past it are counted, not kept
+MAX_SPANS = 1_000_000
+
+
+class Span:
+    """One recorded span: its ``name``, ``id``, the ``parent`` span's id
+    (None at a thread's outermost span), the ``request`` its stretch of
+    work serves (given, else the parent's, else its own id), the
+    ``thread`` (``threading.get_ident``), ``start_ns`` and ``end_ns`` on
+    ``time.perf_counter_ns`` (``end_ns`` None while open) and ``attrs``."""
+
+    __slots__ = ("name", "id", "parent", "request", "thread", "start_ns",
+                 "end_ns", "attrs")
+
+    def __init__(self, name, id, parent, request, thread, attrs):
+        self.name, self.id, self.parent = name, id, parent
+        self.request, self.thread, self.attrs = request, thread, attrs
+        self.start_ns = self.end_ns = None
+
+
+_records = []
+_dropped = 0
+_ids = itertools.count(1)
+_record_lock = threading.Lock()
+_open = threading.local()  # .stack: this thread's open spans
+
+
+class _Off:
+    """The span when no profiler runs: enters nothing, yields None."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class _Recording:
+    __slots__ = ("name", "request", "attrs", "span", "scope")
+
+    def __init__(self, name, request, attrs):
+        self.name, self.request, self.attrs = name, request, attrs
+
+    def __enter__(self):
+        global _dropped
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        parent = stack[-1] if stack else None
+        sid = next(_ids)
+        request = self.request
+        if request is None:
+            request = sid if parent is None else parent.request
+        span = self.span = Span(self.name, sid,
+                                None if parent is None else parent.id,
+                                request, threading.get_ident(), self.attrs)
+        with _record_lock:
+            if len(_records) < MAX_SPANS:
+                _records.append(span)
+            else:
+                _dropped += 1
+        stack.append(span)
+        self.scope = torch.profiler.record_function(self.name)
+        self.scope.__enter__()
+        span.start_ns = time.perf_counter_ns()
+        return span
+
+    def __exit__(self, *exc):
+        self.span.end_ns = time.perf_counter_ns()
+        _open.stack.pop()
+        return self.scope.__exit__(*exc)
+
+
+def span(name, request=None, **attrs):
+    """A context manager around a stretch of the program's work.
+
+    With no torch.profiler running it costs one check of a global flag and
+    yields None. While one runs (the benchmark's trace, ``profiler()``,
+    the CLI's ``--run-torch-profiler``) it enters
+    ``torch.profiler.record_function(name)``, so the span lies on the
+    profiler's host timeline beside the device's events, and yields its
+    ``Span`` record, kept in memory (``spans``), whose ``attrs`` the
+    caller may add to. ``request``: what the spans of one request share
+    (a train step's ``state.step``); by default the enclosing span's, or
+    at a thread's outermost span its own id."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Recording(name, request, attrs)
+
+
+def spans():
+    """The spans recorded since the last ``clear_spans``, in the order
+    they were entered, at most ``MAX_SPANS``."""
+    with _record_lock:
+        return list(_records)
+
+
+def dropped_spans():
+    """Spans not kept since the last ``clear_spans``: the list was full."""
+    return _dropped
+
+
+def clear_spans():
+    global _dropped
+    with _record_lock:
+        _records.clear()
+        _dropped = 0

@@ -210,7 +210,7 @@ def fake_capture(program, trainer, state, inputs, generator, scalars, seed):
         program._body(owner(), state, static, generator, augment, buffers,
                       loss)
     return graphs._Captured(FakeGraph(run), static, buffers, loss, [],
-                            generator)
+                            generator, {})
 
 
 @pytest.fixture
