@@ -279,6 +279,7 @@ TF32 is turned off for matmuls and cuDNN convolutions, so float32 means
 float32 throughout. Served utterances/s is a smoke figure, not a benchmark.
 Exits non-zero without a CUDA device or without the package beside it.
 """
+import collections
 import contextlib
 import copy
 import functools
@@ -4047,11 +4048,22 @@ def phase_orbax(root, rng, logmel, device="cuda"):
 # length-tracking chain of phase 5 (energy VAD and speed change [0.9, 1.1]:
 # every batch carries a frame mask), MASKED_BATCHES steps of [32, 48000] and
 # 1 validation batch (a stream of its own, seed 1245); crnn and bi_gru served
-# on MASKED_WAVS ragged wavs of 2-4 s. (b) remat with channel dropout 0.5,
+# on MASKED_WAVS ragged wavs of 2-4 s; the two-direction layers of
+# MASKED_FORKED, which the port runs concurrently under a capture (two
+# streams, two cuDNN handles), against a serial composition built here
+# (serial_route), and bi_gru served in bfloat16, which the port runs
+# serially, against it too. (b) remat with channel dropout 0.5,
 # 4 steps. (c) the x-vector on a 1-rank and a 1 x 1 NCCL mesh, 4 steps, and
 # served on the 1-rank mesh.
 MASKED_KEYS = ("lstm", "bi_gru", "crnn", "ap_lstm")
 MASKED_SERVED = ("crnn", "bi_gru")
+MASKED_FORKED = ("bi_gru", "crnn", "ap_lstm")
+# held to the serial composition bit for bit: a layer's outputs and
+# gradients, and the state after FORKED_STEPS steps
+MASKED_FORKED_EXACT = ("bi_gru", "ap_lstm")
+# served in bfloat16, which cuDNN refuses: the port's layers run serially
+MASKED_BF16 = "bi_gru"
+FORKED_STEPS = 3
 MASKED_CHAIN = {"speed_range": [0.9, 1.1], "vad": True}
 MASKED_BATCHES, MASKED_BATCH, MASKED_SECONDS = 4, TRAIN_BATCH, TRAIN_SECONDS
 MASKED_WAVS = 8
@@ -4150,6 +4162,209 @@ def masked_first_loss(root, key, signals, targets, draws, device):
                                 generator=trainer.generator)
         return float(trainer._masked_mean(trainer.loss_fn(batch["target"],
                                                           out), batch))
+
+
+def serial_rnn(run_rnn):
+    """``run_rnn`` (``layers.run_rnn``) with each frame-masked layer of two
+    directions composed here instead, one direction after the other on the
+    current stream: a single-direction cuDNN call of the forward cell, and
+    one of the backward cell over each row's valid prefix reversed
+    (``layers._flip_prefixes``) and flipped back, concatenated and zeroed
+    past each row's length."""
+    from lidbox_tpu_torch.models import layers
+
+    def one_direction(cell, x):
+        h0 = x.new_zeros(1, x.shape[0], cell.units)
+        args = (cell.flat_weights(), True, 1, 0.0, torch.is_grad_enabled(),
+                False, True)
+        if cell.kind == "lstm":
+            return torch.lstm(x, (h0, h0), *args)[0]
+        return torch.gru(x, h0, *args)[0]
+
+    def run(cells, x, lengths=None):
+        if lengths is None or len(cells) != 2:
+            return run_rnn(cells, x, lengths)
+        n = torch.clamp(lengths.to(device=x.device, dtype=torch.int64),
+                        min=1)
+        y = torch.cat([one_direction(cells[0], x), layers._flip_prefixes(
+            one_direction(cells[1], layers._flip_prefixes(x, n)), n)], dim=-1)
+        valid = torch.arange(x.shape[1], device=x.device) < n[:, None]
+        return torch.where(valid[..., None], y, y.new_zeros(()))
+    return run
+
+
+@contextlib.contextmanager
+def serial_route():
+    """Within it the models' recurrent layers run ``serial_rnn``: a step
+    captured within is the serial composition's graph."""
+    from lidbox_tpu_torch.models import layers
+    run_rnn = layers.run_rnn
+    layers.run_rnn = serial_rnn(run_rnn)
+    try:
+        yield
+    finally:
+        layers.run_rnn = run_rnn
+
+
+def forked_layer_check(model, lengths, device):
+    """The first two-direction layer of ``model`` (a copy) on a batch of
+    ``lengths`` [B] frames: ``layers.run_rnn`` (on the card captured in a
+    CUDA graph, so forked on two streams, after a warm-up run on a side
+    stream, which runs serially) against ``serial_rnn`` run eagerly,
+    outputs, the input's gradient and every parameter's bit for bit.
+    Returns (the number of tensors compared, the port's layer runs by
+    route: the warm-up's and the capture's)."""
+    from lidbox_tpu_torch.models import layers
+    layer = copy.deepcopy(next(m for m in model.modules()
+                               if isinstance(m, layers.BidirectionalRNN)))
+    cells = tuple(getattr(layer, name) for name in layer.cell_names)
+    gate = getattr(cells[0], "i" + cells[0].gates[0])
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    x = torch.randn(len(lengths), int(lengths.max()) + 22, gate.in_features,
+                    device=device, generator=gen)
+    w = torch.randn(x.shape[:2] + (2 * cells[0].units,), device=device,
+                    generator=gen)
+
+    def grads(run):
+        layer.zero_grad(set_to_none=True)
+        xr = x.clone().requires_grad_(True)
+        y = run(cells, xr, lengths)
+        (y * w).sum().backward()
+        return ([y.detach(), xr.grad]
+                + [p.grad for c in cells for p in c.parameters()])
+    with layers.tallying_rnn_runs(collections.Counter()) as routed:
+        if device == "cuda":
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                grads(layers.run_rnn)
+            torch.cuda.current_stream(device).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side,
+                                  capture_error_mode="thread_local"):
+                a = grads(layers.run_rnn)
+            graph.replay()
+        else:
+            a = grads(layers.run_rnn)
+    b = grads(serial_rnn(layers.run_rnn))
+    sync(device)
+    check(len(a) == len(b) and all(t is not None for t in a + b),
+          "forked layer: gradients missing")
+    differ = [i for i, (p, q) in enumerate(zip(a, b))
+              if not torch.equal(p, q)]
+    check(not differ, f"the port's layer {dict(routed)} differs from the "
+                      f"serial composition in tensors {differ} (0: outputs, "
+                      "1: the input's gradient, then the parameters')")
+    return len(a), routed
+
+
+def forked_steps(root, key, x, y, device):
+    """FORKED_STEPS graphed fused steps of a fresh ``key`` wrapper on the
+    signal batch ``x``, ``y``, with the port's layers and with
+    ``serial_route``'s: step losses and every state tensor bit for bit.
+    Returns the port's masked two-direction layer runs by route over its
+    steps (on the card: the capture's warm-up steps, serial, and captured
+    body, forked)."""
+    from lidbox_tpu_torch.data import on_device
+    from lidbox_tpu_torch.models import layers
+    from lidbox_tpu_torch.train import graphs
+    out = {}
+    for form in ("port", "serial"):
+        wrapper = masked_wrapper(root, key, device)
+        trainer = wrapper.trainer
+        trainer.create_state()
+        step = on_device.make_fused_train_step(
+            trainer, on_device.feature_fn_from_config(
+                RATE, wrapper.config["features"], device=trainer.device))
+        state, losses = trainer.state, []
+        with serial_route() if form == "serial" else contextlib.nullcontext(), \
+                layers.tallying_rnn_runs(collections.Counter()) as routed:
+            for _ in range(FORKED_STEPS):
+                state, loss = step(state, x, y, trainer.generator)
+                losses.append(loss)
+        sync(device)
+        out[form] = ([float(v) for v in losses], graphs.state_tensors(state),
+                     routed)
+    (la, ta, routed), (lb, tb, _) = out["port"], out["serial"]
+    check(la == lb, f"masked {key}: step losses {la} with the port's layers, "
+                    f"{lb} with the serial composition")
+    check(len(ta) == len(tb) and all(torch.equal(p, q)
+                                     for p, q in zip(ta, tb)),
+          f"masked {key}: the state after {FORKED_STEPS} steps differs "
+          "from the serial composition's")
+    return routed
+
+
+def masked_bf16_check(model, paths, ids, device):
+    """``model`` served in bfloat16 (``serve.Classifier(compute_dtype=
+    "bfloat16")``, graphed on the card) on ``paths``, one masked batch,
+    with the port's layers and with ``serial_route``'s: scores bit for
+    bit, and no layer run forked (cuDNN takes no bfloat16, so the port's
+    calls go to PyTorch's own recurrent kernels, serially, as the serial
+    composition's do). The layer runs are counted on every thread: the
+    served forwards run on the serving pool's."""
+    import threading
+    from lidbox_tpu_torch import serve
+    from lidbox_tpu_torch.models import layers
+    scores, runs, lock = {}, collections.Counter(), threading.Lock()
+    count = layers._count_run
+
+    def counting(route):
+        with lock:
+            runs[route] += 1
+        count(route)
+    layers._count_run = counting
+    try:
+        for form in ("port", "serial"):
+            with (serial_route() if form == "serial"
+                  else contextlib.nullcontext()):
+                scores[form] = np.stack(serve.Classifier(
+                    model, LABELS, feature_config=FEATURES_PALLAS,
+                    batch_size=len(paths), device=device,
+                    compute_dtype="bfloat16").scores(paths, ids=ids)[
+                        "prediction"])
+    finally:
+        layers._count_run = count
+    # the serial composition counts none
+    check(not runs["forked"] and runs["serial"] > 0,
+          f"masked bfloat16: the port's layer runs {dict(runs)}")
+    check(np.array_equal(scores["port"], scores["serial"]),
+          "masked bfloat16: served scores with the port's layers differ from "
+          "the serial composition's")
+    print(f"masked {MASKED_BF16} served in bfloat16 "
+          f"({'graphed' if device == 'cuda' else 'eager'}): == the serial "
+          f"composition bit for bit; the port's layer runs {dict(runs)}")
+
+
+def route_turns(trainer, fn, fresh_fn, inputs, what):
+    """The graphed masked step with the port's layers (``fn``'s program,
+    captured already) and with ``serial_route``'s (a program of its own on
+    ``fresh_fn``, captured in its first turn), timed in turns (port,
+    serial, serial, port; ``whole_step_times``): {form: [(median ms, host
+    wall ms, device busy ms, log-Mel launches), ...]}, printed with the
+    device kernels of one profiled step of each."""
+    from lidbox_tpu_torch.data import on_device
+    steps = {"port": on_device.make_fused_train_step(trainer, fn),
+             "serial": on_device.make_fused_train_step(trainer, fresh_fn)}
+    out = {"port": [], "serial": []}
+    for form in ("port", "serial", "serial", "port"):
+        with serial_route() if form == "serial" else contextlib.nullcontext():
+            out[form].append(whole_step_times(
+                steps[form], trainer.state, inputs, steps=MASKED_TIMED_STEPS,
+                profiled=MASKED_PROFILED_STEPS))
+    kernels = {}
+    for form, step in steps.items():
+        holder, seen = [trainer.state], {}
+
+        def one():
+            holder[0], _ = step(holder[0], *inputs)
+        device_ops(one, calls=1, counts=seen)
+        kernels[form] = sum(n for n, _ in seen.values())
+    print(f"{what}, graphed, port (forked) against serial in turns: "
+          + "; ".join(f"{form} " + ", ".join(f"{m:.4f}" for m, *_ in runs)
+                      + f" ms (CUDA events, medians), {kernels[form]} "
+                      "device kernels a step" for form, runs in out.items()))
+    return out
 
 
 def ragged_wavs(io, root, rng, n):
@@ -4426,7 +4641,14 @@ def phase_masked(root, rng, logmel, device="cuda", classify_argv=None):
     CPU's on the same weights and draws, each masked step timed eager and
     graphed in turns; crnn and bi_gru behind ``serve.Classifier`` on ragged
     wavs graphed and eager bit for bit and within SERVE_ATOL of the CPU;
-    the kernel held to its plain version on the first masked batch.
+    the kernel held to its plain version on the first masked batch; for
+    MASKED_FORKED_EXACT, the first two-direction layer captured (forked on
+    two streams) against a serial composition (``serial_rnn``) bit for
+    bit, outputs and gradients, and FORKED_STEPS graphed steps of each,
+    their states bit for bit; MASKED_BF16 served in bfloat16 (serial)
+    against the serial composition bit for bit; on the card
+    MASKED_FORKED's masked steps graphed, forked and serial in turns,
+    printed beside the eager (serial) times.
     (b) remat with channel dropout 0.5, graphed and eager bit for bit,
     within REMAT_RTOL of the plain step, the peak memory with and without
     remat. (c) the x-vector mesh-less, on a 1-rank mesh and on a 1 x 1
@@ -4444,6 +4666,8 @@ def phase_masked(root, rng, logmel, device="cuda", classify_argv=None):
     from lidbox_tpu_torch import parallel, serve
     from lidbox_tpu_torch.data import on_device
     from lidbox_tpu_torch.features import io
+    from lidbox_tpu_torch.models import layers
+    from lidbox_tpu_torch.train import graphs
     from lidbox_tpu_torch.train.loop import keyed_generator, to_device
 
     on_card = device == "cuda"
@@ -4549,6 +4773,42 @@ def phase_masked(root, rng, logmel, device="cuda", classify_argv=None):
                 f"masked {key} train step [{MASKED_BATCH}, {samples}]",
                 steps=MASKED_TIMED_STEPS, profiled=MASKED_PROFILED_STEPS)
             mark("timing")
+            if key in MASKED_FORKED:
+                row["routes"] = route_turns(
+                    trainer, fn, on_device.feature_fn_from_config(
+                        RATE, wrapper.config["features"],
+                        device=trainer.device),
+                    (x, y, trainer.generator),
+                    f"masked {key} train step [{MASKED_BATCH}, {samples}]")
+                mark("forked vs serial timing")
+        if key in MASKED_FORKED_EXACT:
+            compared, layer_runs = forked_layer_check(
+                wrapper.model.module, lengths, device)
+            # on the card: the warm-up runs serially, the capture forks
+            expected = ({"serial": 1, "forked": 1} if on_card
+                        else {"serial": 1})
+            check(layer_runs == expected,
+                  f"masked {key}: the layer's runs {dict(layer_runs)}, "
+                  f"predicted {expected}")
+            routed = forked_steps(root, key, x, y, device)
+            n_layers = sum(isinstance(m, layers.BidirectionalRNN)
+                           for m in wrapper.model.module.modules())
+            expected = ({"serial": n_layers * graphs.WARMUP_STEPS,
+                         "forked": n_layers} if on_card
+                        else {"serial": n_layers * FORKED_STEPS})
+            check(routed == expected,
+                  f"masked {key}: layer runs {dict(routed)} over "
+                  f"{FORKED_STEPS} steps, predicted {expected}")
+            print(f"masked {key}: the first two-direction layer "
+                  f"{'captured, forked,' if on_card else 'eager, serial,'} "
+                  f"== the serial composition bit for bit (outputs, the "
+                  f"input's gradient, {compared - 2} parameter gradients); "
+                  f"{FORKED_STEPS} {'graphed' if on_card else 'eager'} steps "
+                  f"== the serial composition's, losses and state bit for "
+                  f"bit; layer runs {dict(routed)}"
+                  + (" (the capture's warm-ups serial, its body forked)"
+                     if on_card else ""))
+            mark("forked vs serial")
         print(f"masked {key}: {row['params']} parameters; fit_fused graphed "
               f"== eager bit for bit: step losses {losses}, val_loss "
               f"{row['val_loss']!r}, state; frames per row "
@@ -4604,6 +4864,8 @@ def phase_masked(root, rng, logmel, device="cuda", classify_argv=None):
                   f"masked batch): graphed == eager bit for bit, max |{device}"
                   f" - CPU| {err:.3e} (atol {SERVE_ATOL}); "
                   f"{time.perf_counter() - marks[-1][1]:.1f} s")
+            if key == MASKED_BF16:
+                masked_bf16_check(wrapper.model, paths, ids, device)
         del runs, trainer, wrapper
         if on_card:
             torch.cuda.empty_cache()
@@ -4702,6 +4964,15 @@ def phase_masked(root, rng, logmel, device="cuda", classify_argv=None):
     reductions += served_reductions
     parallel.shutdown_distributed()
     if on_card:
+        print(f"masked steps ({card}), medians in ms on CUDA events: "
+              + "; ".join(
+                  f"{r['config']} graphed (forked) " + ", ".join(
+                      f"{v[0]:.4f}" for v in r["routes"]["port"])
+                  + ", graphed serial " + ", ".join(
+                      f"{v[0]:.4f}" for v in r["routes"]["serial"])
+                  + ", eager (serial) " + ", ".join(
+                      f"{v[0]:.4f}" for v in r["forms"]["eager"])
+                  for r in rows if "routes" in r))
         print(f"masked table ({card}): " + json.dumps([
             {k: v for k, v in r.items()} for r in rows]))
     print(f"masked: logmel_kernel launches {launches}, logmel_reduce "

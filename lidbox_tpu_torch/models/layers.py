@@ -25,8 +25,13 @@ rows of the weight and all-gather the output before the bias
 product cannot split by output column in one call, all-gather the weight
 (``parallel.gather_weight``).
 """
+import concurrent.futures
 import contextlib
+import functools
 import math
+import queue
+import threading
+import weakref
 
 import torch
 import torch.nn as nn
@@ -484,6 +489,199 @@ def _flip_prefixes(x, lengths):
     return torch.take_along_dim(x, idx[..., None], dim=1)
 
 
+_tallies = threading.local()  # .open: the Counters of ``tallying_rnn_runs``
+_sides = threading.local()  # .by_device: device -> (stream, _SideCaller)
+# cudnnRNNMode_t of a cell kind: CUDNN_LSTM, CUDNN_GRU
+_CUDNN_MODES = {"lstm": 2, "gru": 3}
+
+
+def rnn_route(num_cells, lengths, cudnn=False, capturing=False):
+    """How ``run_rnn`` runs a layer of ``num_cells`` directions given
+    ``lengths`` or None, where ``cudnn`` says that its single-direction
+    calls go to cuDNN (``torch.backends.cudnn.is_acceptable`` of its input:
+    a CUDA tensor of half, float or double, cuDNN on) and ``capturing``
+    that a CUDA graph captures it: None for one call (one direction, or no
+    lengths: one bidirectional call); "forked" for the two single-direction
+    calls run concurrently, where both hold; "serial" for the two calls one
+    after the other otherwise. Run eagerly, a fork's host work (a hand-off
+    to the side thread for each cuDNN call) costs more than the overlap
+    saves."""
+    if num_cells != 2 or lengths is None:
+        return None
+    return "forked" if cudnn and capturing else "serial"
+
+
+@contextlib.contextmanager
+def tallying_rnn_runs(tally):
+    """Within it, every frame-masked two-direction layer run on this thread
+    also adds one to ``tally[route]`` (a ``collections.Counter``), and to
+    the tallies of the enclosing calls: what a program's run or capture
+    ran, which ``train/graphs.py`` puts on its spans."""
+    if not hasattr(_tallies, "open"):
+        _tallies.open = []
+    _tallies.open.append(tally)
+    try:
+        yield tally
+    finally:
+        _tallies.open.pop()
+
+
+def _count_run(route):
+    for tally in getattr(_tallies, "open", ()):
+        tally[route] += 1
+
+
+class _SideCaller:
+    """A thread of its own that makes calls for its caller and waits for
+    them: ``caller(fn)`` returns ``fn()`` run there, or raises what it
+    raised. PyTorch keeps one cuDNN handle a thread, and cuDNN launches a
+    recurrent layer's per-step kernels on the internal streams of the
+    calling thread's handle, so two recurrent calls made on one thread run
+    one after the other whatever streams they are given; a call made here
+    runs on another handle, beside them. The thread ends when the caller
+    is collected, or at exit."""
+
+    def __init__(self):
+        jobs = self._jobs = queue.SimpleQueue()
+        thread = threading.Thread(target=_side_calls, args=(jobs,),
+                                  daemon=True, name="lidbox-rnn-side")
+        thread.start()
+        weakref.finalize(self, _stop_side_calls, jobs, thread)
+
+    def __call__(self, fn):
+        done = concurrent.futures.Future()
+        self._jobs.put((fn, done))
+        return done.result()
+
+
+def _stop_side_calls(jobs, thread):
+    """End a ``_SideCaller``'s thread and wait for it: at exit, before the
+    interpreter finalizes, as a thread that has made CUDA calls aborts the
+    process if it ends while the interpreter finalizes."""
+    jobs.put(None)
+    if thread is not threading.current_thread():
+        thread.join()
+
+
+def _side_calls(jobs):
+    while (job := jobs.get()) is not None:
+        fn, done = job
+        try:
+            result = fn()
+        except BaseException as fault:  # raised in the caller's thread
+            done.set_exception(fault)
+        else:
+            done.set_result(result)
+        del job, fn, done  # hold no call's tensors while idle
+
+
+def _side(device):
+    """(``device``'s second stream, the ``_SideCaller`` that makes the
+    backward directions' cuDNN calls) of this thread, made at its first
+    use and shared by every layer and every capture of the thread. One
+    pair a thread: a stream or a handle's internal stream forked into a
+    capture takes in whatever any thread enqueues on it, so a capture on
+    one thread must not see another's layers. Making it makes one cuDNN
+    call on the caller's thread (``_open_handle``), so that ``run_rnn``'s
+    eager runs, a capture's warm-up steps among them, set up the cuDNN
+    handle the capture's forked calls use."""
+    sides = getattr(_sides, "by_device", None)
+    if sides is None:
+        sides = _sides.by_device = {}
+    side = sides.get(device)
+    if side is None:
+        stream, caller = torch.cuda.Stream(device), _SideCaller()
+        caller(functools.partial(_open_handle, stream))
+        side = sides[device] = (stream, caller)
+    return side
+
+
+def _open_handle(stream):
+    """One cuDNN GRU call of one unit on ``stream``, waited for: PyTorch
+    makes a thread's cuDNN handle at its first cuDNN call, which a graph's
+    capture must not be the first to make."""
+    with torch.cuda.stream(stream), torch.no_grad():
+        x = torch.zeros(1, 1, 1, device=stream.device)
+        w = torch.zeros(3, 1, device=stream.device)
+        torch.gru(x, x, [w, w, w[:, 0], w[:, 0]], True, 1, 0.0, False,
+                  False, True)
+    stream.synchronize()
+
+
+class _SideRNN(torch.autograd.Function):
+    """One direction of a recurrent layer through cuDNN, its forward and
+    its backward each called by ``caller`` (a ``_SideCaller``) on the
+    current stream: ``_cudnn_rnn``, the call ``torch.gru`` and
+    ``torch.lstm`` make on a CUDA device, with their arguments (one layer,
+    batch first, no dropout, the cell's four weights, zero initial states
+    ``h0``), and ``_cudnn_rnn_backward``, the call their autograd makes.
+    Returns the outputs [B, T, units]."""
+
+    @staticmethod
+    def forward(ctx, caller, kind, units, train, x, h0, *weights):
+        stream = torch.cuda.current_stream(x.device)
+        args = (_CUDNN_MODES[kind], units, 0, 1, True, 0.0, train, False,
+                [], None)
+        cx = h0 if kind == "lstm" else None
+
+        def call():
+            with torch.cuda.stream(stream), torch.no_grad():
+                return torch.ops.aten._cudnn_rnn(
+                    x, list(weights), len(weights), None, h0, cx, *args)
+        out, _, _, reserve, weight_buf = caller(call)
+        if train:
+            ctx.caller, ctx.kind, ctx.args = caller, kind, args
+            ctx.save_for_backward(x, h0, out, reserve, weight_buf, *weights)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.caller is None:
+            raise RuntimeError("a forked recurrent direction's backward ran "
+                               "twice: cuDNN's backward consumes its reserve "
+                               "(retain_graph is not supported)")
+        x, h0, out, reserve, weight_buf, *weights = ctx.saved_tensors
+        stream = torch.cuda.current_stream(x.device)
+        cx = h0 if ctx.kind == "lstm" else None
+        mask = [ctx.needs_input_grad[4], False, False,
+                any(ctx.needs_input_grad[6:])]
+
+        def call():
+            with torch.cuda.stream(stream), torch.no_grad():
+                return torch.ops.aten._cudnn_rnn_backward(
+                    x, list(weights), len(weights), weight_buf, h0, cx, out,
+                    grad, None, None, *ctx.args, reserve, mask)
+        dx, _, _, dw = ctx.caller(call)
+        ctx.caller = None
+        return (None, None, None, None, dx, None,
+                *(dw if mask[3] else [None] * len(weights)))
+
+
+def _forked(first, second, device):
+    """(``first()``, ``second()``): ``first`` on the current stream,
+    ``second`` on ``device``'s side stream, forked from the current stream
+    before ``first`` and joined back after ``second``; ``second`` is given
+    the ``_SideCaller`` for its cuDNN calls. Under a CUDA graph's capture,
+    where ``run_rnn`` calls it, the two become parallel branches of the one
+    graph. The tensors that cross the streams are the caller's inputs,
+    alive until this returns, and ``second``'s outputs, read only after
+    the join; the tensors ``second`` reads in its backward it allocates on
+    the side stream (its gather's saved input lends only its shape), so
+    the caching allocator never hands a block one stream still reads to
+    the other. Autograd runs each backward op on its forward op's stream,
+    so the backward passes are forked the same way. ``first`` is called
+    first, as the serial route calls it: autograd then adds up the
+    gradients of a tensor that feeds both in the same order."""
+    current = torch.cuda.current_stream(device)
+    stream, caller = _side(device)
+    stream.wait_stream(current)
+    a = first()
+    with torch.cuda.stream(stream):
+        b = second(caller)
+    current.wait_stream(stream)
+    return a, b
+
+
 def run_rnn(cells, x, lengths=None):
     """One cuDNN (or CPU) RNN layer of one or two directions over
     [B, T, F] -> [B, T, D * units].
@@ -498,28 +696,61 @@ def run_rnn(cells, x, lengths=None):
     ``reverse=True, keep_order=True``. Outputs past a row's length are
     zero (the JAX package's are unspecified there and must be masked
     downstream). Nothing is read back to the host, so a CUDA graph
-    captures it."""
+    captures it.
+
+    One bidirectional cuDNN call, which runs its directions side by side,
+    takes per-row lengths only as a host array (``pack_padded_sequence``),
+    which a graph cannot capture. So where a CUDA graph captures a masked
+    layer whose calls go to cuDNN, its two calls run concurrently instead
+    (``rnn_route`` "forked", ``_forked``): the backward direction's chain on
+    a second stream, its cuDNN calls, forward and backward, made on a
+    second cuDNN handle (``_SideRNN``), the same calls on the same inputs
+    as the serial route, which runs everywhere else: eagerly, on the CPU,
+    and in dtypes cuDNN refuses (bfloat16), where ``torch.gru`` runs
+    PyTorch's own kernels. An eager run on the card also sets up the side
+    handle (``_side``) that a capture after it forks onto. Each masked
+    two-direction run counts by route in ``tallying_rnn_runs``."""
     kind = cells[0].kind
-    h0 = x.new_zeros(len(cells) if lengths is None else 1, x.shape[0],
-                     cells[0].units)
-    hx = (h0, h0) if kind == "lstm" else h0
     fn = torch.lstm if kind == "lstm" else torch.gru
     # cuDNN keeps what its backward needs only in training mode
     train = torch.is_grad_enabled()
 
     def run(inputs, cells):
+        h0 = inputs.new_zeros(len(cells), inputs.shape[0], cells[0].units)
+        hx = (h0, h0) if kind == "lstm" else h0
         weights = [w for c in cells for w in c.flat_weights()]
         return fn(inputs, hx, weights, True, 1, 0.0, train, len(cells) == 2,
                   True)[0]
+
+    def run_side(caller, inputs, cells):
+        h0 = inputs.new_zeros(1, inputs.shape[0], cells[0].units)
+        return _SideRNN.apply(caller, kind, cells[0].units, train, inputs,
+                              h0, *cells[0].flat_weights())
     if lengths is None:
         return run(x, cells)
     lengths = torch.clamp(lengths.to(device=x.device, dtype=torch.int64),
                           min=1)
-    out = [run(x, cells[:1])]
-    if len(cells) == 2:
-        out.append(_flip_prefixes(run(_flip_prefixes(x, lengths), cells[1:]),
-                                  lengths))
-    y = torch.cat(out, dim=-1) if len(out) == 2 else out[0]
+    cudnn = torch.backends.cudnn.is_acceptable(x)
+    route = rnn_route(len(cells), lengths, cudnn,
+                      cudnn and torch.cuda.is_current_stream_capturing())
+    if route is None:
+        y = run(x, cells)
+    else:
+        _count_run(route)
+
+        def backward(run):
+            return _flip_prefixes(run(_flip_prefixes(x, lengths), cells[1:]),
+                                  lengths)
+        if route == "forked":
+            yf, yb = _forked(
+                lambda: run(x, cells[:1]),
+                lambda caller: backward(functools.partial(run_side, caller)),
+                x.device)
+        else:
+            if cudnn:  # a capture after this run forks onto its handle
+                _side(x.device)
+            yf, yb = run(x, cells[:1]), backward(run)
+        y = torch.cat([yf, yb], dim=-1)
     valid = torch.arange(x.shape[1], device=x.device) < lengths[:, None]
     return torch.where(valid[..., None], y, y.new_zeros(()))
 
@@ -546,7 +777,10 @@ class BidirectionalRNN(nn.Module):
     Flax's forward cell ``<Cell>_0`` and backward cell ``<Cell>_1``.
 
     With ``lengths`` the backward pass reads only each row's valid prefix
-    (``run_rnn``: two single-direction calls on the same weights).
+    (``run_rnn``: two single-direction calls on the same weights; on a
+    CUDA device they run concurrently, on two streams and two cuDNN
+    handles, forked and joined inside the layer, since one bidirectional
+    call takes lengths only from the host).
     return_sequences=False concatenates the forward's last valid step with
     the backward's index 0 (Keras Bidirectional)."""
 

@@ -53,7 +53,13 @@ frame-masked batch of a recurrent model
 are captured: at one rank every collective returns its input, the remat
 recompute rewinds the dropout generator through a generator registered
 with the graph (``Trainer._rewind_point``), and the recurrent layers read
-their lengths on the device (``layers.run_rnn``).
+their lengths on the device (``layers.run_rnn``). Under the capture a
+frame-masked cuDNN layer of two directions forks its backward direction
+onto a second stream, its cuDNN calls made on a second cuDNN handle, and
+joins it back, in the forward pass and in autograd's backward pass: the
+step is still one graph, with two parallel branches in each such layer,
+and one launch a replay; the warm-up steps, like every eager run, run the
+two directions one after the other and set up the second handle.
 
 A :class:`ForwardProgram` is the same for a served or evaluated forward,
 the port's counterpart of the JAX package's ``jax.jit`` per shape (the
@@ -72,11 +78,15 @@ operands held; a failed capture or replay raises.
 Each run of a program is a span while a torch.profiler runs
 (``observability.span``): ``lidbox.graph.replay``, ``lidbox.graph.capture``
 (the warm-up steps and the capture) or ``lidbox.graph.eager``, with the
-program's ``kind`` and the kernel launches it made on the card
+program's ``kind``, the kernel launches it made on the card
 (``launches``: for a replay, one replay's, tallied over the capture's
 warm-up steps; for a capture, its warm-up steps'; for an eager run, those
-tallied while it ran). A train step is a ``lidbox.step`` span around its
-run, carrying its ``kind`` and ``step``.
+tallied while it ran) and, where it ran any, its frame-masked
+two-direction recurrent layer runs by route (``rnn_forked``,
+``rnn_serial``: ``layers.rnn_route``; for a replay, those of the captured
+body; for a capture, those of its warm-up steps and body; for an eager
+run, those tallied while it ran). A train step is a ``lidbox.step``
+span around its run, carrying its ``kind`` and ``step``.
 """
 import collections
 import functools
@@ -86,6 +96,7 @@ from typing import NamedTuple
 import torch
 
 from lidbox_tpu_torch import get_logger
+from lidbox_tpu_torch.models import layers
 from lidbox_tpu_torch.ops import logmel
 from lidbox_tpu_torch.train import observability, optimizers
 
@@ -191,6 +202,7 @@ class _Captured(NamedTuple):
     generator: object  # the dropout generator it registered (kept alive)
     launches: dict     # kernel -> its launches in one replay
     rewind: object = None  # remat's rewind point, registered too
+    rnn_runs: dict = {}  # ``rnn_forked`` / ``rnn_serial`` of one replay
 
 
 class _Programs:
@@ -230,20 +242,23 @@ class _Programs:
     def _replayed(self, entry):
         """``entry.graph`` replayed, in a ``lidbox.graph.replay`` span."""
         with observability.span("lidbox.graph.replay", kind=self.kind,
-                                launches=entry.launches):
+                                launches=entry.launches, **entry.rnn_runs):
             entry.graph.replay()
 
     def _eagerly(self, run):
         """``run()`` in a ``lidbox.graph.eager`` span, which carries the
-        kernel launches tallied while it ran."""
+        kernel launches and the masked recurrent layer runs tallied while
+        it ran."""
         with observability.span("lidbox.graph.eager",
                                 kind=self.kind) as span:
             if span is None:
                 return run()
             with logmel.tallying_launches(
-                    collections.Counter()) as launched:
+                    collections.Counter()) as launched, \
+                    layers.tallying_rnn_runs(collections.Counter()) as routed:
                 out = run()
             span.attrs["launches"] = dict(launched)
+            span.attrs.update(_rnn_attrs(routed))
             return out
 
     def _graph(self, device, warm, body, generators=()):
@@ -254,9 +269,12 @@ class _Programs:
         default generator put back as they were before the warm-up and
         ``generators`` registered with the graph; in a
         ``lidbox.graph.capture`` span, which carries the warm-up steps'
-        launches. Returns (graph, the kernel operands it reads, what
+        launches and the masked recurrent layer runs of the warm-up steps
+        and the capture. Returns (graph, the kernel operands it reads, what
         ``body()`` returned: tensors of the graph's pool, which each replay
-        writes, kernel -> its launches in one replay)."""
+        writes, kernel -> its launches in one replay, the span attributes
+        of one replay's masked recurrent layer runs: the captured body's,
+        since a layer forks only under capture, ``layers.rnn_route``)."""
         with observability.span("lidbox.graph.capture",
                                 kind=self.kind) as span:
             current = torch.cuda.current_stream(device)
@@ -267,7 +285,8 @@ class _Programs:
             saved_default = torch.cuda.get_rng_state(device)
             side.wait_stream(current)
             with torch.cuda.stream(side), logmel.tallying_launches(
-                    collections.Counter()) as launched:
+                    collections.Counter()) as launched, \
+                    layers.tallying_rnn_runs(collections.Counter()) as warmed:
                 for _ in range(WARMUP_STEPS):
                     warm()
             current.wait_stream(side)
@@ -280,9 +299,10 @@ class _Programs:
                 graph.register_generator_state(g)
             # thread_local: a staging or prefetch thread may pin, copy and
             # launch meanwhile, which "global" would refuse
-            with logmel.holding_operands([]) as operands, torch.cuda.graph(
-                    graph, pool=self._pool, stream=side,
-                    capture_error_mode="thread_local"):
+            with logmel.holding_operands([]) as operands, \
+                    layers.tallying_rnn_runs(collections.Counter()) as routed, \
+                    torch.cuda.graph(graph, pool=self._pool, stream=side,
+                                     capture_error_mode="thread_local"):
                 result = body()
             if self._pool is None:
                 self._pool = graph.pool()
@@ -291,8 +311,19 @@ class _Programs:
                 warmup_launches.update(launched)
             if span is not None:
                 span.attrs["launches"] = dict(launched)
+                span.attrs.update(_rnn_attrs(warmed + routed))
         return graph, operands, result, {
-            k: n // WARMUP_STEPS for k, n in launched.items()}
+            k: n // WARMUP_STEPS for k, n in launched.items()}, _rnn_attrs(
+                routed)
+
+
+def _rnn_attrs(routed):
+    """The span attributes of the frame-masked two-direction recurrent
+    layer runs ``routed`` (route -> runs, ``layers.tallying_rnn_runs``):
+    none where none ran."""
+    if not routed:
+        return {}
+    return {f"rnn_{route}": routed[route] for route in ("forked", "serial")}
 
 
 def _plain_batch(trainer, inputs, augment_generator):
@@ -450,7 +481,7 @@ class StepProgram(_Programs):
             body = functools.partial(_rewinding, body, trainer, rewind)
         # the warm-up steps run on a clone of the state, so the state is
         # as it was before them
-        graph, operands, _, launches = self._graph(
+        graph, operands, _, launches, rnn_runs = self._graph(
             device,
             functools.partial(self._warm_step, trainer, _clone_state(state),
                               static, generator, augment_gen, seed, buffers,
@@ -458,7 +489,7 @@ class StepProgram(_Programs):
             body, [g for g in (generator, augment_gen, rewind)
                    if g is not None])
         return _Captured(graph, static, buffers, loss, operands, generator,
-                         launches, rewind)
+                         launches, rewind, rnn_runs)
 
 
 def _rewinding(body, trainer, rewind):
@@ -478,6 +509,7 @@ class _CapturedForward(NamedTuple):
     output: object     # the body's output: tensor, tuple of them or None
     operands: list     # the cached kernel operands the graph reads
     launches: dict     # kernel -> its launches in one replay
+    rnn_runs: dict     # ``rnn_forked`` / ``rnn_serial`` of one replay
 
 
 def tensors_of(tree):
@@ -590,7 +622,9 @@ class ForwardProgram(_Programs):
         kept = tensors_of(self.buffers)
         saved = [t.clone() for t in kept]
         body = functools.partial(fn, **static)
-        graph, operands, output, launches = self._graph(device, body, body)
+        graph, operands, output, launches, rnn_runs = self._graph(
+            device, body, body)
         if kept:
             torch._foreach_copy_(kept, saved)
-        return _CapturedForward(graph, static, output, operands, launches)
+        return _CapturedForward(graph, static, output, operands, launches,
+                                rnn_runs)

@@ -117,8 +117,8 @@ class FakeGraph:
 def fake_graph(program, device, warm, body, generators=()):
     """A stand-in capture: the warm-up steps, then the body's outputs kept
     as the graph's, with the cached constants it read held as a capture
-    holds them and no launches tallied; a replay runs the body and writes
-    its outputs there."""
+    holds them and no launches or recurrent layer runs tallied; a replay
+    runs the body and writes its outputs there."""
     for _ in range(graphs.WARMUP_STEPS):
         warm()
     with tlogmel.holding_operands([]) as operands:
@@ -128,7 +128,7 @@ def fake_graph(program, device, warm, body, generators=()):
     def run():
         for dst, src in zip(_flat(kept), _flat(body())):
             dst.copy_(src)
-    return FakeGraph(run), operands, kept, {}
+    return FakeGraph(run), operands, kept, {}, {}
 
 
 @pytest.fixture
