@@ -3,11 +3,13 @@ Model zoo with the reference's per-module contract:
 ``create(input_shape, num_outputs, **kw) -> Model`` and optional
 ``as_embedding_extractor(model)`` (counterpart of ``lidbox_tpu.models``).
 
-Every key of the JAX package's registry is ported.
+Every key of the JAX package's registry is ported (``PORTED_KEYS``); the
+port adds keys of its own (``PORT_ONLY_KEYS``: ECAPA-TDNN), which the JAX
+package lacks. ``MODEL_KEYS`` is both.
 """
 import importlib
 
-MODEL_KEYS = (
+PORTED_KEYS = (
     "ap_lstm",
     "bi_gru",
     "clstm",
@@ -23,7 +25,10 @@ MODEL_KEYS = (
     "xvector_extended",
     "xvector_freq_attention",
 )
-PORTED_KEYS = MODEL_KEYS
+PORT_ONLY_KEYS = (
+    "ecapa_tdnn",
+)
+MODEL_KEYS = PORTED_KEYS + PORT_ONLY_KEYS
 
 
 def get_module(key):

@@ -226,23 +226,32 @@ class BatchNorm(nn.Module):
     ``parallel.data_parallel`` the statistics are the global batch's: the
     sums and the count, then the squared deviations, are all-reduced over
     the mesh (gradients flow through both), as GSPMD computes them, so the
-    running statistics come out equal on every rank. It never writes its
+    running statistics come out equal on every rank. ``momentum`` (the
+    running statistics' weight on their old value, Flax's and Keras's
+    sense: torch's ``momentum=0.1`` is 0.9 here) and ``epsilon`` default to
+    the Keras constants. A ``mask`` (a training-mode forward's boolean
+    frame mask, ``x``'s shape without ``axis``) restricts the statistics to
+    the positions it marks: the count is theirs, floored at 1, and every
+    position, marked or not, is normalized with them. It never writes its
     buffers: inside ``collect_batch_stats``
     it hands the new running statistics (the momentum average of the old
     ones and the batch's) to the collector, which is how the trainer gets
     them back as the new state (Flax's ``mutable=["batch_stats"]``).
     Evaluation normalizes with the running statistics."""
 
-    def __init__(self, num_features, axis=-1):
+    def __init__(self, num_features, axis=-1, epsilon=BN_EPSILON,
+                 momentum=BN_MOMENTUM):
         super().__init__()
         self.axis = axis
+        self.epsilon = epsilon
+        self.momentum = momentum
         self.scale = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("mean", torch.zeros(num_features))
         self.register_buffer("var", torch.ones(num_features))
         self.collector = None
 
-    def forward(self, x):
+    def forward(self, x, mask=None):
         axis = self.axis % x.dim()
         shape = [1] * x.dim()
         shape[axis] = -1
@@ -250,7 +259,10 @@ class BatchNorm(nn.Module):
             dims = [d for d in range(x.dim()) if d != axis]
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
             mesh = parallel.active_mesh()
-            if mesh is None:
+            if mask is not None:
+                mean, var = _masked_moments(xf, mask.unsqueeze(axis), dims,
+                                            shape, mesh)
+            elif mesh is None:
                 mean = xf.mean(dim=dims)
                 var = torch.square(xf - mean.reshape(shape)).mean(dim=dims)
             else:  # the global batch's statistics, differentiably
@@ -263,15 +275,32 @@ class BatchNorm(nn.Module):
                     mesh) / sums[-1]
             if self.collector is not None:
                 self.collector[self] = (
-                    BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean,
-                    BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var)
+                    self.momentum * self.mean + (1 - self.momentum) * mean,
+                    self.momentum * self.var + (1 - self.momentum) * var)
         else:
             mean, var = self.mean, self.var
-        mul = torch.rsqrt(var + BN_EPSILON) * self.scale
+        mul = torch.rsqrt(var + self.epsilon) * self.scale
         y = (x - mean.reshape(shape)) * mul.reshape(shape)
         y = y + self.bias.reshape(shape)
         return y.to(torch.promote_types(x.dtype, torch.promote_types(
             self.scale.dtype, self.bias.dtype)))
+
+
+def _masked_moments(xf, mask, dims, shape, mesh):
+    """(mean, biased variance) over ``dims`` of the positions of ``xf``
+    that the boolean ``mask`` (broadcast along the feature axis) marks, in
+    two passes, the count floored at 1; over the global batch inside a
+    mesh, as ``BatchNorm`` reduces its unmasked statistics."""
+    m = mask.to(xf.dtype)
+    sums = torch.cat([(xf * m).sum(dim=dims), m.sum().reshape(1)])
+    if mesh is not None:
+        sums = parallel.all_reduce_sum(sums, mesh)
+    count = torch.clamp(sums[-1], min=1.0)
+    mean = sums[:-1] / count
+    squares = torch.square((xf - mean.reshape(shape)) * m).sum(dim=dims)
+    if mesh is not None:
+        squares = parallel.all_reduce_sum(squares, mesh)
+    return mean, squares / count
 
 
 @contextlib.contextmanager

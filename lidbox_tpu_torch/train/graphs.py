@@ -85,8 +85,10 @@ tallied while it ran) and, where it ran any, its frame-masked
 two-direction recurrent layer runs by route (``rnn_forked``,
 ``rnn_serial``: ``layers.rnn_route``; for a replay, those of the captured
 body; for a capture, those of its warm-up steps and body; for an eager
-run, those tallied while it ran). A train step is a ``lidbox.step``
-span around its run, carrying its ``kind`` and ``step``.
+run, those tallied while it ran), and the counts the body made with
+``observability.count`` (the frame statistics of a frame-masked model:
+``stats_masked``, ``stats_full``), taken the same way. A train step is a
+``lidbox.step`` span around its run, carrying its ``kind`` and ``step``.
 """
 import collections
 import functools
@@ -202,7 +204,7 @@ class _Captured(NamedTuple):
     generator: object  # the dropout generator it registered (kept alive)
     launches: dict     # kernel -> its launches in one replay
     rewind: object = None  # remat's rewind point, registered too
-    rnn_runs: dict = {}  # ``rnn_forked`` / ``rnn_serial`` of one replay
+    counts: dict = {}  # span attributes: one replay's counts (``_graph``)
 
 
 class _Programs:
@@ -242,23 +244,24 @@ class _Programs:
     def _replayed(self, entry):
         """``entry.graph`` replayed, in a ``lidbox.graph.replay`` span."""
         with observability.span("lidbox.graph.replay", kind=self.kind,
-                                launches=entry.launches, **entry.rnn_runs):
+                                launches=entry.launches, **entry.counts):
             entry.graph.replay()
 
     def _eagerly(self, run):
         """``run()`` in a ``lidbox.graph.eager`` span, which carries the
-        kernel launches and the masked recurrent layer runs tallied while
-        it ran."""
+        kernel launches, the masked recurrent layer runs and the counts
+        tallied while it ran."""
         with observability.span("lidbox.graph.eager",
                                 kind=self.kind) as span:
             if span is None:
                 return run()
             with logmel.tallying_launches(
                     collections.Counter()) as launched, \
-                    layers.tallying_rnn_runs(collections.Counter()) as routed:
+                    layers.tallying_rnn_runs(collections.Counter()) as routed, \
+                    observability.tallying(collections.Counter()) as counted:
                 out = run()
             span.attrs["launches"] = dict(launched)
-            span.attrs.update(_rnn_attrs(routed))
+            span.attrs.update(_rnn_attrs(routed), **counted)
             return out
 
     def _graph(self, device, warm, body, generators=()):
@@ -269,12 +272,13 @@ class _Programs:
         default generator put back as they were before the warm-up and
         ``generators`` registered with the graph; in a
         ``lidbox.graph.capture`` span, which carries the warm-up steps'
-        launches and the masked recurrent layer runs of the warm-up steps
-        and the capture. Returns (graph, the kernel operands it reads, what
-        ``body()`` returned: tensors of the graph's pool, which each replay
-        writes, kernel -> its launches in one replay, the span attributes
-        of one replay's masked recurrent layer runs: the captured body's,
-        since a layer forks only under capture, ``layers.rnn_route``)."""
+        launches and the masked recurrent layer runs and counts of the
+        warm-up steps and the capture. Returns (graph, the kernel operands
+        it reads, what ``body()`` returned: tensors of the graph's pool,
+        which each replay writes, kernel -> its launches in one replay, the
+        span attributes of one replay's masked recurrent layer runs and
+        ``observability.count`` counts: the captured body's, since a layer
+        forks only under capture, ``layers.rnn_route``)."""
         with observability.span("lidbox.graph.capture",
                                 kind=self.kind) as span:
             current = torch.cuda.current_stream(device)
@@ -286,7 +290,9 @@ class _Programs:
             side.wait_stream(current)
             with torch.cuda.stream(side), logmel.tallying_launches(
                     collections.Counter()) as launched, \
-                    layers.tallying_rnn_runs(collections.Counter()) as warmed:
+                    layers.tallying_rnn_runs(collections.Counter()) as warmed, \
+                    observability.tallying(
+                        collections.Counter()) as warm_counted:
                 for _ in range(WARMUP_STEPS):
                     warm()
             current.wait_stream(side)
@@ -301,6 +307,7 @@ class _Programs:
             # launch meanwhile, which "global" would refuse
             with logmel.holding_operands([]) as operands, \
                     layers.tallying_rnn_runs(collections.Counter()) as routed, \
+                    observability.tallying(collections.Counter()) as counted, \
                     torch.cuda.graph(graph, pool=self._pool, stream=side,
                                      capture_error_mode="thread_local"):
                 result = body()
@@ -311,10 +318,11 @@ class _Programs:
                 warmup_launches.update(launched)
             if span is not None:
                 span.attrs["launches"] = dict(launched)
-                span.attrs.update(_rnn_attrs(warmed + routed))
+                span.attrs.update(_rnn_attrs(warmed + routed),
+                                  **(warm_counted + counted))
         return graph, operands, result, {
-            k: n // WARMUP_STEPS for k, n in launched.items()}, _rnn_attrs(
-                routed)
+            k: n // WARMUP_STEPS for k, n in launched.items()}, dict(
+                _rnn_attrs(routed), **counted)
 
 
 def _rnn_attrs(routed):
@@ -481,7 +489,7 @@ class StepProgram(_Programs):
             body = functools.partial(_rewinding, body, trainer, rewind)
         # the warm-up steps run on a clone of the state, so the state is
         # as it was before them
-        graph, operands, _, launches, rnn_runs = self._graph(
+        graph, operands, _, launches, counts = self._graph(
             device,
             functools.partial(self._warm_step, trainer, _clone_state(state),
                               static, generator, augment_gen, seed, buffers,
@@ -489,7 +497,7 @@ class StepProgram(_Programs):
             body, [g for g in (generator, augment_gen, rewind)
                    if g is not None])
         return _Captured(graph, static, buffers, loss, operands, generator,
-                         launches, rewind, rnn_runs)
+                         launches, rewind, counts)
 
 
 def _rewinding(body, trainer, rewind):
@@ -509,7 +517,7 @@ class _CapturedForward(NamedTuple):
     output: object     # the body's output: tensor, tuple of them or None
     operands: list     # the cached kernel operands the graph reads
     launches: dict     # kernel -> its launches in one replay
-    rnn_runs: dict     # ``rnn_forked`` / ``rnn_serial`` of one replay
+    counts: dict       # span attributes: one replay's counts (``_graph``)
 
 
 def tensors_of(tree):
@@ -622,9 +630,9 @@ class ForwardProgram(_Programs):
         kept = tensors_of(self.buffers)
         saved = [t.clone() for t in kept]
         body = functools.partial(fn, **static)
-        graph, operands, output, launches, rnn_runs = self._graph(
+        graph, operands, output, launches, counts = self._graph(
             device, body, body)
         if kept:
             torch._foreach_copy_(kept, saved)
         return _CapturedForward(graph, static, output, operands, launches,
-                                rnn_runs)
+                                counts)

@@ -11,7 +11,9 @@ lidbox/models/keras_utils.py:65-71, lidbox/data/steps.py:460-484).
 - ThroughputMeter: utterances/sec and audio-seconds/sec counters,
 - profiler / cprofile: trace scopes, no-ops when disabled,
 - span: a named stretch of the program's own work, recorded only while a
-  torch.profiler runs (``spans``).
+  torch.profiler runs (``spans``),
+- tallying / count: named counts of what a stretch of work ran, on the
+  thread that ran it (what a program's spans carry, ``train/graphs.py``).
 """
 import contextlib
 import itertools
@@ -252,3 +254,27 @@ def clear_spans():
     with _record_lock:
         _records.clear()
         _dropped = 0
+
+
+_tallies = threading.local()  # .open: this thread's tallies (``tallying``)
+
+
+@contextlib.contextmanager
+def tallying(tally):
+    """Within it, every ``count(name, n)`` made on this thread adds ``n``
+    to ``tally[name]`` (a ``collections.Counter``), and to the tallies of
+    the enclosing calls. Counting costs a look at this thread's open
+    tallies, none where none is open."""
+    if not hasattr(_tallies, "open"):
+        _tallies.open = []
+    _tallies.open.append(tally)
+    try:
+        yield tally
+    finally:
+        _tallies.open.pop()
+
+
+def count(name, n=1):
+    """Add ``n`` to ``name`` in every tally open on this thread."""
+    for tally in getattr(_tallies, "open", ()):
+        tally[name] += n

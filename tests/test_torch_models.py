@@ -135,8 +135,10 @@ def test_registry_and_unported_options():
     with pytest.raises(KeyError):
         tmodels.get_module("resnet")
     # every key of the JAX registry is ported (the zoo's parity is in
-    # tests/test_torch_zoo*.py)
-    assert tmodels.PORTED_KEYS == tmodels.MODEL_KEYS == jmodels.MODEL_KEYS
+    # tests/test_torch_zoo*.py), and the port's own keys are the rest
+    assert tmodels.PORTED_KEYS == jmodels.MODEL_KEYS
+    assert tmodels.MODEL_KEYS == tmodels.PORTED_KEYS + tmodels.PORT_ONLY_KEYS
+    assert not set(tmodels.PORT_ONLY_KEYS) & set(jmodels.MODEL_KEYS)
     assert tmodels.create("lstm", (T, FEAT), NUM_OUTPUTS, device="cpu",
                           num_units=8).num_params() == jmodels.create(
         "lstm", (T, FEAT), NUM_OUTPUTS, num_units=8).init().num_params()

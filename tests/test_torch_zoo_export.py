@@ -25,7 +25,7 @@ torch.set_num_threads(2)
 T, FEAT, N = 40, 32, 5
 
 
-EXPORTED = [(k, {}) for k in tmodels.MODEL_KEYS] + [
+EXPORTED = [(k, {}) for k in tmodels.PORTED_KEYS] + [
     ("convnet_extractor", {"core": "mobilenet_v2"})]
 
 
