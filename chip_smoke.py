@@ -7,7 +7,9 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a):
 
 The launch counts are the kernels' own: each launch of ``logmel_kernel``
 and ``logmel_reduce`` adds one to a counter on the card
-(``logmel.launch_counts``), eager or replayed from a CUDA graph. Where a
+(``logmel.launch_counts``), and each of ``tdnn_norm_forward`` and
+``tdnn_norm_backward`` to one of its own (``tdnn_norm.launch_counts``),
+eager or replayed from a CUDA graph. Where a
 part below is "zeroed just before and read just after"
 (``launch_window``), its prediction also counts the launches of the
 capture warm-ups: ``graphs.WARMUP_STEPS`` for each fused step or log-Mel
@@ -267,6 +269,23 @@ Phases, each of which fails the run:
    program alone == the mesh-less stream bit for bit; the launches of
    each part as predicted; each form timed in turns with the mesh-less
    graph (CUDA events, idle share).
+18. ECAPA's TDNN tail (``ops/tdnn_norm.py``), after phase 17 (alone:
+   ``python3 chip_smoke.py --tdnn-norm``): at [32, C, 298] for C = 128,
+   1024, 3072 (VAD-like lengths, one row empty) ``tdnn_norm.tdnn_norm``
+   (the ``TdnnNorm`` function ``TDNN`` calls) forward and autograd's
+   backward within 1e-4 of the plain form in float64 (relative to each
+   output's largest magnitude), the empty row zero, the launch counts
+   zeroed just before and read just after one of each; then each kernel
+   timed from a CUDA graph beside the composed tail and the bound of its
+   passes. Then ``fit_fused`` of the full-width ECAPA-TDNN with the energy
+   VAD, 4 steps, each a CUDA graph replay, under torch.profiler: the
+   kernels' launches, zeroed just before and read just after, equal the
+   ``norm_fused`` counts that the ``lidbox.graph.*`` spans carry (those
+   the benchmark's ``fused_norm_share`` reads) for the warm-up steps and
+   the replays, forward and backward alike, and no span counts
+   ``norm_composed``; against the same fit with the composed tail, the
+   first step's loss within 5e-6 and its gradient's norm per parameter
+   within 6e-3 (the cell's limits against its float64 reference).
 
 Every comparison of the kernel with its plain version holds float32 within
 atol 1e-4 + rtol 1e-4 (the allclose of the tests; the distance of each from
@@ -339,6 +358,28 @@ PIPE_KW = {"num_mel_bins": 64, "fmin": 20.0, "fmax": 7000.0}
 # ~15 at the quietest bins) divided by each bin's standard deviation over
 # the chunk, itself computed from the two log-Mels.
 PIPE_ATOL = PIPE_RTOL = 1e-3
+# ECAPA's TDNN tail (phase 18): its widths at [32, C, 298], VAD-like valid
+# lengths (216-276 frames) and one row empty. The kernels against the plain
+# form in float64: each output within TDNN_TOL of its largest magnitude.
+TDNN_WIDTHS = (128, 1024, 3072)
+TDNN_LENGTHS = [0] + [216 + (37 * i) % 61 for i in range(1, 32)]
+TDNN_TOL = 1e-4
+# the training-mode TDNNs of one ECAPA-TDNN forward (block 0; per
+# SE-Res2Net block tdnn1, 7 Res2Net chunks and tdnn2; MFA; the pooling's
+# attention) and the steps of phase 18's fit
+ECAPA_TDNNS = 1 + 3 * (1 + 7 + 1) + 1 + 1
+TDNN_FIT_BATCHES = 4
+# phase 18's fit against the same fit with the composed tail: the first
+# step's relative loss gap and the worst parameter's gap of the first
+# gradient's norm (over the larger of its norm and the median parameter's),
+# held to the limits of ecapa_tdnn.train-vad against its float64 reference
+# (port_bench/limits). Later steps are not compared: Adam's first steps
+# turn rounding into updates of +-lr on parameters with near-zero
+# gradients, so two float32 fits drift apart by percents within 4 steps.
+TDNN_FIT_LOSS_TOL, TDNN_FIT_GRAD_TOL = 5e-6, 6e-3
+# the spans of a program's runs, which carry what the run counted
+GRAPH_RUNS = ("lidbox.graph.replay", "lidbox.graph.capture",
+              "lidbox.graph.eager")
 
 
 def check(ok, message):
@@ -4980,6 +5021,255 @@ def phase_masked(root, rng, logmel, device="cuda", classify_argv=None):
     return launches, reductions, err
 
 
+def phase_tdnn_norm(device="cuda"):
+    """ECAPA's TDNN tail (``ops/tdnn_norm.py``) at each of TDNN_WIDTHS:
+    ``tdnn_norm.tdnn_norm`` forward and backward against the plain form in
+    float64, one launch of each kernel counted on the card, then the
+    device ms of the kernels and of the composed tail (bias add, ReLU,
+    masked ``layers.BatchNorm``, the mask), forward and backward (the
+    composed backward as its forward and backward less its forward), each
+    replayed from a CUDA graph of 20 calls (``graph_ms``: the step replays
+    them so), beside the bound of its passes over [32, C, 298] float32
+    (forward 2, backward 3) at PEAK_BYTES; then ``tdnn_norm_fit``. Returns
+    the kernels-line entries of both kernels: the launches counted, the
+    largest absolute error, and the times at the widest channel."""
+    from lidbox_tpu_torch.models import ecapa_tdnn, layers
+    from lidbox_tpu_torch.ops import tdnn_norm
+
+    t0 = time.perf_counter()
+    tdnn_norm.build()
+    print(f"build: {tdnn_norm.LIBRARY} in {time.perf_counter() - t0:.2f} s")
+    eps = ecapa_tdnn.BN_EPSILON
+    mask = (torch.arange(298)[None, :]
+            < torch.tensor(TDNN_LENGTHS)[:, None]).to(device)
+    one_each = dict.fromkeys(tdnn_norm.KERNELS, 1)
+    launches = collections.Counter()
+    abs_err = dict.fromkeys(tdnn_norm.KERNELS, 0.0)
+    rows = []
+    for channels in TDNN_WIDTHS:
+        g = torch.Generator(device=device).manual_seed(SEED + channels)
+        z = torch.randn(32, channels, 298, generator=g, device=device)
+        bias, scale, shift = (
+            torch.randn(channels, generator=g, device=device) * spread + mid
+            for spread, mid in ((0.3, 0.0), (0.2, 1.0), (0.2, 0.0)))
+        dy = torch.randn(z.shape, generator=g, device=device)
+        leaves = [t.clone().requires_grad_(True)
+                  for t in (z, bias, scale, shift)]
+        tdnn_norm.reset_launch_counts(device)
+        got = tdnn_norm.tdnn_norm(*leaves, mask, eps)
+        got = [t.detach() for t in got] + list(
+            torch.autograd.grad(got[0], leaves, dy))
+        counted = tdnn_norm.launch_counts(device)
+        check(counted == one_each, f"TDNN tail at C={channels}: launches "
+              f"{counted}, not one of each kernel")
+        launches.update(counted)
+        leaves = [t.double().requires_grad_(True)
+                  for t in (z, bias, scale, shift)]
+        plain = tdnn_norm.tdnn_norm_plain(*leaves, mask, eps)
+        plain = [t.detach() for t in plain] + list(
+            torch.autograd.grad(plain[0], leaves, dy.double()))
+        diffs = [(a.double() - b).abs().max().item()
+                 for a, b in zip(got, plain)]
+        err = max(d / b.abs().max().item() for d, b in zip(diffs, plain))
+        check(err <= TDNN_TOL, f"TDNN tail kernels at C={channels}: "
+              f"relative error {err:.3g} > {TDNN_TOL}")
+        check(not got[0][0].any() and not got[3][0].any(),
+              "the empty row's y and dz are not zero")
+        for kernel, part in zip(tdnn_norm.KERNELS, (diffs[:3], diffs[3:])):
+            abs_err[kernel] = max(abs_err[kernel], *part)
+        _, mean, _, rstd = tdnn_norm.forward(z, bias, scale, shift, mask, eps)
+        fwd_ms = graph_ms(lambda: tdnn_norm.forward(z, bias, scale, shift,
+                                                    mask, eps))
+        bwd_ms = graph_ms(lambda: tdnn_norm.backward(z, dy, bias, scale,
+                                                     mean, rstd, mask))
+        norm = layers.BatchNorm(channels, axis=1, epsilon=eps,
+                                momentum=ecapa_tdnn.BN_MOMENTUM)
+        norm = norm.to(device).train()
+        zc, bc = (t.clone().requires_grad_(True) for t in (z, bias))
+        weight = mask[:, None, :].float()
+
+        def composed():
+            return norm(torch.relu(zc + bc[:, None]), mask) * weight
+
+        composed_fwd_ms = graph_ms(composed)
+        # autograd's backward captures with its forward: the difference
+        composed_bwd_ms = graph_ms(lambda: torch.autograd.grad(
+            composed(), [zc, bc, norm.scale, norm.bias], dy)) - composed_fwd_ms
+        pass_ms = 4 * z.numel() / PEAK_BYTES * 1e3
+        row = {"channels": channels, "max_rel_err": err,
+               "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+               "composed_forward_ms": composed_fwd_ms,
+               "composed_backward_ms": composed_bwd_ms,
+               "forward_bound_ms": 2 * pass_ms,
+               "backward_bound_ms": 3 * pass_ms}
+        print(f"tdnn_norm [32, {channels}, 298]: kernels {fwd_ms:.4f} + "
+              f"{bwd_ms:.4f} ms, composed {composed_fwd_ms:.4f} + "
+              f"{composed_bwd_ms:.4f} ms, bound {2 * pass_ms:.4f} + "
+              f"{3 * pass_ms:.4f} ms (bytes), error {err:.3g}")
+        rows.append(row)
+    print(json.dumps({"tdnn_norm": rows}))
+    with tempfile.TemporaryDirectory() as root:
+        launches.update(tdnn_norm_fit(
+            root, np.random.default_rng(SEED + 13), device))
+    widest = rows[-1]
+    return [{
+        "name": kernel,
+        "route": "cuda",
+        "source": "lidbox_tpu_torch/csrc/tdnn_norm.cu",
+        "replaces": None,
+        "launches": launches[kernel],
+        "max_abs_err": abs_err[kernel],
+        "ms": widest[f"{part}_ms"],
+        "plain_ms": widest[f"composed_{part}_ms"],
+        "bound_ms": widest[f"{part}_bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+    } for kernel, part in zip(tdnn_norm.KERNELS, ("forward", "backward"))]
+
+
+def ecapa_config(root, name):
+    """train_config for the full-width ECAPA-TDNN with the energy VAD (so
+    every batch comes with a frame mask); no metrics, no callbacks."""
+    cfg = train_config(root)
+    cfg["features"]["on_device_augment"] = {"vad": True}
+    cfg["experiment"].update(name=name, model={"key": "ecapa_tdnn"},
+                             metrics=[], callbacks=[])
+    return cfg
+
+
+def tdnn_norm_fit(root, rng, device="cuda"):
+    """``fit_fused`` of the full-width ECAPA-TDNN for TDNN_FIT_BATCHES steps
+    of class_sines_with_pauses with the energy VAD, each step a CUDA graph
+    replay, under torch.profiler (so the program's spans record). The
+    kernels' launches, zeroed just before and read just after, must equal
+    the ``norm_fused`` counts of the ``lidbox.graph.*`` spans, less the
+    captured bodies' (a capture records its body and runs nothing):
+    TDNN_FIT_BATCHES replays of ECAPA_TDNNS each and the warm-up steps,
+    forward and backward alike; no span counts ``norm_composed``. Then the
+    same fit from the same weights with ``tdnn_norm.route`` forced to the
+    composed tail: the first step's loss and gradient within
+    TDNN_FIT_LOSS_TOL and TDNN_FIT_GRAD_TOL. Returns the launches."""
+    from torch.profiler import ProfilerActivity, profile
+    from lidbox_tpu_torch.models.model_utils import ModelWrapper
+    from lidbox_tpu_torch.ops import tdnn_norm
+    from lidbox_tpu_torch.train import graphs, observability
+
+    train = class_sines_with_pauses(rng, TDNN_FIT_BATCHES)
+    weights = {}
+
+    def fit(name):
+        wrapper = ModelWrapper.from_config(ecapa_config(root, name),
+                                           device=device)
+        module = wrapper.model.module
+        if weights:
+            module.load_state_dict(weights)
+        else:
+            weights.update((k, v.clone())
+                           for k, v in module.state_dict().items())
+        recorded, first = [], {}
+        with recording_losses(recorded), first_step_moments(first):
+            wrapper.fit_fused(lambda: train, epochs=1, verbose=False)
+        losses = step_losses_of(recorded)
+        check(len(losses) == TDNN_FIT_BATCHES
+              and all(np.isfinite(losses)), f"ECAPA fit: losses {losses}")
+        return losses, first
+
+    observability.clear_spans()
+    tdnn_norm.reset_launch_counts(device)
+    with profile(activities=[ProfilerActivity.CPU]):
+        fused, fused_first = fit("smoke_ecapa_fused")
+        torch.cuda.synchronize()
+    launched = tdnn_norm.launch_counts(device)
+    runs = [r for r in observability.spans() if r.name in GRAPH_RUNS]
+    observability.clear_spans()
+
+    def counted(name, key="norm_fused"):
+        return sum(r.attrs.get(key, 0) for r in runs if r.name == name)
+
+    replays = [r for r in runs if r.name == "lidbox.graph.replay"]
+    captured = counted("lidbox.graph.capture")
+    warmed = captured * graphs.WARMUP_STEPS // (graphs.WARMUP_STEPS + 1)
+    spans_fused = counted("lidbox.graph.replay") + warmed + counted(
+        "lidbox.graph.eager")
+    composed = sum(counted(name, "norm_composed") for name in GRAPH_RUNS)
+    check(len(replays) == TDNN_FIT_BATCHES and all(
+        r.attrs.get("norm_fused") == ECAPA_TDNNS for r in replays),
+          f"ECAPA fit: replays counted "
+          f"{[r.attrs.get('norm_fused') for r in replays]} fused tails, "
+          f"not {TDNN_FIT_BATCHES} x {ECAPA_TDNNS}")
+    check(composed == 0, f"ECAPA fit: {composed} composed tails counted")
+    want = dict.fromkeys(tdnn_norm.KERNELS, spans_fused)
+    check(launched == want, f"ECAPA fit: the card counted launches "
+          f"{launched}, the spans' norm_fused {spans_fused} (replays "
+          f"{counted('lidbox.graph.replay')}, warm-ups {warmed}, eager "
+          f"{counted('lidbox.graph.eager')})")
+
+    original = tdnn_norm.route
+    tdnn_norm.route = lambda *args: "composed"
+    try:
+        plain, plain_first = fit("smoke_ecapa_composed")
+    finally:
+        tdnn_norm.route = original
+    loss_gap = abs(fused[0] - plain[0]) / abs(plain[0])
+    g_got, g_ref = ({k: torch.linalg.vector_norm(v.double()).item()
+                     for k, v in first["moments"].items()}
+                    for first in (fused_first, plain_first))
+    g_med = float(np.median(list(g_ref.values())))
+    grad_gap, worst = max((abs(g_got[k] - g_ref[k]) / max(g_ref[k], g_med), k)
+                          for k in g_ref)
+    check(loss_gap <= TDNN_FIT_LOSS_TOL and grad_gap <= TDNN_FIT_GRAD_TOL,
+          f"ECAPA fit with the kernels against the composed tail: first "
+          f"loss gap {loss_gap:.3g} (limit {TDNN_FIT_LOSS_TOL}), first "
+          f"gradient gap {grad_gap:.3g} at {worst} (limit "
+          f"{TDNN_FIT_GRAD_TOL})")
+    share = 100.0 * spans_fused / (spans_fused + composed)
+    print(f"ECAPA fit_fused, {TDNN_FIT_BATCHES} steps with the energy VAD: "
+          f"launches {launched} = the spans' norm_fused (replays "
+          f"{counted('lidbox.graph.replay')} + warm-ups {warmed}), "
+          f"norm_composed 0, fused_norm_share {share:.1f}; against the "
+          f"composed tail: first loss gap {loss_gap:.3e}, first gradient "
+          f"gap {grad_gap:.3e} ({worst}); step losses {fused} against "
+          f"{plain} (later steps drift: Adam)")
+    return launched
+
+
+@contextlib.contextmanager
+def first_step_moments(sink):
+    """Within it, ``sink["moments"]`` receives Adam's first moments after
+    the first ``graphs.StepProgram`` step (parameter name -> tensor: the
+    first gradient times 1 - beta_1)."""
+    from lidbox_tpu_torch.train import graphs
+    call = graphs.StepProgram.__call__
+
+    def recording(program, trainer, state, inputs, generator=None):
+        state, loss = call(program, trainer, state, inputs, generator)
+        if "moments" not in sink:
+            mu = next(s["mu"] for s in state.opt_state
+                      if isinstance(s, dict) and "mu" in s)
+            sink["moments"] = dict(zip(state.params,
+                                       (m.clone() for m in mu)))
+        return state, loss
+
+    graphs.StepProgram.__call__ = recording
+    try:
+        yield sink
+    finally:
+        graphs.StepProgram.__call__ = call
+
+
+def tdnn_norm_main():
+    """Phase 18 alone (``python3 chip_smoke.py --tdnn-norm``)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"card: {card_line()}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}")
+    print(json.dumps({"kernels": phase_tdnn_norm()}))
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5046,6 +5336,7 @@ def main():
                 classify_argv=classify_argv)
         finally:
             torch.backends.cudnn.deterministic = False
+    tdnn_kernels = phase_tdnn_norm()
     if pipe_timing is not None:
         ms, plain_ms, bound_ms, bound_by, gemm_ms = pipe_timing
         print(f"fused_logmel [{PIPE_GROUP}, {2 * RATE}] 64 mel 20-7000 Hz "
@@ -5097,7 +5388,7 @@ def main():
         "bound_ms": reduce_fields[3],
         "bound_by": reduce_fields[4],
         "library_ms": None,
-    }]}))
+    }] + tdnn_kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5112,4 +5403,6 @@ if __name__ == "__main__":
         sys.exit(dp_nccl_probe_main(sys.argv[2]))
     if sys.argv[1:2] == ["--tp-rank"]:
         sys.exit(tp_rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--tdnn-norm"]:
+        sys.exit(tdnn_norm_main())
     sys.exit(main())

@@ -38,7 +38,11 @@ are floored at 1 and its attention spans every frame. No value is read on
 the host, so a CUDA graph captures the step. Each statistic over frames
 (the input mean, a training BatchNorm, the squeeze, the pooling) counts
 ``stats_masked`` or ``stats_full`` (``observability.count``), and the
-blocks run in ``lidbox.ecapa.<block>`` spans.
+blocks run in ``lidbox.ecapa.<block>`` spans. A training-mode TDNN under
+a frame mask on the card runs the tail after its convolution (the bias,
+ReLU, BatchNorm and mask) as the kernels of ``ops/tdnn_norm.py``
+(``tdnn_norm.route``); each training-mode TDNN counts ``norm_fused`` or
+``norm_composed``.
 
 Departures from SpeechBrain: zero "same" padding where it reflects; masked
 BatchNorm statistics where it counts padded frames; the running variance
@@ -52,6 +56,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from lidbox_tpu_torch.ops import tdnn_norm
 from lidbox_tpu_torch.train import observability
 
 from .layers import BatchNorm, Dense
@@ -108,7 +113,10 @@ def _weighted_moments(x, weights):
 
 class TDNN(nn.Module):
     """Conv1d (zero "same" padding, bias), ReLU, BatchNorm over [B, C, T];
-    zeros past each row's length under ``frames``."""
+    zeros past each row's length under ``frames``. A training-mode forward
+    counts its route (``tdnn_norm.route``): ``norm_fused``, the tail after
+    the convolution in the kernels of ``ops/tdnn_norm.py``, or
+    ``norm_composed``, PyTorch's operations."""
 
     def __init__(self, in_channels, out_channels, kernel_size, dilation=1):
         super().__init__()
@@ -118,11 +126,31 @@ class TDNN(nn.Module):
                               momentum=BN_MOMENTUM)
 
     def forward(self, x, frames=None):
+        mask = None if frames is None else frames.mask
+        route = tdnn_norm.route(x, mask, self.training)
         if self.training:
             _statistic(frames)
-        x = self.norm(F.relu(self.conv(x)),
-                      None if frames is None else frames.mask)
+            observability.count("norm_" + route)
+        if route == "fused":
+            return self._fused(x, mask)
+        x = self.norm(F.relu(self.conv(x)), mask)
         return x if frames is None else x * frames.weight
+
+    def _fused(self, x, mask):
+        """The kernels' tail (``ops/tdnn_norm.py``) after the convolution
+        without its bias, the batch statistics handed to the collector as
+        ``layers.BatchNorm`` hands them."""
+        conv, norm = self.conv, self.norm
+        z = F.conv1d(x, conv.weight, None, conv.stride, conv.padding,
+                     conv.dilation, conv.groups)
+        y, mean, var = tdnn_norm.tdnn_norm(
+            z.contiguous(), conv.bias, norm.scale, norm.bias,
+            mask.contiguous(), norm.epsilon)
+        if norm.collector is not None:
+            norm.collector[norm] = (
+                norm.momentum * norm.mean + (1 - norm.momentum) * mean,
+                norm.momentum * norm.var + (1 - norm.momentum) * var)
+        return y
 
 
 class Res2Net(nn.Module):

@@ -1,2 +1,3 @@
-"""Fused log-Mel kernel (CUDA) and its plain PyTorch version."""
+"""The port's CUDA kernels and their plain PyTorch versions: the fused
+log-Mel (``logmel``) and ECAPA-TDNN's TDNN tail (``tdnn_norm``)."""
 from .logmel import fused_logmel, logmel_plain  # noqa: F401

@@ -89,32 +89,39 @@ def _find_nvcc():
             nvcc = candidate
     if nvcc is None:
         raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin or "
-                           "/usr/local/cuda/bin): the log-Mel kernel cannot "
-                           "be built")
+                           "/usr/local/cuda/bin): the port's CUDA kernels "
+                           "cannot be built")
     return nvcc
 
 
 def build():
     """Compile ``csrc/logmel.cu`` into ``_build/liblogmel.so`` unless the
     library is newer than the source. Returns the library path."""
-    if (os.path.exists(LIBRARY)
-            and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE)):
-        return LIBRARY
+    return build_library(SOURCE, LIBRARY)
+
+
+def build_library(source, library):
+    """Compile the CUDA source ``source`` for ``sm_90a`` into the shared
+    library ``library`` (under ``_build/``) unless the library is newer
+    than the source. Returns the library path."""
+    if (os.path.exists(library)
+            and os.path.getmtime(library) >= os.path.getmtime(source)):
+        return library
     nvcc = _find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, SOURCE],
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, source],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                                f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, LIBRARY)  # atomic: a concurrent loader never sees half a file
+        os.replace(tmp, library)  # atomic: a concurrent loader never sees half a file
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
-    return LIBRARY
+    return library
 
 
 def _load_library():

@@ -10,8 +10,9 @@ the one copy of it) on seeded weights:
   so does ``serve.Classifier`` on files of several lengths;
 - the masked ``BatchNorm`` equals a BatchNorm over the valid frames alone;
   a row with no valid frame is finite;
-- the frame statistics are counted (``stats_masked``, ``stats_full``) and
-  reach the program's spans;
+- the frame statistics are counted (``stats_masked``, ``stats_full``), and
+  the route of each training-mode TDNN's tail (``norm_composed`` on the
+  CPU), and reach the program's spans;
 - ``create()``'s defaults are the configuration's widths and its
   parameter count;
 - ``BatchNorm``'s defaults leave bi_gru and the x-vector bit-equal to the
@@ -52,6 +53,9 @@ LENGTHS = [40, 33, 21, 9]
 # BatchNorm, per SE-Res2Net block 2 + 7 BatchNorms and the squeeze, MFA's
 # BatchNorm, the pooling's two and its TDNN's BatchNorm
 STATISTICS = 1 + 1 + 3 * (2 + 7 + 1) + 1 + 3
+# TDNNs of one forward: block 0, per SE-Res2Net block 2 + 7, MFA, the
+# pooling's
+TDNNS = 1 + 3 * (2 + 7) + 1 + 1
 # float32 against float64 through some 30 batch normalizations of 4 x 40
 # frames: the log-probabilities part by 4e-6 .. 3e-5 (4 seeds, plain and
 # masked), so 1e-4 holds them to float32's rounding
@@ -252,12 +256,13 @@ def test_row_without_frames_is_finite():
 def test_statistics_are_counted_and_reach_the_spans(tmp_path):
     x, y, mask = inputs()
     model = port_model()
+    # and each training-mode TDNN its route: the composition on the CPU
     with observability.tallying(collections.Counter()) as counted:
         model.apply(x, mask=mask, train=True)
-    assert counted == {"stats_masked": STATISTICS}
+    assert counted == {"stats_masked": STATISTICS, "norm_composed": TDNNS}
     with observability.tallying(collections.Counter()) as counted:
         model.apply(x, train=True)
-    assert counted == {"stats_full": STATISTICS}
+    assert counted == {"stats_full": STATISTICS, "norm_composed": TDNNS}
     with observability.tallying(collections.Counter()) as counted:
         with torch.no_grad():
             model.apply(x, mask=mask)
