@@ -1124,34 +1124,24 @@ def kernel_launches_seen(counts, name):
 
 @contextlib.contextmanager
 def recording_losses(sink):
-    """Append every fused train step's loss (0-dim or [K] device tensors,
-    read after the run: ``step_losses_of``) to ``sink`` while the step
-    builders of ``on_device`` build the steps that fit_fused runs, graphed
-    or eager."""
-    from lidbox_tpu_torch.data import on_device
-    names = ("make_fused_train_step", "make_fused_multi_step",
-             "make_fused_replay_step", "make_fused_replay_rows_step")
-    originals = {name: getattr(on_device, name) for name in names}
+    """Append every fused train step's loss (a 0-dim device tensor, read
+    after the run: ``step_losses_of``) to ``sink``: each call of a
+    ``graphs.StepProgram`` of kind "fused", graphed or eager, the steps
+    fit_fused runs."""
+    from lidbox_tpu_torch.train import graphs
+    call = graphs.StepProgram.__call__
 
-    def recorded(make):
-        @functools.wraps(make)
-        def build(*args, **kw):
-            step = make(*args, **kw)
+    def recording(program, trainer, state, inputs, generator=None):
+        state, loss = call(program, trainer, state, inputs, generator)
+        if program.kind == "fused":
+            sink.append(loss)
+        return state, loss
 
-            def run(*a, **k):
-                state, loss = step(*a, **k)
-                sink.append(loss)
-                return state, loss
-            return run
-        return build
-
-    for name, make in originals.items():
-        setattr(on_device, name, recorded(make))
+    graphs.StepProgram.__call__ = recording
     try:
         yield sink
     finally:
-        for name, make in originals.items():
-            setattr(on_device, name, make)
+        graphs.StepProgram.__call__ = call
 
 
 def step_losses_of(sink):

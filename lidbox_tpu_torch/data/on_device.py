@@ -35,6 +35,7 @@ ranks of one data row stage the same rows and featurize them alike, as
 GSPMD replicates the features over the model axis.
 """
 import dataclasses
+import functools
 import glob
 import os
 from typing import Optional, Tuple
@@ -43,13 +44,11 @@ import numpy as np
 import torch
 
 import lidbox_tpu_torch.features as F
-from lidbox_tpu_torch import RANDOM_SEED, get_device, get_logger, parallel
+from lidbox_tpu_torch import get_device, get_logger, parallel
 from lidbox_tpu_torch.features import audio
 from lidbox_tpu_torch.features import io as audio_io
-from lidbox_tpu_torch.train import graphs
-from lidbox_tpu_torch.train.loop import (_signature_runs_contiguous,
-                                         _tree_device_nbytes, keyed_generator,
-                                         to_device, torch_dtype)
+from lidbox_tpu_torch.train.feed import Feed, plain_rows
+from lidbox_tpu_torch.train.loop import keyed_generator, to_device, torch_dtype
 from lidbox_tpu_torch.train.observability import ThroughputMeter
 
 logger = get_logger("data.on_device")
@@ -536,16 +535,6 @@ def _inputs(signals, targets, example_mask):
             "example_mask": example_mask}
 
 
-def _run_steps(trainer, program, state, inputs, generator):
-    """The program's steps over ``inputs`` (an iterable of step inputs) ->
-    (state, losses [K]); no host read between the steps."""
-    losses = []
-    for step_inputs in inputs:
-        state, loss = program(trainer, state, step_inputs, generator)
-        losses.append(loss)
-    return state, torch.stack(losses)
-
-
 def make_fused_train_step(trainer, feature_fn, eager=False):
     """One train step from raw waveforms: augmentation and features (on the
     device) -> model forward/backward -> optimizer update.
@@ -570,152 +559,10 @@ def make_fused_train_step(trainer, feature_fn, eager=False):
     return step
 
 
-def make_fused_replay_step(trainer, feature_fn, eager=False):
-    """Whole-epoch cached replay: fused train steps over the device-resident
-    stacked batches in ``order`` (a host permutation of range(K)): K
-    replays of one captured step on the card. Augmentation stays fresh per
-    epoch: each step's draws follow state.step.
-
-    step(state, signals_all [K, B(+1), T], targets_all ([K, B] or None for
-    the packed layout), generator, order [K], masks_all=None ([K, B]
-    example masks)) -> (state, losses [K])."""
-    program = _fused_program(trainer, feature_fn, eager)
-
-    def replay(state, signals_all, targets_all, generator, order,
-               masks_all=None):
-        return _run_steps(trainer, program, state, (
-            _inputs(signals_all[i],
-                    None if targets_all is None else targets_all[i],
-                    None if masks_all is None else masks_all[i])
-            for i in np.asarray(order).tolist()), generator)
-    return replay
-
-
-def make_fused_multi_step(trainer, feature_fn, eager=False):
-    """Grouped dispatch: K fused train steps over a [K, ...] stack of
-    staged batches that crossed to the device as one transfer; per-step
-    numerics identical to K single steps (K replays on the card).
-
-    step(state, signals_k, targets_k, generator=None, masks_k=None) ->
-    (state, losses [K]); ``targets_k=None`` selects the packed layout
-    ([K, B + 1, T])."""
-    program = _fused_program(trainer, feature_fn, eager)
-
-    def multi(state, signals_k, targets_k, generator=None, masks_k=None):
-        return _run_steps(trainer, program, state, (
-            _inputs(signals_k[i], None if targets_k is None else targets_k[i],
-                    None if masks_k is None else masks_k[i])
-            for i in range(signals_k.shape[0])), generator)
-    return multi
-
-
-def make_fused_replay_rows_step(trainer, feature_fn, eager=False):
-    """Whole-epoch cached replay with a row-level reshuffle
-    (cache_shuffle="rows"): ``idx`` is a host [K, B] permutation of the K*B
-    cached waveform rows, so every epoch re-draws batch composition (the
-    reference re-shuffled elements every epoch,
-    lidbox/data/steps.py:997-999). Each step gathers its B rows on the
-    device from the stack seen as [K * rows, T] (no permuted copy; on the
-    card straight into the captured step's input buffer); the only
-    transfer is the [K, B] index. Under a mesh the stack is the global one
-    and ``idx`` this rank's columns of the global index.
-
-    step(state, signals_all [K, B(+1), T], targets_all ([K, B] or None for
-    the packed layout), generator, idx [K, b], masks_all=None) -> (state,
-    losses [K])."""
-    program = _fused_program(trainer, feature_fn, eager)
-
-    def replay_rows(state, signals_all, targets_all, generator, idx,
-                    masks_all=None):
-        idx = np.asarray(idx, np.int64)
-        K = idx.shape[0]
-        if targets_all is None:  # packed: row B of each batch = targets
-            B = signals_all.shape[1] - 1
-            tgt_flat = signals_all[:, B, :B].reshape(K * B).to(torch.int64)
-        else:
-            B = targets_all.shape[1]
-            tgt_flat = targets_all.reshape(K * B)
-        rows_per_batch = signals_all.shape[1]
-        sig_flat = signals_all.reshape((-1,) + tuple(signals_all.shape[2:]))
-        mask_flat = None if masks_all is None else masks_all.reshape(K * B)
-        # row r of the corpus is row r % B of batch r // B of the stack
-        sig_rows = to_device((idx // B) * rows_per_batch + idx % B,
-                             signals_all.device)
-        tgt_rows = to_device(idx, signals_all.device)
-        return _run_steps(trainer, program, state, (
-            _inputs(graphs.Gather(sig_flat, sig_rows[k]),
-                    graphs.Gather(tgt_flat, tgt_rows[k]),
-                    None if mask_flat is None
-                    else graphs.Gather(mask_flat, tgt_rows[k]))
-            for k in range(K)), generator)
-    return replay_rows
-
-
-def _consolidate_signal_cache(entries, spd, preserve_order=False):
-    """Merge fit_signals' epoch-1 cache entries ((n, samples), (signals,
-    targets[, mask])), single batches at spd == 1 or stacked groups at
-    spd > 1 (targets None = the packed int16 layout, mask None = no
-    example mask), into per-shape device stacks for whole-epoch replay: a
-    list of {signals, targets, masks, n, samples, steps}. None under
-    ``preserve_order=True`` (the cache_shuffle=False contract) when the
-    shape signatures interleave: stack-major replay would reorder the
-    epoch-1 trajectory, so the caller keeps per-entry replay."""
-    entries = [(count, (sig, tgt, mask[0] if mask else None))
-               for count, (sig, tgt, *mask) in entries]
-    keys = []
-    for _, (sig, tgt, mask) in entries:
-        inner = sig.shape[1:] if spd > 1 else sig.shape
-        keys.append((tuple(inner), str(sig.dtype), tgt is None,
-                     mask is None))
-    if preserve_order and not _signature_runs_contiguous(keys):
-        return None
-    order, groups = [], {}
-    for ((n, samples), (sig, tgt, mask)), key in zip(entries, keys):
-        if key not in groups:
-            groups[key] = {"sigs": [], "tgts": [], "masks": [], "n": 0,
-                           "samples": 0, "steps": 0}
-            order.append(key)
-        g = groups[key]
-        g["sigs"].append(sig)
-        if tgt is not None:
-            g["tgts"].append(tgt)
-        if mask is not None:
-            g["masks"].append(mask)
-        g["n"] += int(n)
-        g["samples"] += int(samples)
-        g["steps"] += sig.shape[0] if spd > 1 else 1
-    cat = torch.cat if spd > 1 else torch.stack
-    return [{"signals": cat(g["sigs"]),
-             "targets": cat(g["tgts"]) if g["tgts"] else None,
-             "masks": cat(g["masks"]) if g["masks"] else None,
-             "n": g["n"], "samples": g["samples"], "steps": g["steps"]}
-            for g in (groups[k] for k in order)]
-
-
-def _gather_signal_stacks(groups, mesh):
-    """cache_shuffle="rows" under a mesh (``mesh``: the trainer's data
-    mesh): every rank's stacks become the global ones ([K, ranks x b, T]
-    signals, [K, ranks x b] targets and masks, the packed layout
-    unpacked), so a replayed batch can take rows other ranks cached, as
-    the JAX package's flattened global cache does. Each rank then holds
-    the whole corpus: ranks x its own cache."""
-    def gather(x):
-        return parallel.all_gather_rows(x.transpose(0, 1),
-                                        mesh).transpose(0, 1)
-    for g in groups:
-        sig, tgt = g["signals"], g["targets"]
-        if tgt is None:  # packed: row b carries the targets
-            b = sig.shape[1] - 1
-            sig, tgt = sig[:, :b], sig[:, b, :b].to(torch.int64)
-        g["signals"], g["targets"] = gather(sig), gather(tgt)
-        if g["masks"] is not None:
-            g["masks"] = gather(g["masks"])
-    return groups
-
-
 def _featurize_val(val_feats, val_batches, device, mesh=None):
     """The validation signal batches ((signals, targets) or (signals,
-    targets, example_mask)) as feature batch dicts, kept on the device.
+    targets, example_mask)) as feature batch dicts of ``val_feats`` (on the
+    float signals), kept on the device.
     Batch i draws from its own generator, keyed (0, i) as the JAX package
     keys it fold_in(PRNGKey(0), i): an augmenting fn gives each batch its
     own draws, the same on every call (the global batch's under a
@@ -725,7 +572,7 @@ def _featurize_val(val_feats, val_batches, device, mesh=None):
     for i, (signals, targets, *mask) in enumerate(vit):
         with parallel.data_parallel(mesh):
             out = val_feats(keyed_generator(device, 0, i),
-                            to_device(signals, device))
+                            signals_to_float(to_device(signals, device)))
         batch = {"target": to_device(np.asarray(targets, np.int64), device)}
         if isinstance(out, tuple):
             batch["input"], batch["input_mask"] = out
@@ -736,6 +583,54 @@ def _featurize_val(val_feats, val_batches, device, mesh=None):
                                               device)
         eval_batches.append(batch)
     return eval_batches
+
+
+def _staged_inputs(trainer, signals, targets, mask=None):
+    """A host batch (signals [B, T], targets [B], example_mask [B] or None)
+    or a [k, ...] stack of them as the fused program's step inputs on the
+    trainer's device (``_inputs``): staged (stage_signals), with the targets
+    packed into an int16 stack where the layout applies (targets None)."""
+    signals = stage_signals(signals, trainer.stage_dtype)
+    targets = np.asarray(targets, np.int64)
+    mask = None if mask is None else to_device(np.asarray(mask, bool),
+                                               trainer.device)
+    packed = pack_targets_int16(signals, targets)
+    if packed is not None:
+        return _inputs(to_device(packed, trainer.device), None, mask)
+    return _inputs(to_device(signals, trainer.device),
+                   to_device(targets, trainer.device), mask)
+
+
+def _staged_group(trainer, group):
+    """Same-shape host batches as one [k, ...] stack of step inputs."""
+    masks = [b[2] if len(b) > 2 else None for b in group]
+    return _staged_inputs(trainer, np.stack([b[0] for b in group]),
+                          np.stack([b[1] for b in group]),
+                          None if masks[0] is None else np.stack(masks))
+
+
+def _signal_count(batch):
+    """(rows, samples) of a host signal batch."""
+    return int(np.shape(batch[1])[0]), int(np.prod(np.shape(batch[0])))
+
+
+def _signal_signature(batch):
+    """What the signal batches of one stacked group share."""
+    return np.shape(batch[0]), len(batch) > 2 and batch[2] is not None
+
+
+def _example_rows(stack):
+    """``feed.plain_rows`` of a stack of fused step inputs, the packed
+    layout (targets None) read in place: the signals at a pitch of B + 1
+    rows a batch, the targets from row B's first B slots."""
+    if stack["targets"] is not None:
+        return plain_rows(stack)
+    signals, mask = stack["signals"], stack["example_mask"]
+    B = signals.shape[1] - 1
+    return B, {
+        "signals": (signals.reshape((-1,) + tuple(signals.shape[2:])), B + 1),
+        "targets": (signals[:, B, :B].reshape(-1).to(torch.int64), B),
+        "example_mask": None if mask is None else (mask.reshape(-1), B)}
 
 
 def fit_signals(trainer, feature_fn, signal_batches, epochs=1, verbose=True,
@@ -763,61 +658,39 @@ def fit_signals(trainer, feature_fn, signal_batches, epochs=1, verbose=True,
     per-epoch dicts with ``loss`` (+ ``val_loss``/metrics) when
     validating, plain float losses otherwise.
 
-    Staging follows ``trainer.stage_dtype`` (stage_signals); int16 stacks
-    carry their targets in an extra row (pack_targets_int16), one transfer
-    per step. ``steps_per_dispatch=K`` stages K consecutive same-shape
-    batches as one [K, B(+1), T] transfer for K steps
-    (make_fused_multi_step), with per-step numerics identical to K single
-    steps.
+    The batches reach the steps through the feed ``Trainer.fit`` uses
+    (``train/feed.py``). Staging follows ``trainer.stage_dtype``
+    (stage_signals); int16 stacks carry their targets in an extra row
+    (pack_targets_int16), one transfer per step. ``steps_per_dispatch=K``
+    stages K consecutive same-shape batches as one [K, B(+1), T] transfer
+    for K steps, with per-step numerics identical to K single steps.
 
     ``cache_staged`` (default: the trainer's setting) keeps the staged raw
     waveform batches on the device after epoch 1: later epochs transfer no
     signals while augmentation stays fresh per epoch (it follows the step
     counter). ``cache_shuffle`` re-permutes the cached batch order each
     epoch, drawn from ``np.random.default_rng(RANDOM_SEED + epoch)`` as in
-    the JAX package; ``"rows"`` also re-draws batch composition
-    (make_fused_replay_rows_step; batch order when interleaved shapes force
-    per-entry replay); False replays epoch 1's order. The staged corpus is
-    held to the device's memory budget (Trainer.cache_bytes_limit): when
-    twice its bytes (consolidation holds originals and stacks at once)
-    would exceed it, the cache is released with a warning and every epoch
-    streams.
+    the JAX package; ``"rows"`` also re-draws batch composition, gathering
+    each step's rows from the cached stacks; False replays epoch 1's order.
+    The staged corpus is held to the device's memory budget
+    (Trainer.cache_bytes_limit): when twice its bytes (consolidation holds
+    originals and stacks at once) would exceed it, the cache is released
+    with a warning and every epoch streams.
 
     Under the trainer's mesh each rank feeds its own rows of every global
     batch (``parallel.local_slice``), the staged feeds pass the feed-parity
     guard, every step is the global batch's (``Trainer._loss_and_grads``,
     ``parallel.data_parallel``), and cache_shuffle="rows" replays from the
     global cache, gathered onto every rank after epoch 1."""
-    step = make_fused_train_step(trainer, feature_fn, eager)
-    spd = max(1, int(steps_per_dispatch))
-    multi = (make_fused_multi_step(trainer, feature_fn, eager) if spd > 1
-             else None)
-    if cache_staged is None:
-        cache_staged = trainer.cache_staged
-    # every rank caches the global corpus for a mesh's rows replay
-    rows_factor = trainer._rows_factor(cache_shuffle)
-    staged_cache = None   # per-entry replay (interleaved shapes, no shuffle)
-    replay_groups = None  # consolidated per-shape stacks after epoch 1
-    replay = None
-    val_staged = None  # staged validation stacks (False: did not fit)
-    cache_state = {"bytes": 0, "budget": None}
-
-    def _cache_admit(entry):
-        """Account one cached entry against the memory budget; False (after
-        a warning) once 2x the staged bytes would exceed it."""
-        cache_state["bytes"] += _tree_device_nbytes(entry)
-        if cache_state["budget"] is None:
-            cache_state["budget"] = trainer._cache_budget()
-        if (1.0 + rows_factor) * cache_state["bytes"] > cache_state["budget"]:
-            logger.warning(
-                "cache_staged: staged signal corpus (%.0f MB so far, ~2x "
-                "transient during consolidation) exceeds the device memory "
-                "budget (%.0f MB) — releasing the cache and streaming every "
-                "epoch", cache_state["bytes"] / 1e6,
-                cache_state["budget"] / 1e6)
-            return False
-        return True
-
+    program = _fused_program(trainer, feature_fn, eager)
+    feed = Feed(trainer, functools.partial(program, trainer), signal_batches,
+                stage=lambda b: _staged_inputs(trainer, *b),
+                stage_group=functools.partial(_staged_group, trainer),
+                count=_signal_count, signature=_signal_signature,
+                rows=_example_rows, steps_per_dispatch=steps_per_dispatch,
+                cache_staged=(trainer.cache_staged if cache_staged is None
+                              else cache_staged),
+                cache_shuffle=cache_shuffle)
     if trainer.state is None:
         trainer.create_state()
     # a fresh fit starts training anew even if a previous fit on this
@@ -825,49 +698,20 @@ def fit_signals(trainer, feature_fn, signal_batches, epochs=1, verbose=True,
     trainer.stop_training = False
     validating = val_batches is not None or val_feature_batches is not None
     eval_cache = None
-    if val_batches is not None:
-        vfn = val_feature_fn if val_feature_fn is not None else feature_fn
 
-        def val_feats(generator, signals):
-            return vfn(generator, signals_to_float(signals))
-
-    def _stage(signals, targets, mask=None):
-        """(signals, targets, mask) on the device; targets None when
-        packed, mask None without one."""
-        signals = stage_signals(signals, trainer.stage_dtype)
-        targets = np.asarray(targets, np.int64)
-        mask = None if mask is None else to_device(np.asarray(mask, bool),
-                                                   trainer.device)
-        packed = pack_targets_int16(signals, targets)
-        if packed is not None:
-            return to_device(packed, trainer.device), None, mask
-        return (to_device(signals, trainer.device),
-                to_device(targets, trainer.device), mask)
-
-    def _grouped(batches):
-        """Consecutive same-shape batches in groups of up to spd."""
-        it = batches() if callable(batches) else batches
-        buf = []
-        for sig, tgt, *mask in it:
-            item = (np.asarray(sig), np.asarray(tgt),
-                    np.asarray(mask[0]) if mask and mask[0] is not None
-                    else None)
-            if buf and (item[0].shape != buf[0][0].shape
-                        or (item[2] is None) != (buf[0][2] is None)):
-                yield buf
-                buf = []
-            buf.append(item)
-            if len(buf) == spd:
-                yield buf
-                buf = []
-        if buf:
-            yield buf
-
-    def _stage_group(group):
-        masks = [m for _, _, m in group]
-        return _stage(np.stack([s for s, _, _ in group]),
-                      np.stack([t for _, t, _ in group]),
-                      None if masks[0] is None else np.stack(masks))
+    def eval_batches():
+        """The validation feature batches: ``val_feature_batches``, or
+        ``val_batches`` featurized once (each batch's draws are keyed by its
+        index, so every epoch would get the same)."""
+        nonlocal eval_cache
+        if val_feature_batches is not None:
+            return list(val_feature_batches() if callable(val_feature_batches)
+                        else val_feature_batches)
+        if eval_cache is None:
+            eval_cache = _featurize_val(
+                val_feature_fn if val_feature_fn is not None else feature_fn,
+                val_batches, trainer.device, trainer.mesh)
+        return eval_cache
 
     # audio-seconds throughput (RTF): samples / sample_rate, with the rate
     # taken from the feature fn (make_augmented_feature_fn tags it)
@@ -880,93 +724,9 @@ def fit_signals(trainer, feature_fn, signal_batches, epochs=1, verbose=True,
             cb.on_epoch_begin(trainer, epoch)
         losses = []
         meter = ThroughputMeter()
-        collecting = None
-        if replay_groups is not None:
-            # whole-epoch replay of the per-shape stacks; with cache_shuffle
-            # the permutation is within-stack plus stack order
-            if replay is None:
-                replay = (make_fused_replay_rows_step
-                          if cache_shuffle == "rows"
-                          else make_fused_replay_step)(trainer, feature_fn,
-                                                       eager)
-            rng_epoch = np.random.default_rng(RANDOM_SEED + epoch)
-            gorder = (rng_epoch.permutation(len(replay_groups))
-                      if cache_shuffle else np.arange(len(replay_groups)))
-            for gi in gorder:
-                g = replay_groups[gi]
-                if cache_shuffle == "rows":
-                    K = g["steps"]
-                    B = (g["targets"].shape[1] if g["targets"] is not None
-                         else g["signals"].shape[1] - 1)
-                    order = trainer._local_columns(
-                        rng_epoch.permutation(K * B).reshape(K, B))
-                else:
-                    order = (rng_epoch.permutation(g["steps"])
-                             if cache_shuffle else np.arange(g["steps"]))
-                trainer.state, loss_k = replay(
-                    trainer.state, g["signals"], g["targets"],
-                    trainer.generator, order, g["masks"])
-                losses.append(loss_k)
-                meter.update(g["n"], g["samples"] / sr if sr else 0.0)
-        elif staged_cache is not None:
-            # order-exact per-entry replay: the cache_shuffle=False
-            # fallback when shape signatures interleave; optionally with a
-            # fresh (seeded) entry order each epoch
-            entries = staged_cache
-            if cache_shuffle:
-                order = np.random.default_rng(
-                    RANDOM_SEED + epoch).permutation(len(staged_cache))
-                entries = [staged_cache[i] for i in order]
-            for (n, samples), (signals, targets, mask) in entries:
-                run = multi if spd > 1 else step
-                trainer.state, loss = run(trainer.state, signals, targets,
-                                          trainer.generator, mask)
-                losses.append(loss)
-                meter.update(n, samples / sr if sr else 0.0)
-        else:
-            if spd > 1:
-                staged = trainer._staged(
-                    lambda: _grouped(signal_batches),
-                    count_fn=lambda g: (
-                        sum(int(np.shape(t)[0]) for _, t, _ in g),
-                        sum(int(np.prod(np.shape(s))) for s, _, _ in g)),
-                    put=_stage_group)
-            else:
-                staged = trainer._staged(
-                    signal_batches,
-                    count_fn=lambda b: (int(np.shape(b[1])[0]),
-                                        int(np.prod(np.shape(b[0])))),
-                    put=lambda b: _stage(*b))
-            staged = trainer._feed_parity_guard(staged)
-            collecting = [] if cache_staged else None
-            try:
-                for (n, samples), (signals, targets, mask) in staged:
-                    if collecting is not None:
-                        collecting.append(((n, samples),
-                                           (signals, targets, mask)))
-                        if not _cache_admit((signals, targets, mask)):
-                            collecting = None
-                            cache_staged = False
-                            val_staged = False
-                    run = multi if spd > 1 else step
-                    trainer.state, loss = run(trainer.state, signals,
-                                              targets, trainer.generator,
-                                              mask)
-                    losses.append(loss)
-                    meter.update(n, samples / sr if sr else 0.0)
-            finally:
-                staged.close()
-        if collecting:
-            # per-shape stacks for whole-epoch replay (None only when
-            # cache_shuffle=False met interleaved shape signatures)
-            replay_groups = _consolidate_signal_cache(
-                collecting, spd, preserve_order=not cache_shuffle)
-            if replay_groups is not None and rows_factor > 1:
-                replay_groups = _gather_signal_stacks(replay_groups,
-                                                      trainer.data_mesh)
-            # the stacks are the cache once consolidation succeeds: keeping
-            # the per-entry tensors too would hold ~2x the corpus
-            staged_cache = collecting if replay_groups is None else None
+        for loss, n, samples in feed.epoch(epoch):
+            losses.append(loss)
+            meter.update(n, samples / sr if sr else 0.0)
         if not losses and not validating:
             # a one-shot iterator (generator) exhausts after epoch 1 and
             # would silently "train" on zero batches with loss=nan
@@ -975,69 +735,25 @@ def fit_signals(trainer, feature_fn, signal_batches, epochs=1, verbose=True,
                 "signal_batches must be a CALLABLE (or re-iterable "
                 "collection) when epochs > 1; a generator is consumed by "
                 "the first epoch")
-        mean_loss = (float(torch.cat([l.reshape(-1) for l in losses]).mean())
-                     if losses else float("nan"))
-        if not validating:
-            epoch_logs = {"loss": mean_loss, **meter.rates()}
-            history.append(mean_loss)
-            if trainer.metrics_logger:
-                trainer.metrics_logger.log(epoch, epoch_logs)
-            for cb in trainer.callbacks:
-                cb.on_epoch_end(trainer, epoch, epoch_logs)
-            if verbose:
-                logger.info("fused epoch %d/%d: loss=%.6g", epoch, epochs,
-                            mean_loss)
-            if trainer.stop_training:
-                break
-            continue
-        if cache_staged and val_staged not in (None, False):
-            val_logs = trainer.evaluate(val_staged, staged=True, eager=eager)
-        else:
-            if val_feature_batches is not None:
-                eval_batches = list(val_feature_batches()
-                                    if callable(val_feature_batches)
-                                    else val_feature_batches)
-            else:
-                # featurize the validation set once: each batch's draws are
-                # keyed by its index, so every epoch would get the same
-                if eval_cache is None:
-                    eval_cache = _featurize_val(val_feats, val_batches,
-                                                trainer.device, trainer.mesh)
-                eval_batches = eval_cache
-            if cache_staged and val_staged is not False:
-                # stage the validation set once into per-shape stacks;
-                # later epochs evaluate the device-resident copy
-                entries = list(trainer._feed_parity_guard(
-                    trainer._staged(eval_batches), "validation"))
-                vbytes = sum(_tree_device_nbytes(b) for _, b in entries)
-                if cache_state["budget"] is None:
-                    cache_state["budget"] = trainer._cache_budget()
-                if (cache_state["bytes"] + 2.0 * vbytes
-                        > cache_state["budget"]):
-                    logger.warning(
-                        "cache_staged: staged validation set (%.0f MB, ~2x "
-                        "transient) on top of the signal cache (%.0f MB) "
-                        "exceeds the device memory budget (%.0f MB) — "
-                        "streaming validation instead", vbytes / 1e6,
-                        cache_state["bytes"] / 1e6,
-                        cache_state["budget"] / 1e6)
-                    val_staged = False
-                    val_logs = trainer.evaluate(eval_batches, eager=eager)
-                else:
-                    val_staged = trainer._consolidate_cache(entries,
-                                                            grouped=False)
-                    val_logs = trainer.evaluate(val_staged, staged=True,
-                                                eager=eager)
-            else:
-                val_logs = trainer.evaluate(eval_batches, eager=eager)
-        logs = {"loss": mean_loss, **meter.rates(), **val_logs}
-        history.append(logs)
+        mean_loss = (float(torch.stack(losses).mean()) if losses
+                     else float("nan"))
+        logs = {"loss": mean_loss, **meter.rates()}
+        if validating:
+            batches = functools.cache(eval_batches)  # built once at most
+            staged = feed.staged_validation(batches)
+            logs.update(
+                trainer.evaluate(batches(), eager=eager) if staged is None
+                else trainer.evaluate(staged, staged=True, eager=eager))
+        history.append(logs if validating else mean_loss)
         if trainer.metrics_logger:
             trainer.metrics_logger.log(epoch, logs)
         for cb in trainer.callbacks:
             cb.on_epoch_end(trainer, epoch, logs)
-        if verbose:
+        if verbose and validating:
             logger.info("fused epoch %d/%d: %s", epoch, epochs, logs)
+        elif verbose:
+            logger.info("fused epoch %d/%d: loss=%.6g", epoch, epochs,
+                        mean_loss)
         if trainer.stop_training:
             break
     trainer.release_graphs()

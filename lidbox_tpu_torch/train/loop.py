@@ -29,7 +29,8 @@ Host batches reach the device through one ordered prefetch thread (pinned
 memory, non_blocking copies on the current stream), optionally compressed
 on the host (``stage_dtype``), grouped K to a transfer
 (``steps_per_dispatch``), or cached on the device after epoch 1
-(``cache_staged``, with ``cache_shuffle`` and a device-memory guard).
+(``cache_staged``, with ``cache_shuffle`` and a device-memory guard): the
+feed of ``train/feed.py``, which ``on_device.fit_signals`` drives too.
 Dropout draws from a ``torch.Generator`` the Trainer owns. The module is
 put in training mode for a train step only, and back in eval mode after.
 
@@ -74,6 +75,8 @@ from lidbox_tpu_torch.data.dataset import padded_batch
 from lidbox_tpu_torch.models.model_api import functional_forward
 from lidbox_tpu_torch.train import checkpoint as ckpt_lib
 from lidbox_tpu_torch.train import graphs, observability
+from lidbox_tpu_torch.train.feed import (Feed, _tree_device_nbytes, plain_rows,
+                                         step_inputs, to_device)
 from lidbox_tpu_torch.train.observability import MetricsLogger, ThroughputMeter
 from lidbox_tpu_torch.train.optimizers import apply_updates, copy_state_
 
@@ -274,40 +277,6 @@ def torch_dtype(dtype):
     return getattr(torch, name if name == "bfloat16" else np.dtype(name).name)
 
 
-def _tree_device_nbytes(tree):
-    """Bytes a staged tree (tensors and arrays in dicts, lists and tuples)
-    pins: the staged-cache accounting unit, compared against
-    _cache_budget_bytes."""
-    if isinstance(tree, dict):
-        return sum(_tree_device_nbytes(v) for v in tree.values())
-    if isinstance(tree, (list, tuple)):
-        return sum(_tree_device_nbytes(v) for v in tree)
-    if isinstance(tree, torch.Tensor):
-        return tree.numel() * tree.element_size()
-    return int(getattr(tree, "nbytes", 0))
-
-
-def _cache_budget_bytes(limit=None, device=None):
-    """Device memory available to ``cache_staged``: ``limit``
-    (Trainer.cache_bytes_limit) when given, else on a CUDA device 90% of
-    the total less what is in use (``torch.cuda.mem_get_info``), else +inf
-    (the CPU)."""
-    if limit is not None:
-        return float(limit)
-    if device is not None and torch.device(device).type == "cuda":
-        free, total = torch.cuda.mem_get_info(device)
-        return 0.9 * float(total) - float(total - free)
-    return float("inf")
-
-
-def _signature_runs_contiguous(sigs):
-    """True when every distinct value in ``sigs`` appears as one contiguous
-    run: then stack-major cached replay reproduces the original sequence
-    exactly (Trainer._consolidate_cache, on_device._consolidate_signal_cache)."""
-    runs = 1 + sum(a != b for a, b in zip(sigs, sigs[1:]))
-    return runs == len(set(sigs))
-
-
 def _leaf_signature(value):
     if isinstance(value, torch.Tensor):
         return tuple(value.shape), str(value.dtype)
@@ -327,18 +296,6 @@ def _map_moments(opt_state, names, fn):
     if isinstance(opt_state, list) and len(opt_state) == len(names):
         return [fn(k, t) for k, t in zip(names, opt_state)]
     return opt_state
-
-
-def to_device(value, device):
-    """A numpy array or tensor on ``device``: host data bound for a CUDA
-    device is pinned and copied with ``non_blocking`` on the current
-    stream, so the copy is ordered before every later kernel of it."""
-    t = torch.as_tensor(value)
-    if t.device == device:
-        return t
-    if device.type == "cuda" and t.device.type == "cpu":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
 
 
 class Trainer:
@@ -731,45 +688,6 @@ class Trainer:
         loss)."""
         return self.step_program("features")(self, state, batch, generator)
 
-    def _replay_train_step(self, state, stacked, generator, order):
-        """Whole-epoch cached replay: train steps over the device-resident
-        stacked batch dict [K, B, ...] in ``order`` (a host permutation of
-        range(K)) -> (state, losses [K]); each step's batch is a view of
-        the stack, copied into the step's input buffers on the card."""
-        losses = []
-        for i in np.asarray(order).tolist():
-            state, loss = self._fit_step(
-                state, {k: v[i] for k, v in stacked.items()}, generator)
-            losses.append(loss)
-        return state, torch.stack(losses)
-
-    def _multi_train_step(self, state, stacked, generator=None):
-        """K train steps over a stacked batch dict [K, B, ...] that crossed
-        to the device as one transfer; per-step numerics identical to K
-        single steps."""
-        return self._replay_train_step(state, stacked, generator,
-                                       np.arange(self._batch_rows(stacked)))
-
-    def _replay_rows_train_step(self, state, stacked, generator, idx):
-        """Whole-epoch cached replay with a row-level reshuffle
-        (cache_shuffle="rows"): ``idx`` is a host [K, B] permutation of the
-        K*B cached example rows, so every epoch re-draws batch composition
-        (the reference re-shuffled elements every epoch,
-        lidbox/data/steps.py:997-999). Each step gathers its rows on the
-        device from the [K * B, ...] view of the stack (into the step's
-        input buffers on the card); masks and targets travel with their
-        rows."""
-        flat = {k: v.reshape((-1,) + tuple(v.shape[2:]))
-                for k, v in stacked.items()}
-        rows_all = to_device(np.asarray(idx, np.int64), self.device)
-        losses = []
-        for rows in rows_all:
-            state, loss = self._fit_step(
-                state, {k: graphs.Gather(v, rows) for k, v in flat.items()},
-                generator)
-            losses.append(loss)
-        return state, torch.stack(losses)
-
     @torch.no_grad()
     def _eval_step(self, state, batch, metric_states):
         outputs, _ = self._apply(state.params, state.batch_stats, batch,
@@ -815,6 +733,12 @@ class Trainer:
                 return int(np.shape(batch[key])[0])
         return int(np.shape(next(iter(batch.values())))[0])
 
+    @staticmethod
+    def _batch_signature(batch):
+        """What the batch dicts of one stacked group share: their names,
+        shapes and dtypes."""
+        return tuple(sorted((k, _leaf_signature(v)) for k, v in batch.items()))
+
     def _compress(self, batch):
         """Host-side staging compression: a floating ``stage_dtype`` (e.g.
         bfloat16, half the bytes of the transfer) converts float inputs to
@@ -842,110 +766,11 @@ class Trainer:
         return {k: to_device(v, self.device)
                 for k, v in self._compress(batch).items()}
 
-    @staticmethod
-    def _grouped_batches(batches, spd, limit=None):
-        """Consecutive same-signature batch dicts in lists of up to ``spd``
-        (one stacked transfer per list). ``limit`` caps the number of
-        batches emitted, and group edges align with it: a stacked group
-        runs whole."""
-        buf, sig = [], None
-        for b in batches:
-            s = tuple(sorted((k, _leaf_signature(v)) for k, v in b.items()))
-            if buf and s != sig:
-                yield buf
-                if limit is not None:
-                    limit -= len(buf)
-                    if limit <= 0:
-                        return
-                buf = []
-            sig = s
-            buf.append(b)
-            if len(buf) == spd or (limit is not None and len(buf) >= limit):
-                yield buf
-                if limit is not None:
-                    limit -= len(buf)
-                    if limit <= 0:
-                        return
-                buf = []
-        if buf:
-            yield buf
-
     def _put_group(self, group):
         """A list of same-shape host batches as one stacked transfer (dict of
-        [K, B, ...] tensors) for _multi_train_step."""
-        group = [self._compress(b) for b in group]
-        return {k: to_device(torch.stack([torch.as_tensor(b[k])
-                                          for b in group]), self.device)
-                for k in group[0]}
-
-    def _consolidate_cache(self, items, grouped, preserve_order=False):
-        """Merge epoch 1's staged entries into per-shape device stacks for
-        whole-epoch replay: ``items`` are (n, batch dict [B, ...]) pairs, or
-        with ``grouped`` (list of n, stacked dict [k, B, ...]). Returns a
-        list of {"stack": dict of [K, B, ...] tensors, "ns": int64 [K]}, one
-        per distinct per-step batch signature. Consolidation holds the
-        originals and the stacks at once (~2x the corpus); callers release
-        the entries after.
-
-        ``preserve_order=True`` (the cache_shuffle=False contract: replay
-        epoch 1's sequence exactly) returns None when the signatures
-        interleave (e.g. padded buckets A, B, A), since stack-major replay
-        would reorder them; the caller keeps per-entry replay."""
-        lead = 1 if grouped else 0
-        sigs = [tuple(sorted((k, tuple(v.shape[lead:]), str(v.dtype))
-                             for k, v in batch.items()))
-                for _, batch in items]
-        if preserve_order and not _signature_runs_contiguous(sigs):
-            return None
-        order, by_sig = [], {}
-        for (n, batch), s in zip(items, sigs):
-            if s not in by_sig:
-                by_sig[s] = {"batches": [], "ns": []}
-                order.append(s)
-            by_sig[s]["batches"].append(batch)
-            by_sig[s]["ns"].extend(list(n) if grouped else [n])
-        return [{"stack": parallel.stack_on_mesh(e["batches"], self.mesh,
-                                                 concat=grouped),
-                 "ns": np.asarray(e["ns"], np.int64)}
-                for e in (by_sig[s] for s in order)]
-
-    def _cache_budget(self):
-        """The cache_staged memory budget of this trainer's device
-        (_cache_budget_bytes); under a mesh the least over its ranks, so
-        every rank takes the same cache-or-stream decision (the steps that
-        follow it are collectives)."""
-        budget = _cache_budget_bytes(self.cache_bytes_limit, self.device)
-        if parallel.mesh_spans_processes(self.mesh):
-            budget = float(parallel.host_allgather(
-                np.float64(budget), self.mesh).min())
-        return budget
-
-    def _rows_factor(self, cache_shuffle):
-        """How many times its own rows a rank caches: the data size for
-        cache_shuffle="rows" under a mesh (every rank replays from the
-        global cache), else 1."""
-        if cache_shuffle == "rows" and parallel.mesh_spans_processes(
-                self.data_mesh):
-            return self.data_mesh.size
-        return 1
-
-    def _gather_stacks(self, groups):
-        """cache_shuffle="rows" under a mesh: each per-shape stack [K, b,
-        ...] becomes the global one [K, ranks x b, ...] on every rank, so a
-        replayed batch can take rows that other ranks cached, as the JAX
-        package's flattened global cache does."""
-        for g in groups:
-            g["stack"] = {k: parallel.all_gather_rows(
-                v.transpose(0, 1), self.data_mesh).transpose(0, 1)
-                for k, v in g["stack"].items()}
-        return groups
-
-    def _local_columns(self, idx):
-        """This rank's columns of a [K, global rows] replay index."""
-        if not parallel.mesh_spans_processes(self.data_mesh):
-            return idx
-        b = idx.shape[1] // self.data_mesh.size
-        return idx[:, self.data_mesh.rank * b:(self.data_mesh.rank + 1) * b]
+        [K, B, ...] tensors): K steps of the feed."""
+        return self._put({k: torch.stack([torch.as_tensor(b[k])
+                                          for b in group]) for k in group[0]})
 
     def _feed_parity_guard(self, source, what="training"):
         """Fail fast on uneven feeds under a mesh: every step is a
@@ -1085,22 +910,22 @@ class Trainer:
         Epoch numbering resumes from ``initial_epoch`` and ``epochs`` is
         the absolute target. Returns one logs dict per epoch.
 
+        The batches reach the steps through a ``feed.Feed``:
         ``steps_per_dispatch=K`` stages K consecutive same-shape batches as
-        one transfer for K train steps (_multi_train_step), per-step
-        numerics identical to single steps.
+        one transfer for K train steps, per-step numerics identical to
+        single steps.
 
         ``cache_staged`` (default: the Trainer's setting) keeps every staged
         training and validation batch on the device after epoch 1 and
         replays them in later epochs: no transfers, at the cost of freezing
         both sets to their epoch-1 contents. The cached batches consolidate
-        into per-shape stacks (_consolidate_cache). ``cache_shuffle``
-        (default True) re-permutes the cached batch order each epoch,
-        drawn from ``np.random.default_rng(RANDOM_SEED + epoch)`` as in the
-        JAX package; ``"rows"`` re-draws batch composition too, permuting
-        the cached example rows within each shape stack
-        (_replay_rows_train_step); False replays epoch 1's order. A
-        ``steps_per_epoch``-truncated first epoch does not populate the
-        cache. A memory guard counts the staged bytes against
+        into per-shape stacks. ``cache_shuffle`` (default True) re-permutes
+        the cached batch order each epoch, drawn from
+        ``np.random.default_rng(RANDOM_SEED + epoch)`` as in the JAX
+        package; ``"rows"`` re-draws batch composition too, permuting the
+        cached example rows within each shape stack; False replays epoch
+        1's order. A ``steps_per_epoch``-truncated first epoch does not
+        populate the cache. A memory guard counts the staged bytes against
         ``cache_bytes_limit`` (_cache_budget_bytes) and, when twice the
         corpus (the consolidation transient) would not fit, releases the
         cache with a warning and streams."""
@@ -1109,13 +934,15 @@ class Trainer:
         # a fresh fit() trains anew even if a previous fit on this trainer
         # was stopped early (Keras resets the flag on fit entry)
         self.stop_training = False
-        if cache_staged is None:
-            cache_staged = self.cache_staged
-        spd = max(1, int(steps_per_dispatch))
-        staged_cache = None
-        val_staged = None  # staged validation stacks (False: did not fit)
-        cached_bytes = 0
-        cache_budget = None  # resolved at the first cached batch
+        feed = Feed(self, self._fit_step, train_batches, stage=self._put,
+                    stage_group=self._put_group,
+                    count=lambda b: (self._batch_rows(b), 0),
+                    signature=self._batch_signature, rows=plain_rows,
+                    steps_per_dispatch=steps_per_dispatch,
+                    steps_per_epoch=steps_per_epoch,
+                    cache_staged=(self.cache_staged if cache_staged is None
+                                  else cache_staged),
+                    cache_shuffle=cache_shuffle)
         for cb in self.callbacks:
             cb.on_train_begin(self)
         history = []
@@ -1125,154 +952,28 @@ class Trainer:
             for cb in self.callbacks:
                 cb.on_epoch_begin(self, epoch)
             meter = ThroughputMeter()
+            filling = feed.filling
             losses = []
-            truncated = False
-            collecting = None
-            if staged_cache is not None:
-                rng_epoch = np.random.default_rng(RANDOM_SEED + epoch)
-                if isinstance(staged_cache[0], dict):
-                    # per-shape stacks
-                    gorder = (rng_epoch.permutation(len(staged_cache))
-                              if cache_shuffle
-                              else np.arange(len(staged_cache)))
-                    for gi in gorder:
-                        g = staged_cache[gi]
-                        K = len(g["ns"])
-                        if cache_shuffle == "rows":
-                            B = self._batch_rows(
-                                {k: v[0] for k, v in g["stack"].items()})
-                            idx = rng_epoch.permutation(K * B).reshape(K, B)
-                            self.state, loss_k = self._replay_rows_train_step(
-                                self.state, g["stack"], self.generator,
-                                self._local_columns(idx))
-                        else:
-                            order = (rng_epoch.permutation(K)
-                                     if cache_shuffle else np.arange(K))
-                            self.state, loss_k = self._replay_train_step(
-                                self.state, g["stack"], self.generator, order)
-                        losses.append(loss_k)
-                        meter.update(int(g["ns"].sum()))
-                else:
-                    # per-entry replay: the order-exact fallback when
-                    # cache_shuffle=False met interleaved shape signatures
-                    replay = staged_cache
-                    if cache_shuffle:
-                        order = rng_epoch.permutation(len(staged_cache))
-                        replay = [staged_cache[i] for i in order]
-                    for n, batch in replay:
-                        if isinstance(n, list):  # a steps_per_dispatch stack
-                            self.state, loss = self._multi_train_step(
-                                self.state, batch, self.generator)
-                            meter.update(int(sum(n)))
-                        else:
-                            self.state, loss = self._fit_step(
-                                self.state, batch, self.generator)
-                            meter.update(n)
-                        losses.append(loss)
-            else:
-                batches = (train_batches() if callable(train_batches)
-                           else train_batches)
-                if spd > 1:
-                    source = self._staged(
-                        self._grouped_batches(batches, spd,
-                                              limit=steps_per_epoch),
-                        count_fn=lambda g: [self._batch_rows(b) for b in g],
-                        put=self._put_group)
-                else:
-                    source = self._staged(batches)
-                source = self._feed_parity_guard(source)
-                # a steps_per_epoch-truncated epoch never populates the cache
-                collecting = ([] if cache_staged and steps_per_epoch is None
-                              else None)
-                steps_done = 0
-                try:
-                    for n, batch in source:
-                        if (steps_per_epoch is not None
-                                and steps_done >= steps_per_epoch):
-                            truncated = True
-                            break
-                        if collecting is not None:
-                            collecting.append((n, batch))
-                            cached_bytes += _tree_device_nbytes(batch)
-                            if cache_budget is None:
-                                cache_budget = self._cache_budget()
-                            # consolidation holds originals and stacks at
-                            # once, so the guard trips at 2x staged bytes
-                            # (1 + ranks x under a mesh's rows replay)
-                            if ((1.0 + self._rows_factor(cache_shuffle))
-                                    * cached_bytes > cache_budget):
-                                logger.warning(
-                                    "cache_staged: staged corpus (%.0f MB "
-                                    "so far, ~2x transient during "
-                                    "consolidation) exceeds the device "
-                                    "memory budget (%.0f MB) — releasing "
-                                    "the cache and streaming every epoch "
-                                    "instead", cached_bytes / 1e6,
-                                    cache_budget / 1e6)
-                                collecting = None
-                                cache_staged = False
-                                val_staged = False
-                        if spd > 1:
-                            self.state, loss = self._multi_train_step(
-                                self.state, batch, self.generator)
-                            steps_done += len(n)
-                            meter.update(int(sum(n)))
-                        else:
-                            self.state, loss = self._fit_step(
-                                self.state, batch, self.generator)
-                            steps_done += 1
-                            meter.update(n)
-                        losses.append(loss)
-                finally:
-                    # release the producer thread and its staged batches on
-                    # every exit (normal, truncation, a raising train step)
-                    source.close()
-            if collecting is not None and not truncated:
-                if not collecting:
-                    # freezing an empty epoch-1 cache would make every later
-                    # epoch silently train on nothing
-                    raise ValueError(
-                        "cache_staged: the first epoch produced no training "
-                        "batches — train_batches must be a callable or "
-                        "re-iterable collection that yields at least one "
-                        "batch")
-                # the stacks hold the cache: the per-batch entries go
-                staged_cache = (self._consolidate_cache(
-                    collecting, grouped=spd > 1,
-                    preserve_order=not cache_shuffle) or collecting)
-                if self._rows_factor(cache_shuffle) > 1:
-                    staged_cache = self._gather_stacks(staged_cache)
-            train_loss = (float(torch.cat([l.reshape(-1) for l in losses])
-                                .mean()) if losses else float("nan"))
+            for loss, n, _ in feed.epoch(epoch):
+                losses.append(loss)
+                meter.update(n)
+            if filling and not losses:
+                # freezing an empty epoch-1 cache would make every later
+                # epoch silently train on nothing
+                raise ValueError(
+                    "cache_staged: the first epoch produced no training "
+                    "batches — train_batches must be a callable or "
+                    "re-iterable collection that yields at least one "
+                    "batch")
+            train_loss = (float(torch.stack(losses).mean()) if losses
+                          else float("nan"))
             logs = {"loss": train_loss, **meter.rates(),
                     "learning_rate": self.current_learning_rate()}
             if validation_batches is not None:
-                if cache_staged and val_staged is not False:
-                    if val_staged is None:
-                        entries = list(self._feed_parity_guard(
-                            self._staged(validation_batches), "validation"))
-                        vbytes = sum(_tree_device_nbytes(b)
-                                     for _, b in entries)
-                        if cache_budget is None:
-                            cache_budget = self._cache_budget()
-                        if cached_bytes + 2.0 * vbytes > cache_budget:
-                            # keep the training cache (the bigger win) and
-                            # stream validation
-                            logger.warning(
-                                "cache_staged: staged validation set (%.0f "
-                                "MB, ~2x transient) on top of the training "
-                                "cache (%.0f MB) exceeds the device memory "
-                                "budget (%.0f MB) — streaming validation "
-                                "instead", vbytes / 1e6, cached_bytes / 1e6,
-                                cache_budget / 1e6)
-                            val_staged = False
-                        else:
-                            val_staged = self._consolidate_cache(
-                                entries, grouped=False)
-                    if val_staged is not False:
-                        logs.update(self.evaluate(val_staged, staged=True))
-                if not cache_staged or val_staged is False:
-                    logs.update(self.evaluate(validation_batches))
+                staged = feed.staged_validation(validation_batches)
+                logs.update(self.evaluate(validation_batches)
+                            if staged is None
+                            else self.evaluate(staged, staged=True))
             history.append(logs)
             if self.metrics_logger:
                 self.metrics_logger.log(epoch, logs)
@@ -1290,7 +991,7 @@ class Trainer:
     def evaluate(self, batches, prefix="val_", staged=False, eager=False):
         """Evaluate ``batches``: host batch dicts, staged through _put
         unless ``staged=True``, in which case they are (n, batch) pairs
-        already on the device or _consolidate_cache stacks (the
+        already on the device or ``feed.consolidate`` stacks (the
         cache_staged path, whose K batches are K steps). Loss sums, counts
         and metric states accumulate on the device and are read back once;
         under a mesh they are summed over the data group first
@@ -1306,12 +1007,11 @@ class Trainer:
         state = self.state
         it = batches() if callable(batches) else batches
         if staged and isinstance(it, list) and it and "stack" in it[0]:
-            source = [(g["ns"], g["stack"]) for g in it]
-            stacks = True
+            source = ((n, step_inputs(g["stack"], i))
+                      for g in it for i, n in enumerate(g["counts"]))
         else:
             source = self._feed_parity_guard(
                 it if staged else self._staged(it), "validation")
-            stacks = False
         program = self.forward_program("eval", eager=eager)
         sums = program.buffers
         if sums is None:
@@ -1327,12 +1027,9 @@ class Trainer:
         steps = 0
         try:
             for _, batch in source:
-                for b in ([{k: v[i] for k, v in batch.items()}
-                           for i in range(self._batch_rows(batch))]
-                          if stacks else [batch]):
-                    steps += 1
-                    program(step, b, self.device, held=held,
-                            reason=graphs.forward_reason(self.mesh))
+                steps += 1
+                program(step, batch, self.device, held=held,
+                        reason=graphs.forward_reason(self.mesh))
         finally:
             if hasattr(source, "close"):
                 source.close()  # release staging on any exit path

@@ -23,6 +23,7 @@ memory guard.
   feed options against the JAX Trainer are in tests/test_torch_train.py.)
 """
 import logging
+import types
 
 import numpy as np
 import pytest
@@ -38,6 +39,7 @@ from lidbox_tpu_torch import losses as tlosses
 from lidbox_tpu_torch.data import on_device as tdev
 from lidbox_tpu_torch.features import io as tio
 from lidbox_tpu_torch.models.model_utils import ModelWrapper
+from lidbox_tpu_torch.train import feed as tfeed
 from lidbox_tpu_torch.train import loop as tloop
 from lidbox_tpu_torch.train import optimizers as topt
 
@@ -338,11 +340,37 @@ def test_cache_guard_releases_the_cache(tmp_path, noise_dir, streamed,
     assert counter.per_epoch == {1: 4, 2: 4}  # every epoch streamed
 
 
-def fit_features(**feed):
+def test_streamed_validation_is_listed_once_an_epoch(tmp_path, noise_dir,
+                                                     caplog):
+    """A budget that holds the packed training cache but not the staged
+    validation set: fit_signals lists ``val_feature_batches`` once an
+    epoch, for the feed's staging attempt and the streamed evaluation
+    alike."""
+    val, calls = feature_batches(6, seed=12), []
+
+    def val_batches():
+        calls.append(len(calls))
+        return iter(val)
+    train_cache = 2 * (B + 1) * 8000 * 2  # 2 packed int16 batches
+    tw = ModelWrapper.from_config(
+        config(tmp_path, {"stage_dtype": "int16", "cache_staged": True,
+                          "cache_bytes_limit": 2 * train_cache + 10000}),
+        device="cpu")
+    with caplog.at_level(logging.WARNING, logger="lidbox_tpu_torch"):
+        history = tw.fit_fused(lambda: noisy_sines(2, seed=8), epochs=2,
+                               verbose=False, val_feature_batches=val_batches)
+    warnings = [r.message for r in caplog.records]
+    assert any("streaming validation instead" in m for m in warnings)
+    assert not any("releasing the cache" in m for m in warnings)
+    assert calls == [0, 1]
+    assert all(np.isfinite(h["val_loss"]) for h in history)
+
+
+def fit_features(n_batches=4, **feed):
     model = tmodels.create("xvector", (40, MEL), N_CLASSES, device="cpu")
     trainer = tloop.Trainer(model, topt.adam(1e-3), tlosses.nll_loss,
                             device="cpu")
-    batches = feature_batches(4, 12)
+    batches = feature_batches(n_batches, 12)
     history = trainer.fit(lambda: batches, lambda: batches[:2], epochs=2,
                           verbose=False, **feed)
     return [{k: h[k] for k in ("loss", "val_loss")} for h in history], trainer
@@ -363,33 +391,109 @@ def test_trainer_fit_feed_equals_streaming(fit_streamed, feed):
     assert same_state(trainer.state, fit_streamed[1].state)
 
 
+@pytest.mark.parametrize("spd", [1, 2])
+def test_trainer_fit_steps_per_epoch(spd):
+    """steps_per_epoch=3 of 4 batches: every epoch trains the first 3
+    (grouped 2 + 1 at 2 steps a dispatch), as a fit on those 3 does, and
+    a cut epoch fills no cache."""
+    history, trainer = fit_features(steps_per_epoch=3, cache_staged=True,
+                                    steps_per_dispatch=spd)
+    ref_history, ref = fit_features(n_batches=3)
+    assert history == ref_history and trainer.state.step == 6
+    assert same_state(trainer.state, ref.state)
+
+
 # -- helpers ---------------------------------------------------------------------
 
-def test_consolidation_and_its_order_bail_out():
+def staged_entry(layout, frames):
+    """A staged entry of the feed, (count, step inputs): a feature batch,
+    or a waveform batch in the plain or the packed int16 layout."""
+    if layout == "features":
+        return (B, 0), {"input": torch.zeros(B, frames, MEL),
+                        "target": torch.zeros(B, dtype=torch.int64)}
+    packed = layout == "packed"
+    return (B, B * frames), tdev._inputs(
+        torch.zeros(B + packed, frames, dtype=torch.int16),
+        None if packed else torch.zeros(B, dtype=torch.int64), None)
+
+
+@pytest.mark.parametrize("layout", ["features", "signals", "packed"])
+def test_consolidation_and_its_order_bail_out(layout):
     sigs = [("a",), ("a",), ("b",), ("a",)]
     for s in (sigs, sigs[:3], [], [("x",)]):
-        assert (tloop._signature_runs_contiguous(s)
+        assert (tfeed._signature_runs_contiguous(s)
                 == jloop._signature_runs_contiguous(s))
 
-    def entry(samples, packed=False):
-        sig = torch.zeros(B + packed, samples, dtype=torch.int16)
-        return (B, B * samples), (sig, None if packed else torch.zeros(B))
+    interleaved = [staged_entry(layout, n) for n in (800, 600, 800)]
+    assert tfeed.consolidate(interleaved, preserve_order=True) is None
+    groups = tfeed.consolidate(interleaved)
+    assert [len(g["counts"]) for g in groups] == [2, 1]
+    count, inputs = interleaved[0]
+    assert groups[0]["counts"] == [count, count]
+    for k, v in inputs.items():
+        got = groups[0]["stack"][k]
+        assert got is None if v is None else got.shape == (2,) + v.shape
+    # groups of 2 steps a transfer: [2, ...] entries, 4 steps in all
+    stacked = [([count] * 2, {k: None if v is None else torch.stack([v, v])
+                              for k, v in inputs.items()})] * 2
+    [group] = tfeed.consolidate(stacked, stacked=True)
+    assert group["counts"] == [count] * 4
+    for k, v in inputs.items():
+        got = group["stack"][k]
+        assert got is None if v is None else got.shape == (4,) + v.shape
 
-    interleaved = [entry(800), entry(600), entry(800)]
-    assert tdev._consolidate_signal_cache(interleaved, 1,
-                                          preserve_order=True) is None
-    groups = tdev._consolidate_signal_cache(interleaved, 1)
-    assert [g["steps"] for g in groups] == [2, 1]
-    assert groups[0]["signals"].shape == (2, B, 800)
-    assert groups[0]["n"] == 2 * B and groups[0]["samples"] == 2 * B * 800
-    packed = tdev._consolidate_signal_cache(
-        [((B, 0), (torch.zeros(2, B + 1, 800), None))] * 2, 2)
-    assert packed[0]["signals"].shape == (4, B + 1, 800)
-    assert packed[0]["targets"] is None and packed[0]["steps"] == 4
+
+def test_packed_rows_replay_gathers_from_the_cached_stack():
+    """cache_shuffle="rows" over a packed int16 cache: every step gathers
+    its signals from the cached [K, B + 1, T] stack itself, the same
+    storage every epoch, and its targets from that stack's row B; every
+    row of the corpus is trained once an epoch."""
+    K, T = 3, 16
+    rng = np.random.default_rng(13)
+    signals = rng.integers(-300, 300, (K, B, T)).astype(np.int16)
+    targets = rng.integers(0, N_CLASSES, (K, B))
+    packed = torch.as_tensor(tdev.pack_targets_int16(signals, targets))
+    seen = []
+
+    def step(state, inputs, generator):
+        seen.append(inputs)
+        return state + 1, torch.zeros(())
+    trainer = types.SimpleNamespace(
+        data_mesh=None, device=torch.device("cpu"), state=0, generator=None)
+    feed = tfeed.Feed(trainer, step, None, stage=None, stage_group=None,
+                      count=tdev._signal_count,
+                      signature=tdev._signal_signature,
+                      rows=tdev._example_rows, cache_staged=True,
+                      cache_shuffle="rows")
+    feed._freeze([((B, B * T), tdev._inputs(packed[k].clone(), None, None))
+                  for k in range(K)])
+    cached = feed.stacks[0]["rows"][1]["signals"][0]
+    assert cached.shape == (K * (B + 1), T)
+    for epoch in (2, 3):
+        seen.clear()
+        assert len(list(feed.epoch(epoch))) == K and trainer.state == K * (
+            epoch - 1)
+        rows = []
+        for inputs in seen:
+            sig, tgt = inputs["signals"], inputs["targets"]
+            assert inputs["example_mask"] is None
+            assert sig.source.data_ptr() == cached.data_ptr()
+            assert sig.source.untyped_storage().nbytes() == packed.nbytes
+            # row r of the corpus: row r % B of batch r // B, at a pitch of
+            # B + 1 rows in the stack
+            r = tgt.rows.numpy()
+            np.testing.assert_array_equal(sig.rows.numpy(),
+                                          (r // B) * (B + 1) + r % B)
+            np.testing.assert_array_equal(sig.materialize().numpy(),
+                                          signals.reshape(K * B, T)[r])
+            np.testing.assert_array_equal(tgt.materialize().numpy(),
+                                          targets.reshape(-1)[r])
+            rows.extend(r.tolist())
+        assert sorted(rows) == list(range(K * B))
 
 
 def test_cache_budget_and_bytes():
     tree = {"a": torch.zeros(3, 5), "b": (np.zeros(4, np.int16), None)}
-    assert tloop._tree_device_nbytes(tree) == 3 * 5 * 4 + 4 * 2
-    assert tloop._cache_budget_bytes(1234) == 1234.0
-    assert tloop._cache_budget_bytes(None, "cpu") == float("inf")
+    assert tfeed._tree_device_nbytes(tree) == 3 * 5 * 4 + 4 * 2
+    assert tfeed._cache_budget_bytes(1234) == 1234.0
+    assert tfeed._cache_budget_bytes(None, "cpu") == float("inf")

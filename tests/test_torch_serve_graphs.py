@@ -78,6 +78,7 @@ from lidbox_tpu_torch.data.dataset import Dataset as TDataset
 from lidbox_tpu_torch.data.device_pipeline import DeviceFeatureExtractor
 from lidbox_tpu_torch.features import audio as taudio
 from lidbox_tpu_torch.ops import logmel as tlogmel
+from lidbox_tpu_torch.train import feed as tfeed
 from lidbox_tpu_torch.train import checkpoint as tckpt
 from lidbox_tpu_torch.train import graphs
 from lidbox_tpu_torch.train import loop as tloop
@@ -575,8 +576,7 @@ def test_evaluate_replays_equal_eager(replayed, small_trainer, case):
                                masked=case == "example_mask")  # ragged
     if case == "staged":
         entries = list(trainer._staged(batches))
-        feed, staged = trainer._consolidate_cache(entries,
-                                                  grouped=False), True
+        feed, staged = tfeed.consolidate(entries), True
         assert len(feed) == 2  # two stacks: every step a replay
     else:
         feed, staged = batches, False

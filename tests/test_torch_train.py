@@ -294,6 +294,35 @@ def test_trainer_fit_feed_options_match_jax():
                                        err_msg=k)
 
 
+@pytest.mark.parametrize("spd", [1, 2])
+def test_trainer_fit_steps_per_epoch_matches_jax(spd):
+    """Trainer.fit cut to 3 of 4 batches an epoch (steps_per_epoch) with
+    the cache on (a cut epoch fills none, so every epoch streams), at 1 and
+    2 steps per dispatch, against the JAX Trainer.fit: 3 epochs, history
+    within rtol 1e-4 (the Adam settings of the test above)."""
+    adam = {"cls": "Adam", "kwargs": {"learning_rate": 1e-4, "epsilon": 1e-4}}
+    jm = jmodels.create("xvector", (T, FEAT), N_CLASSES).init()
+    tm = tmodels.create("xvector", (T, FEAT), N_CLASSES, device="cpu")
+    tm.load_flax_params(jax.device_get(jm.variables["params"]))
+    train, val = feature_batches(4, seed=7), feature_batches(2, seed=8)
+    history = {}
+    for name, pkg in (("jax", (jopt, jloop, jlosses, jm)),
+                      ("torch", (topt, tloop, tlosses, tm))):
+        opt, loop, losses, model = pkg
+        kw = {} if name == "jax" else {"device": "cpu"}
+        trainer = loop.Trainer(model, opt.optimizer_from_config(adam)[0],
+                               losses.nll_loss, cache_staged=True, **kw)
+        history[name] = trainer.fit(lambda: train, lambda: val, epochs=3,
+                                    steps_per_epoch=3,
+                                    steps_per_dispatch=spd, verbose=False)
+        assert int(trainer.state.step) == 9
+    assert len(history["torch"]) == len(history["jax"]) == 3
+    for o, r in zip(history["torch"], history["jax"]):
+        for k in ("loss", "val_loss"):
+            np.testing.assert_allclose(o[k], r[k], rtol=1e-4, atol=1e-7,
+                                       err_msg=k)
+
+
 def test_bf16_compute_trains_within_the_jax_bound():
     model = tmodels.create("xvector", (24, 8), 3, device="cpu")
     trainer = tloop.Trainer(model, topt.adam(5e-3), tlosses.nll_loss,
